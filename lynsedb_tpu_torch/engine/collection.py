@@ -734,9 +734,8 @@ class Collection:
 
             use_exact = handle is not None and should_use_exact_filtered_search(subset, self.n_rows)
             if self._index is not None and not use_exact:
-                dists, ids = self._index.search(
-                    self, q, k, mask=handle.mask if handle else None, nprobe=nprobe
-                )
+                # the handle caches its staged device mask per corpus epoch
+                dists, ids = self._index.search(self, q, k, mask=handle, nprobe=nprobe)
                 index_path = self._index.kind
                 scanned = getattr(self._index, "last_scanned", subset)
             elif self._aux_index is not None and not use_exact:

@@ -6,8 +6,9 @@ Canberra/Bray-Curtis exact-only; IndexBuildOptions :510-648 — unknown keys
 rejected, inapplicable keys filtered per family; engine aux quantized modes
 FLAT-*-PQ/RABITQ/POLARVEC engine.rs:4576-4595).
 
-Index families (this package serves FLAT without a quantizer; the others
-raise NotImplementedError naming the ROADMAP item that ports them):
+Index families (this package serves FLAT without a quantizer, and IVF and
+SPANN over IP/L2/cosine; the others raise NotImplementedError naming the
+ROADMAP item that ports them):
   FLAT    — no index object; the engine scans the device corpus directly.
   IVF     — k-means partitions, probe top-nprobe partitions on device.
   SPANN   — IVF with boundary replicas.
@@ -210,17 +211,18 @@ def _index_dir(coll) -> Path:
 
 # ROADMAP items that port each index family and quantizer
 _NOT_PORTED = {
-    "IVF": "A.9", "SPANN": "A.9", "HNSW": "A.10", "DISKANN": "A.10",
+    "HNSW": "A.10", "DISKANN": "A.10",
     "sq8": "A.8", "pq": "A.8", "rabitq": "A.8", "polarvec": "A.8",
 }
 
 
 def _check_ported(mode: ResolvedMode) -> None:
-    what = mode.family if mode.family != "FLAT" else mode.quantizer
-    if what in _NOT_PORTED:
+    item = _NOT_PORTED.get(mode.family if mode.family != "FLAT" else mode.quantizer)
+    if mode.family == "IVF" and mode.metric.is_binary:
+        item = "K6"  # hamming / jaccard IVF needs the binary distance kernel
+    if item is not None:
         raise NotImplementedError(
-            f"index mode {mode.canonical} is not ported to the CUDA engine yet "
-            f"(ROADMAP {_NOT_PORTED[what]})"
+            f"index mode {mode.canonical} is not ported to the CUDA engine yet (ROADMAP {item})"
         )
 
 
@@ -240,6 +242,11 @@ def build_index(coll, index_mode: str, options: dict) -> None:
     coll._aux_index = None
     coll.index_mode = mode.canonical
 
+    if mode.family in ("IVF", "SPANN"):
+        from .ivf import IVFIndex
+
+        coll._index = IVFIndex.build(coll, mode, opts)
+
     meta = {
         "index_mode": mode.canonical,
         "family": mode.family,
@@ -253,7 +260,7 @@ def build_index(coll, index_mode: str, options: dict) -> None:
 
 
 def load_index(coll):
-    """Check a persisted index at collection open. Returns (index,
+    """Reload a persisted index at collection open. Returns (index,
     aux_index): (None, None) for the FLAT family, which needs no index
     object."""
     idx_dir = _index_dir(coll)
@@ -261,5 +268,10 @@ def load_index(coll):
     if not meta_path.exists() or coll.index_mode is None:
         return None, None
     meta = json.loads(meta_path.read_text())
-    _check_ported(resolve_index_mode(meta["index_mode"], coll.dim))
+    mode = resolve_index_mode(meta["index_mode"], coll.dim)
+    _check_ported(mode)
+    if mode.family in ("IVF", "SPANN"):
+        from .ivf import IVFIndex
+
+        return IVFIndex.load(coll, mode, IndexBuildOptions(**meta.get("options", {}))), None
     return None, None

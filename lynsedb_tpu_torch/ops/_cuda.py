@@ -2,10 +2,12 @@
 
 All sources under ``lynsedb_tpu_torch/csrc`` compile with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, bound with
-ctypes. The library is built at first use into ``build/lynsedb_tpu_torch``
-beside the package and is keyed on a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads in milliseconds. Nothing here runs at import time: the
-CPU tests import every module on a machine without ``nvcc``.
+ctypes: one ``nvcc -c`` per source, all started together, then one link.
+The library is built at first use into ``build/lynsedb_tpu_torch`` beside
+the package and is keyed on a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads in milliseconds. Nothing here
+runs at import time: the CPU tests import every module on a machine without
+``nvcc``.
 
 Every C entry point launches on the stream it is given, allocates nothing and
 returns the ``cudaError_t`` of its launch; :func:`call` raises on a non-zero
@@ -29,18 +31,21 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "lynsedb_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every entry point: each pointer and the stream is c_void_p, so
 # no 64-bit address is ever passed as a 32-bit int
 _SIGNATURES = {
-    "lt_topk_select": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "lt_topk_select": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "lt_flat_scores_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_bf16_centered_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_rescore_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "lt_rescore_keys": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "lt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "lt_kmeans_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "lt_ivf_scan_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 _LOCK = threading.Lock()
@@ -72,16 +77,26 @@ def build() -> tuple[Path, str]:
     if lib_path.exists():
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent process never loads half a file
-    return lib_path, log
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(Path(tmp) / f"{src.stem}.o")]
+                for src in sorted(CSRC.glob("*.cu"))]
+        cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(Path(tmp) / "lib.so"),
+                     *(c[-1] for c in cmds)])
+        log = []
+        for step in (cmds[:-1], cmds[-1:]):  # every source at once, then the link
+            procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True)) for cmd in step]
+            for cmd, proc in procs:
+                out = proc.communicate()[0]
+                log.append(out)
+                if proc.returncode != 0:
+                    for _, other in procs:
+                        other.wait()
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        # atomic: a concurrent process never loads half a file
+        os.replace(Path(tmp) / "lib.so", lib_path)
+    return lib_path, "".join(log)
 
 
 def library() -> ctypes.CDLL:
@@ -93,8 +108,8 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
-            lib.lt_topk_scratch_per_row.argtypes = [_I, _I]
-            lib.lt_topk_scratch_per_row.restype = ctypes.c_longlong
+            lib.lt_topk_scratch.argtypes = [_I, _I, _I]
+            lib.lt_topk_scratch.restype = ctypes.c_longlong
             lib.lt_error_string.argtypes = [_I]
             lib.lt_error_string.restype = ctypes.c_char_p
             _LIB.append(lib)

@@ -37,7 +37,7 @@ import torch
 from ..metrics import Metric
 from . import _cuda
 from . import distance as D
-from .topk import MAX_K, topk_select, unorient
+from .topk import topk_select, unorient
 
 # Metrics served by the bf16 first pass + exact f32 rescore.
 TWO_PASS_METRICS = (Metric.IP, Metric.L2, Metric.COSINE)
@@ -52,6 +52,9 @@ ROW_ALIGN = 128
 SCORE_BUDGET = 1 << 28
 # Rows converted per host staging step.
 STAGE_ROWS = 1 << 17
+
+# Largest shortlist K3 sorts in shared memory; a larger one goes through K5.
+RESCORE_SORT_MAX = 1024
 
 _METRIC_CODE = {Metric.IP: 0, Metric.L2: 1, Metric.COSINE: 2}
 
@@ -228,7 +231,9 @@ def rescore_topk(q: torch.Tensor, x32: torch.Tensor, cand_keys: torch.Tensor,
     ``cand_keys`` the first-pass keys, -inf for an empty slot) against the f32
     corpus ``x32``: best k by (score desc, id asc), non-finite scores dropped.
     Returns (dists (B, k) f32, ids (B, k) int64) with +inf/-inf and -1 in
-    the slots nothing filled."""
+    the slots nothing filled. Up to ``RESCORE_SORT_MAX`` slots one kernel
+    scores and sorts; above it the kernel writes the (B, C) exact keys and
+    K5 selects the top k with the row ids as its tie-break."""
     if q.device.type == "cpu":
         return rescore_topk_plain(q, x32, cand_keys, cand_idx, k, metric)
     code = _kernel_metric("rescore_topk", metric)
@@ -239,17 +244,30 @@ def rescore_topk(q: torch.Tensor, x32: torch.Tensor, cand_keys: torch.Tensor,
         raise ValueError("rescore_topk: q (B, D) and x32 (N, D) must be float32")
     if cand_idx.dtype != torch.int32 or cand_keys.shape != (b, c) or cand_idx.shape != (b, c):
         raise ValueError("rescore_topk: cand_keys (B, C) float32 and cand_idx (B, C) int32 expected")
-    if not 1 <= k <= c <= MAX_K:
-        raise ValueError(f"rescore_topk: need 1 <= k <= C <= {MAX_K}, got k={k}, C={c}")
-    dists = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    ids = torch.empty((b, k), dtype=torch.int64, device=q.device)
+    if not 1 <= k <= c:
+        raise ValueError(f"rescore_topk: need 1 <= k <= C, got k={k}, C={c}")
+    stream = _cuda.stream_of(q)
+    if c <= RESCORE_SORT_MAX:
+        dists = torch.empty((b, k), dtype=torch.float32, device=q.device)
+        ids = torch.empty((b, k), dtype=torch.int64, device=q.device)
+        _cuda.call(
+            "lt_rescore_topk", q.data_ptr(), x32.data_ptr(), cand_keys.data_ptr(),
+            cand_idx.data_ptr(), b, c, d, k, code, int(metric.ascending), dists.data_ptr(),
+            ids.data_ptr(), stream,
+        )
+        rescore_topk.launches += 1
+        return dists, ids
+    keys = torch.empty((b, c), dtype=torch.float32, device=q.device)
     _cuda.call(
-        "lt_rescore_topk", q.data_ptr(), x32.data_ptr(), cand_keys.data_ptr(),
-        cand_idx.data_ptr(), b, c, d, k, code, int(metric.ascending), dists.data_ptr(),
-        ids.data_ptr(), _cuda.stream_of(q),
+        "lt_rescore_keys", q.data_ptr(), x32.data_ptr(), cand_keys.data_ptr(),
+        cand_idx.data_ptr(), b, c, d, code, int(metric.ascending), keys.data_ptr(), stream,
     )
     rescore_topk.launches += 1
-    return dists, ids
+    top, top_ids = topk_select(keys, k, ids=cand_idx)
+    kept = top > float("-inf")
+    fill = float("inf") if metric.ascending else float("-inf")
+    return (torch.where(kept, unorient(top, metric.ascending), fill),
+            torch.where(kept, top_ids.long(), -1))
 
 
 rescore_topk.launches = 0
@@ -355,12 +373,11 @@ class DeviceCorpus:
     def device_bytes(self, cap: int) -> int:
         """Device memory a corpus of ``cap`` rows needs at its largest: the
         bf16 and f32 copies, the aux rows and masks, and one search's scratch
-        (the (B, cap) score matrix at the largest batch, and K5's buffers)."""
+        (the (B, cap) score matrix at the largest batch, and K5's two
+        buffers, which hold at most cap (key, index) pairs a row for any k)."""
         copies = cap * self.dim * (2 + 4) + cap * (4 * 3 + 2)
         b_max = max(1, SCORE_BUDGET // cap)
-        chunks = -(-cap // 4096)
-        topk_scratch = 2 * b_max * chunks * MAX_K * 8
-        return copies + b_max * cap * 4 + topk_scratch
+        return copies + b_max * cap * 4 + 2 * b_max * cap * 8
 
     def _check_fits(self, cap: int) -> None:
         """Raise before staging a corpus whose device copies and search

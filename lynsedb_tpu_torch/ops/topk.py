@@ -8,7 +8,9 @@ ties: the order ``jax.lax.top_k`` gives in the JAX package
 
 :func:`topk_select` is the kernel's wrapper: on a CUDA tensor it launches the
 bitonic select kernel (csrc/topk_select.cu), on a CPU tensor it runs the plain
-version beside it.
+version beside it. Any 1 <= k <= N runs a hand-written kernel: k <= 1,024
+selects in shared memory, a larger k sorts 4,096-key chunks and merges the
+sorted runs.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ import torch
 
 from . import _cuda
 
-MAX_K = 1024  # the kernel's bound on k (its shared-memory sort width)
 NEG_INF = float("-inf")
 
 
@@ -30,39 +31,48 @@ def unorient(keys: torch.Tensor, ascending: bool) -> torch.Tensor:
     return -keys if ascending else keys
 
 
-def topk_select_plain(keys: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def topk_select_plain(keys: torch.Tensor, k: int, ids: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`topk_select`: a stable descending sort keeps
-    the lower index first among equal keys."""
+    the lower index first among equal keys (with ``ids``: a stable sort by id
+    first, so the lower id is first)."""
     keys = torch.where(torch.isnan(keys), NEG_INF, keys)
-    vals, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+    if ids is None:
+        vals, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
+        return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+    by_id = torch.sort(ids, dim=-1, stable=True).indices
+    by_key = torch.sort(keys.gather(1, by_id), dim=-1, descending=True, stable=True).indices
+    order = by_id.gather(1, by_key)[:, :k]
+    return keys.gather(1, order).contiguous(), ids.gather(1, order).to(torch.int32).contiguous()
 
 
-def topk_select(keys: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def topk_select(keys: torch.Tensor, k: int, ids: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k of a (B, N) f32 key matrix (bigger first, lower index first
     between equal keys, NaN as -inf). Returns (keys (B, k) f32, column
-    indices (B, k) int32). 0 <= k <= N."""
+    indices (B, k) int32). 0 <= k <= N. ``ids`` (B, N) int32, if given,
+    takes the column index's place: it breaks ties and is returned."""
     b, n = keys.shape
     if not 0 <= k <= n:
         raise ValueError(f"topk_select: k={k} outside [0, {n}]")
+    if ids is not None and (ids.shape != keys.shape or ids.dtype != torch.int32):
+        raise ValueError("topk_select: ids must be int32 and shaped like keys")
     if keys.device.type == "cpu":
-        return topk_select_plain(keys, k)
-    _cuda.require_cuda("topk_select", keys)
+        return topk_select_plain(keys, k, ids)
+    _cuda.require_cuda("topk_select", keys, ids)
     if keys.dtype != torch.float32:
         raise ValueError(f"topk_select: keys must be float32, got {keys.dtype}")
-    if k > MAX_K:
-        raise ValueError(f"topk_select: k={k} exceeds the kernel's limit of {MAX_K}")
     out_keys = torch.empty((b, k), dtype=torch.float32, device=keys.device)
     out_idx = torch.empty((b, k), dtype=torch.int32, device=keys.device)
     if k == 0 or b == 0:
         return out_keys, out_idx
-    per_row = _cuda.library().lt_topk_scratch_per_row(n, k)
-    s_keys = torch.empty((2, b * per_row), dtype=torch.float32, device=keys.device)
-    s_idx = torch.empty((2, b * per_row), dtype=torch.int32, device=keys.device)
+    entries = _cuda.library().lt_topk_scratch(b, n, k)
+    s_keys = torch.empty((2, entries), dtype=torch.float32, device=keys.device)
+    s_idx = torch.empty((2, entries), dtype=torch.int32, device=keys.device)
     _cuda.call(
-        "lt_topk_select", keys.data_ptr(), b, n, k, out_keys.data_ptr(), out_idx.data_ptr(),
-        s_keys[0].data_ptr(), s_idx[0].data_ptr(), s_keys[1].data_ptr(), s_idx[1].data_ptr(),
-        _cuda.stream_of(keys),
+        "lt_topk_select", keys.data_ptr(), _cuda.ptr(ids), b, n, k, out_keys.data_ptr(),
+        out_idx.data_ptr(), s_keys[0].data_ptr(), s_idx[0].data_ptr(), s_keys[1].data_ptr(),
+        s_idx[1].data_ptr(), _cuda.stream_of(keys),
     )
     topk_select.launches += 1
     return out_keys, out_idx

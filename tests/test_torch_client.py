@@ -206,8 +206,8 @@ def test_device_is_explicit(tmp_path):
     try:
         coll = client.create_database("d").require_collection("c", dim=4)
         coll.add(vectors=np.eye(4, dtype=np.float32))
-        with pytest.raises(NotImplementedError, match="A.9"):
-            coll.build_index("IVF-L2")
+        with pytest.raises(NotImplementedError, match="A.10"):
+            coll.build_index("HNSW-L2")
         with pytest.raises(NotImplementedError, match="A.13"):
             coll.bm25_search("hello")
         assert coll.search(np.eye(4, dtype=np.float32)[2], k=1).ids.tolist() == [2]

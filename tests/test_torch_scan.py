@@ -193,3 +193,26 @@ def test_empty_and_fully_filtered():
     assert i.shape == (2, 0)
     with pytest.raises(NotImplementedError, match="K6"):
         tc.search(np.zeros((1, DIM), np.float32), 5, Metric.L1)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_large_k_matches_jax(corpora, metric):
+    """k = 2,000 (a shortlist of 2,560: K5's sort-and-merge path and K3's
+    K5-backed path on the card) under a 50% filter."""
+    jc, tc, q, masks = corpora[20000]
+    ti = _compare(jc, tc, q[:2], 2000, metric, masks["half"])
+    assert ti.shape == (2, 2000)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_range_search_matches_jax(corpora, metric):
+    """search_range at its default max_results=1000 (a shortlist of 1,280),
+    with a threshold that keeps about half of those rows."""
+    jc, tc, q, _ = corpora[20000]
+    d_all, _ = tc.search(q[:1], 1000, Metric(metric))
+    threshold = float(d_all[0, 500])
+    jd, ji = jc.range_search(q[0], threshold, JaxMetric(metric), max_results=1000)
+    td, ti = tc.range_search(q[0], threshold, Metric(metric), max_results=1000)
+    assert 400 < len(ti) <= 1000
+    assert_same_ids(ti[None], ji[None], tc._host, q[:1], metric)
+    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-4)

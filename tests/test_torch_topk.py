@@ -88,3 +88,14 @@ def test_topk_select_plain_order_and_bounds():
     assert vals[0, :4].tolist() == [3.0, 3.0, 1.0, 1.0]
     with pytest.raises(ValueError):
         topk.topk_select(keys, 7)
+
+
+def test_topk_select_plain_with_ids():
+    """With ``ids`` the ids break ties and come back in place of columns."""
+    keys = torch.tensor([[1.0, 3.0, 3.0, float("nan"), 1.0, 2.0]])
+    ids = torch.tensor([[50, 9, 4, 1, 7, 30]], dtype=torch.int32)
+    vals, out = topk.topk_select(keys, 5, ids=ids)
+    assert out.tolist() == [[4, 9, 30, 7, 50]]
+    assert vals.tolist() == [[3.0, 3.0, 2.0, 1.0, 1.0]]
+    with pytest.raises(ValueError):
+        topk.topk_select(keys, 2, ids=ids.long())
