@@ -22,15 +22,25 @@ Phases (each prints its seconds):
      then a 2,000-row collection (the exact K1 plan).
   5. large k: search(k=1000) and search_range(max_results=1000) on the 1M
      collection (a shortlist of 1,280: K5's sort-and-merge path, K3 via K5).
+     Then the quantized scans at 1,000,000 x 128: K12 int8_code_scores for
+     SQ8 / RaBitQ / PolarVec x IP / L2 / cosine and K13 pq_adc_scores (M=16)
+     at B in {1, 16, 64} with the 10% mask, K14 fwht_rotate at B in {1, 64},
+     K11 bf16_gather_scores at S = 4,000 (a K2 shortlist), B in {1, 16, 64},
+     and kmeans_assign at (1,000,000, 8) x 256 (PQ's encode).
   6. IVF path: build_index("IVF-L2", n_clusters=1000), then "IVF-IP", on the
      same collection; each answers 100 single queries (nprobe=32) and batches
      at B=16 and B=256, unfiltered and with where="bucket < 5" (half the
      rows, above the exact-filter route). ivf_scan_blocks then meets its
      plain version on each index at B in {1, 16, 256}.
-  7. checks: recall@10 and distances against a chunked numpy brute force
-     (FLAT >= 0.999, IVF >= 0.85 with no repeated id), large k against the
-     exact top 1,000, and the launch counts of each path (counts set to 0
-     just before a path and read just after; every kernel of the path > 0).
+  7. quantized path: the upstream gate's five quantized modes on the same
+     collection (FLAT-IP-SQ8, FLAT-L2-SQ8, FLAT-IP-PQ, FLAT-IP-RABITQ,
+     FLAT-IP-POLARVEC), each built and asked the IVF phase's queries,
+     unfiltered and with where="bucket < 5".
+  8. checks: recall@10 and distances against a chunked numpy brute force
+     (FLAT >= 0.999, IVF >= 0.85, SQ8 >= 0.95, PQ / RaBitQ / PolarVec >= 0.70,
+     with no repeated id), large k against the exact top 1,000.
+  9. the launch counts of each path (counts set to 0 just before a path and
+     read just after; every kernel of the path > 0).
 The corpus is seeded numpy: 1M x 128 f32 rows drawn from a mixture of 2,000
 gaussian clusters (embedding-like data, on which a partition index has
 structure to find), with 1,000 duplicated rows. The line before the last is
@@ -53,7 +63,7 @@ import torch
 import lynsedb_tpu_torch as lynse
 from lynsedb_tpu_torch.index import ivf
 from lynsedb_tpu_torch.metrics import Metric
-from lynsedb_tpu_torch.ops import _cuda, kmeans, topk
+from lynsedb_tpu_torch.ops import _cuda, kmeans, quantize, topk
 from lynsedb_tpu_torch.ops import distance as D
 from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
@@ -69,8 +79,14 @@ N_CENTERS, SPREAD = 2000, 0.6  # the corpus's mixture
 BIG_K = 1000
 SEED = 0
 DEV = torch.device("cuda")
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 and dense bf16 flop/s
-HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 and dense bf16 flop/s,
+# dense int8 op/s
+HBM_BPS, F32_FLOPS, BF16_FLOPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
+# the upstream gate's quantized modes (benchmarks/gate_index_modes.py:39-43)
+# and their recall@10 floors (SURVEY.md section 6)
+QUANT_MODES = {"FLAT-IP-SQ8": 0.95, "FLAT-L2-SQ8": 0.95, "FLAT-IP-PQ": 0.70,
+               "FLAT-IP-RABITQ": 0.70, "FLAT-IP-POLARVEC": 0.70}
+SHORTLIST, QUANT_BATCHES = 4000, (1, 16, 64)  # S at 1M rows and k=10; the query slice
 GC = GcClock()  # garbage-collection seconds, read around each timed batch call
 
 KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
@@ -89,6 +105,16 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
                           "lynsedb_tpu/ops/kmeans.py:70"),
     "K16 ivf_scan_blocks": (ivf.ivf_scan_blocks, "lynsedb_tpu_torch/csrc/ivf_scan_blocks.cu",
                             "lynsedb_tpu/index/ivf.py:43"),
+    "K11 bf16_gather_scores": (scan.bf16_gather_scores,
+                               "lynsedb_tpu_torch/csrc/bf16_gather_scores.cu",
+                               "lynsedb_tpu/ops/scan.py:416"),
+    "K12 int8_code_scores": (quantize.int8_code_scores,
+                             "lynsedb_tpu_torch/csrc/int8_code_scores.cu",
+                             "lynsedb_tpu/ops/quantize.py:90"),
+    "K13 pq_adc_scores": (quantize.pq_adc_scores, "lynsedb_tpu_torch/csrc/pq_adc_scores.cu",
+                          "lynsedb_tpu/ops/quantize.py:391"),
+    "K14 fwht_rotate": (quantize.fwht_rotate, "lynsedb_tpu_torch/csrc/fwht_rotate.cu",
+                        "lynsedb_tpu/ops/quantize.py:59"),
 }
 # the kernels each path must launch
 PATHS = {
@@ -97,6 +123,9 @@ PATHS = {
     "large_k": ("K2 bf16_centered_scores", "K3 rescore_topk", "K5 topk_select"),
     "ivf": ("K1 flat_scores_f32", "K5 topk_select", "K15 kmeans_assign", "K15 kmeans_update",
             "K16 ivf_scan_blocks"),
+    "quantized": ("K3 rescore_topk", "K5 topk_select", "K11 bf16_gather_scores",
+                  "K12 int8_code_scores", "K13 pq_adc_scores", "K14 fwht_rotate",
+                  "K15 kmeans_assign"),
 }
 
 
@@ -212,9 +241,9 @@ class Stats:
                       f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
 
 
-def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> None:
+def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
     """K1, K2, K3 and K5 against their plain versions at the flat path's
-    shapes, then K5 and K3 past k = 1,024."""
+    shapes, then K5 and K3 past k = 1,024. Returns the staged corpus."""
     corpus = DeviceCorpus(DIM, device=DEV)
     corpus.append(x)
     mask = rng.random(N) < 0.1
@@ -345,6 +374,7 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> None:
                      4 * n_cand * DIM))
     print(f"   K5 at k in {{{BIG_K}, 1025, 4096}} and k = N = 20,000, K3 at C = {c_big}: "
           "equal to their plain versions", flush=True)
+    return corpus
 
 
 def kmeans_kernel_phase(x: np.ndarray, rng, stats: Stats) -> None:
@@ -400,6 +430,168 @@ def kmeans_kernel_phase(x: np.ndarray, rng, stats: Stats) -> None:
                bound(n_train * 5 + n_valid * DIM * 4 + N_CLUSTERS * (3 * DIM + 2) * 4,
                      n_valid * DIM))
     print("   kmeans_update: sums, counts and centroids agree; two runs bit-identical", flush=True)
+
+
+def accepted(library):
+    """``library`` if one call of it runs, else None: a yardstick call may
+    refuse a shape, which is no fault of the port."""
+    try:
+        library()
+        sync()
+        return library
+    except RuntimeError as err:
+        print(f"   library call refused: {err}", flush=True)
+        return None
+
+
+def synthetic_code_state(kind: str, gen: torch.Generator) -> dict:
+    """An int8-coded index of N x DIM codes on the card, drawn from a seeded
+    generator in the value ranges of ``kind``'s codes and terms (the
+    kernels' work does not depend on the values)."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=DEV)
+
+    def codes(lo, hi):
+        return torch.randint(lo, hi, (N, DIM), generator=gen, device=DEV, dtype=torch.int8)
+
+    if kind == "sq8":
+        st = {"codes": codes(-128, 128), "lo": rand(DIM) - 2.0, "scale": rand(DIM) * 0.02 + 1e-3}
+    elif kind == "rabitq":
+        st = {"bits": (codes(0, 2) * 2 - 1).to(torch.int8), "alpha": rand(N) * 0.1 + 0.05}
+    else:
+        st = {"codes": codes(0, 16), "lo": -0.3 * rand(N), "scale": rand(N) * 0.04 + 1e-3}
+    st["row_sq"] = rand(N) * 100 + 1.0
+    return st
+
+
+def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
+    """K12, K13, K14, K11 and kmeans_assign against their plain versions at
+    the quantized path's shapes: 1M x 128 codes, B in {1, 16, 64} (the
+    query slice), S = 4,000, the 10% mask for the checks; the timed
+    launches run unfiltered (tombstones only)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    valid = corpus.valid_mask(rng.random(N) < 0.1)
+    live = corpus.valid_mask()
+    n_live = int(live[:N].sum())
+    signs = torch.from_numpy(quantize.rotation_signs(DIM, 1234)).to(DEV)
+    stages = int(np.log2(DIM))
+
+    for b in (1, 64):  # K14
+        q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
+        got, want = quantize.fwht_rotate(q, signs, DIM), quantize.rotate(q, signs, DIM)
+        err = (got - want).abs()
+        check(bool((err <= 1e-6 * want.abs()).all()), f"K14 B={b}")
+        stats.error("K14 fwht_rotate", err.max())
+        stats.time("K14 fwht_rotate", f"B={b}", lambda: quantize.fwht_rotate(q, signs, DIM),
+                   lambda: quantize.rotate(q, signs, DIM), None,
+                   bound(2 * b * DIM * 4 + DIM * 4, b * DIM * (stages + 2)))
+    print("   K14 fwht_rotate agrees with its plain version (rtol 1e-6)", flush=True)
+
+    for kind in ("sq8", "rabitq", "polarvec"):  # K12
+        st = synthetic_code_state(kind, gen)
+        codes = st["bits" if kind == "rabitq" else "codes"]
+        row_bytes = {"sq8": 0, "rabitq": 4, "polarvec": 8}[kind]  # IP's per-row terms
+        for metric in METRICS:
+            for b in QUANT_BATCHES:
+                q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
+                q_rot = None if kind == "sq8" else quantize.rotate(q, signs, DIM)
+                args = (kind, q, q_rot, st, valid, metric)
+                got = quantize.int8_code_scores(*args)
+                want = quantize.int8_code_scores_plain(*args)
+                fin = torch.isfinite(want)
+                check(torch.equal(fin, torch.isfinite(got)), f"K12 {kind} {metric} B={b}: masks")
+                err = (got[fin] - want[fin]).abs()
+                check(bool((err <= 1e-5 + 1e-5 * want[fin].abs()).all()),
+                      f"K12 {kind} {metric} B={b}")
+                stats.error("K12 int8_code_scores", err.max())
+                del got, want, fin, err
+                if metric is not Metric.IP:
+                    continue
+                args_t = (kind, q, q_rot, st, live, metric)
+                library = None
+                if b > 16:  # torch._int_mm takes more than 16 rows
+                    a = q * st["scale"][None, :] if kind == "sq8" else q_rot
+                    q_i8 = quantize.quantize_queries(a)[0]
+                    library = accepted(lambda: torch._int_mm(q_i8, codes.T))
+                stats.time("K12 int8_code_scores", f"{kind} IP B={b}",
+                           lambda: quantize.int8_code_scores(*args_t),
+                           lambda: quantize.int8_code_scores_plain(*args_t), library,
+                           bound(n_live * (DIM + row_bytes) + N + b * DIM * 4 + b * N * 4,
+                                 2 * b * n_live * DIM, INT8_OPS))
+        del st, codes
+        print(f"   K12 {kind}: agrees with its plain version (IP, L2, cosine; B in "
+              f"{QUANT_BATCHES})", flush=True)
+
+    m, ds = 16, DIM // 16  # K13, PQ16
+    codes = torch.randint(0, 256, (N, m), generator=gen, device=DEV, dtype=torch.uint8)
+    books = torch.randn((m, 256, ds), generator=gen, device=DEV)
+    row_sq = (books * books).sum(-1)[torch.arange(m, device=DEV)[None, :], codes.long()].sum(1)
+    for metric in METRICS:
+        for b in QUANT_BATCHES:
+            q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
+            got = quantize.pq_adc_scores(q, codes, books, row_sq, valid, metric)
+            want = quantize.pq_adc_scores_plain(q, codes, books, row_sq, valid, metric)
+            fin = torch.isfinite(want)
+            check(torch.equal(fin, torch.isfinite(got)), f"K13 {metric} B={b}: masks")
+            # the tables' f32 sums run in another order: 1e-5 of the terms' size
+            scale = (q * q).sum(-1)[:, None] + row_sq[None, :] + want.abs()
+            err = (got - want).abs()
+            check(bool((err[fin] <= 1e-4 + 1e-5 * scale[fin]).all()), f"K13 {metric} B={b}")
+            stats.error("K13 pq_adc_scores", err[fin].max())
+            del got, want, fin, scale, err
+            if metric is Metric.IP:
+                stats.time("K13 pq_adc_scores", f"M={m} IP B={b}",
+                           lambda: quantize.pq_adc_scores(q, codes, books, row_sq, live, metric),
+                           lambda: quantize.pq_adc_scores_plain(q, codes, books, row_sq, live,
+                                                                metric), None,
+                           bound(n_live * m + N + books.numel() * 4 + b * DIM * 4 + b * N * 4,
+                                 2 * b * m * 256 * ds + b * n_live * m))
+    print(f"   K13 pq_adc_scores M={m}: agrees with its plain version", flush=True)
+    del codes, books, row_sq
+
+    x16, aux = corpus._dev16, corpus.bf16_aux()  # K11 on a K2 shortlist
+    for metric in METRICS:
+        for b in QUANT_BATCHES:
+            q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
+            top, cand = topk.topk_select(scan.bf16_centered_scores(q, x16, aux, valid, metric),
+                                         SHORTLIST)
+            got = scan.bf16_gather_scores(q, x16, aux, cand, top, metric)
+            want = scan.bf16_gather_scores_plain(q, x16, aux, cand, top, metric)
+            fin = torch.isfinite(want)
+            check(torch.equal(fin, torch.isfinite(got)), f"K11 {metric} B={b}: empty slots")
+            safe = cand.clamp_min(0).long()
+            qc_norm = (q - aux["mean"][None, :]).norm(dim=1)[:, None]
+            tol = 1e-5 * qc_norm * torch.sqrt(aux["xc_sq"][safe]) + 1e-5  # as K2's
+            if metric is Metric.COSINE:
+                tol = tol / torch.sqrt((q * q).sum(-1)[:, None]
+                                       * aux["xsq_true"][safe]).clamp_min(1e-30)
+            err = (got - want).abs()
+            check(bool((err[fin] <= tol[fin]).all()), f"K11 {metric} B={b}")
+            stats.error("K11 bf16_gather_scores", err[fin].max())
+            if metric is Metric.IP:
+                n_cand = int((top > float("-inf")).sum())  # the rows it gathers
+                stats.time("K11 bf16_gather_scores", f"IP B={b} S={SHORTLIST}",
+                           lambda: scan.bf16_gather_scores(q, x16, aux, cand, top, metric),
+                           lambda: scan.bf16_gather_scores_plain(q, x16, aux, cand, top, metric),
+                           None, bound(n_cand * (DIM * 2 + 4) + b * SHORTLIST * 12 + b * DIM * 2,
+                                       2 * n_cand * DIM))
+    print(f"   K11 bf16_gather_scores S={SHORTLIST}: agrees with its plain version", flush=True)
+
+    # kmeans_assign at PQ's encode shape: every row's 8-wide subspace x 256
+    sub = torch.from_numpy(np.ascontiguousarray(corpus.host_rows(np.arange(N))[:, :ds])).to(DEV)
+    cent = sub[torch.from_numpy(rng.choice(N, 256, replace=False)).to(DEV)].clone()
+    got, want = kmeans.kmeans_assign(sub, cent, False), kmeans.kmeans_assign_plain(sub, cent, False)
+    diff = torch.nonzero(got != want).flatten()
+    if len(diff):  # allowed only where the two best codewords nearly tie
+        top2 = (-kmeans._l2_scores(sub[diff], cent, (cent * cent).sum(-1))).topk(2, dim=1).values
+        check(bool(((top2[:, 0] - top2[:, 1]).abs() <= 1e-5 * top2[:, 0].abs() + 1e-6).all()),
+              f"kmeans_assign (N, {ds}) x 256: {len(diff)} differ beyond a near-tie")
+    stats.time("K15 kmeans_assign", f"L2 N={N} K=256 D={ds}",
+               lambda: kmeans.kmeans_assign(sub, cent, False),
+               lambda: kmeans.kmeans_assign_plain(sub, cent, False), None,
+               bound(N * ds * 4 + 256 * (ds + 1) * 4 + N * 4, 2 * N * 256 * ds))
+    print(f"   kmeans_assign (N, {ds}) x 256: {len(diff)} near-tie rows differ", flush=True)
 
 
 def exact_topk(x: np.ndarray, rows: np.ndarray, q: np.ndarray, k: int, metric=Metric.IP,
@@ -544,7 +736,10 @@ def main() -> int:
     x, centers = make_corpus(rng)
     stats = Stats()
     with phase("3 kernels vs plain"):
-        flat_kernel_phase(x, rng, stats)
+        corpus = flat_kernel_phase(x, rng, stats)
+        torch.cuda.empty_cache()
+        quant_kernel_phase(corpus, rng, stats)
+        del corpus
         torch.cuda.empty_cache()
         kmeans_kernel_phase(x, rng, stats)
     torch.cuda.empty_cache()
@@ -609,9 +804,26 @@ def main() -> int:
                 with uncounted():
                     ivf_scan_phase(coll, (ivf_q[:1], ivf_q[100:116], ivf_q[164:420]), stats, mode)
         counts["ivf"] = read_counts()
+
+        set_counts({})
+        quant_out = {}
+        with phase("7 quantized path"):
+            for mode in QUANT_MODES:
+                t0 = time.perf_counter()
+                coll.build_index(mode)
+                report[f"{mode} build_s"] = time.perf_counter() - t0
+                print(f"   build_index({mode!r}): {report[f'{mode} build_s']:.2f} s "
+                      f"{coll._engine._aux_index.last_build_phases}", flush=True)
+                t0 = time.perf_counter()
+                coll.search(centers[0], k=K)  # stages the codes
+                print(f"   first search (codes to the card): {time.perf_counter() - t0:.2f} s")
+                for where in (None, "bucket < 5"):
+                    quant_out[(mode, where)] = run_queries(coll, *ivf_sets, where)
+                sync()
+        counts["quantized"] = read_counts()
         client.close()
 
-    with phase("7 checks against numpy brute force"):
+    with phase("8 checks against numpy brute force"):
         all_rows = np.arange(N)
         for where, rows in ((None, all_rows), ("bucket = 3", np.nonzero(all_rows % 10 == 3)[0])):
             label = "unfiltered" if where is None else where
@@ -654,24 +866,30 @@ def main() -> int:
         check(report[f"FLAT recall@{BIG_K}"] >= RECALL_FLOOR, f"k={BIG_K} recall")
 
         xsq = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
-        for mode, metric in (("IVF-L2", Metric.L2), ("IVF-IP", Metric.IP)):
+        gts = {}  # (metric, where) -> the exact top 10 of the mixture queries
+        modes = [("IVF-L2", Metric.L2, IVF_RECALL_FLOOR, ivf_out),
+                 ("IVF-IP", Metric.IP, IVF_RECALL_FLOOR, ivf_out)]
+        modes += [(mode, Metric.L2 if "-L2-" in mode else Metric.IP, floor, quant_out)
+                  for mode, floor in QUANT_MODES.items()]
+        for mode, metric, floor, out in modes:
             for where, rows in ((None, all_rows), ("bucket < 5", np.nonzero(all_rows % 10 < 5)[0])):
                 label = f"{mode} {'unfiltered' if where is None else where}"
-                views, lat, calls = ivf_out[(mode, where)]
-                _, gt = exact_topk(x, rows, ivf_q, K, metric, xsq)
+                views, lat, calls = out[(mode, where)]
+                if (metric, where) not in gts:
+                    gts[(metric, where)] = exact_topk(x, rows, ivf_q, K, metric, xsq)[1]
+                gt = gts[(metric, where)]
                 report[f"{label} recall_single"] = check_results(
-                    x, ivf_q[:100], views[1], gt[:100], f"{label} single", metric, IVF_RECALL_FLOOR)
+                    x, ivf_q[:100], views[1], gt[:100], f"{label} single", metric, floor)
                 for b, lo, hi in ((16, 100, 164), (256, 164, len(ivf_q))):
                     report[f"{label} recall_b{b}"] = check_results(
-                        x, ivf_q[lo:hi], views[b], gt[lo:hi], f"{label} B={b}", metric,
-                        IVF_RECALL_FLOOR)
+                        x, ivf_q[lo:hi], views[b], gt[lo:hi], f"{label} B={b}", metric, floor)
                     report[f"{label} qps_b{b}"] = len(views[b]) / sum(calls[b]["s"])
                     report[f"{label} calls_b{b}"] = calls[b]
                 report[f"{label} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
                 report[f"{label} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
 
-    with phase("8 launch counts"):
-        by_path = {"flat": counts["flat"], "large_k": counts["large_k"], "ivf": counts["ivf"]}
+    with phase("9 launch counts"):
+        by_path = {path: counts[path] for path in PATHS}
         for path, names in PATHS.items():
             print(f"   {path}: {by_path[path]}")
             for name in names:
@@ -688,7 +906,10 @@ def main() -> int:
              "K3 rescore_topk": f"IP B=16 C={C}", "K5 topk_select": f"IP B=16 k={C}",
              "K15 kmeans_assign": f"L2 N={N_CLUSTERS * 256} K={N_CLUSTERS}",
              "K15 kmeans_update": f"N={N_CLUSTERS * 256} K={N_CLUSTERS}",
-             "K16 ivf_scan_blocks": f"IVF-L2 B=16 nprobe={NPROBE}"}
+             "K16 ivf_scan_blocks": f"IVF-L2 B=16 nprobe={NPROBE}",
+             "K11 bf16_gather_scores": f"IP B=16 S={SHORTLIST}",
+             "K12 int8_code_scores": "sq8 IP B=16", "K13 pq_adc_scores": "M=16 IP B=16",
+             "K14 fwht_rotate": "B=64"}
     kernels = []
     for name, (_, src, rep) in KERNELS.items():
         row = stats.rows[name][shown[name]]

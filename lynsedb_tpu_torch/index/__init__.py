@@ -6,15 +6,16 @@ Canberra/Bray-Curtis exact-only; IndexBuildOptions :510-648 — unknown keys
 rejected, inapplicable keys filtered per family; engine aux quantized modes
 FLAT-*-PQ/RABITQ/POLARVEC engine.rs:4576-4595).
 
-Index families (this package serves FLAT without a quantizer, and IVF and
-SPANN over IP/L2/cosine; the others raise NotImplementedError naming the
-ROADMAP item that ports them):
+Index families (this package serves FLAT, with or without a quantizer, and
+IVF and SPANN over IP/L2/cosine; HNSW and DiskANN raise NotImplementedError
+naming the ROADMAP item that ports them):
   FLAT    — no index object; the engine scans the device corpus directly.
   IVF     — k-means partitions, probe top-nprobe partitions on device.
   SPANN   — IVF with boundary replicas.
   HNSW    — small-world graph (host graph walk + device distance batches).
   DISKANN — Vamana graph, PQ-guided beam + exact rescore.
-Aux (FLAT-only) quantized shortlist indexes: PQ, RABITQ, POLARVEC, SQ8.
+Aux (FLAT-only) quantized shortlist indexes: PQ, RABITQ, POLARVEC, SQ8
+(index/quantized.py).
 """
 
 from __future__ import annotations
@@ -209,15 +210,13 @@ def _index_dir(coll) -> Path:
     return coll.root / "index"
 
 
-# ROADMAP items that port each index family and quantizer
-_NOT_PORTED = {
-    "HNSW": "A.10", "DISKANN": "A.10",
-    "sq8": "A.8", "pq": "A.8", "rabitq": "A.8", "polarvec": "A.8",
-}
+# ROADMAP items that port each index family
+_NOT_PORTED = {"HNSW": "A.10", "DISKANN": "A.10"}
+_AUX_QUANTIZERS = ("sq8", "pq", "rabitq", "polarvec")
 
 
 def _check_ported(mode: ResolvedMode) -> None:
-    item = _NOT_PORTED.get(mode.family if mode.family != "FLAT" else mode.quantizer)
+    item = _NOT_PORTED.get(mode.family)
     if mode.family == "IVF" and mode.metric.is_binary:
         item = "K6"  # hamming / jaccard IVF needs the binary distance kernel
     if item is not None:
@@ -242,7 +241,11 @@ def build_index(coll, index_mode: str, options: dict) -> None:
     coll._aux_index = None
     coll.index_mode = mode.canonical
 
-    if mode.family in ("IVF", "SPANN"):
+    if mode.family == "FLAT" and mode.quantizer in _AUX_QUANTIZERS:
+        from .quantized import build_aux_index
+
+        coll._aux_index = build_aux_index(coll, mode, opts)
+    elif mode.family in ("IVF", "SPANN"):
         from .ivf import IVFIndex
 
         coll._index = IVFIndex.build(coll, mode, opts)
@@ -261,8 +264,8 @@ def build_index(coll, index_mode: str, options: dict) -> None:
 
 def load_index(coll):
     """Reload a persisted index at collection open. Returns (index,
-    aux_index): (None, None) for the FLAT family, which needs no index
-    object."""
+    aux_index): (None, None) for the FLAT family without a quantizer, which
+    needs no index object."""
     idx_dir = _index_dir(coll)
     meta_path = idx_dir / "index_meta.json"
     if not meta_path.exists() or coll.index_mode is None:
@@ -270,8 +273,13 @@ def load_index(coll):
     meta = json.loads(meta_path.read_text())
     mode = resolve_index_mode(meta["index_mode"], coll.dim)
     _check_ported(mode)
+    opts = IndexBuildOptions(**meta.get("options", {}))
+    if mode.family == "FLAT" and mode.quantizer in _AUX_QUANTIZERS:
+        from .quantized import load_aux_index
+
+        return None, load_aux_index(coll, mode, opts)
     if mode.family in ("IVF", "SPANN"):
         from .ivf import IVFIndex
 
-        return IVFIndex.load(coll, mode, IndexBuildOptions(**meta.get("options", {}))), None
+        return IVFIndex.load(coll, mode, opts), None
     return None, None

@@ -46,6 +46,12 @@ _SIGNATURES = {
     "lt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "lt_ivf_scan_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "lt_fwht_rotate": (_P, _P, _I, _I, _I, _P, _P),
+    "lt_int8_code_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P),
+    "lt_pq_adc_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "lt_bf16_gather_scores": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                              _P),
 }
 
 _LOCK = threading.Lock()

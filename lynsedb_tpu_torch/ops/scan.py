@@ -22,6 +22,10 @@ selective filters (K4) is not ported, and gives the same answer. Neither are
 its host-rescore route and its streaming tier for corpora whose copies do not
 fit on the device (ROADMAP A.5): staging such a corpus raises.
 
+The quantized FLAT indexes (index/quantized.py) end in the same K3 rescore:
+their code scan's top S goes through :func:`shortlist_device_rescore_ids`
+(K5, then K11 ``bf16_gather_scores`` on the centred bf16 copy, then K5).
+
 Each kernel's wrapper launches it for CUDA tensors and runs the plain PyTorch
 version beside it for CPU tensors; the plain versions are what the CPU tests
 hold against the JAX package.
@@ -271,6 +275,84 @@ def rescore_topk(q: torch.Tensor, x32: torch.Tensor, cand_keys: torch.Tensor,
 
 
 rescore_topk.launches = 0
+
+
+# ── K11: bf16 rescore of a gathered shortlist ────────────────────────────
+
+
+def bf16_gather_scores_plain(q, x16, aux: dict, idx, slot_keys, metric: Metric) -> torch.Tensor:
+    """Plain version of :func:`bf16_gather_scores`: the bf16 operands are
+    upcast to f32 before the product (JAX's preferred_element_type=f32)."""
+    ok = idx >= 0
+    if slot_keys is not None:
+        ok = ok & (slot_keys > float("-inf"))
+    ok = ok.expand(q.shape[0], -1)
+    safe = torch.where(ok, idx, 0).long()
+    qc16, qc_sq, qm, q_sq = _query_terms(q, aux["mean"])
+    ip_c = torch.einsum("bd,bsd->bs", qc16.to(torch.float32), x16[safe].to(torch.float32))
+    if metric is Metric.IP:
+        scores = ip_c + aux["xm"][safe]
+    elif metric is Metric.L2:
+        scores = torch.clamp_min(qc_sq[:, None] + aux["xc_sq"][safe] - 2.0 * ip_c, 0.0)
+    elif metric is Metric.COSINE:  # true numerator over true norms
+        num = ip_c + aux["xm"][safe] + qm[:, None]
+        denom = torch.sqrt(q_sq[:, None] * aux["xsq_true"][safe])
+        scores = torch.where(denom < 1e-30, 1.0, 1.0 - num / torch.clamp_min(denom, 1e-30))
+    else:
+        D.check_supported(metric)
+    keys = -scores if metric.ascending else scores
+    return torch.where(ok & ~torch.isnan(keys), keys, float("-inf")).contiguous()
+
+
+def bf16_gather_scores(q: torch.Tensor, x16: torch.Tensor, aux: dict, idx: torch.Tensor,
+                       slot_keys: Optional[torch.Tensor], metric: Metric) -> torch.Tensor:
+    """Oriented keys (B, S) of f32 queries ``q`` (B, D) against the rows
+    ``idx`` of the mean-centred bf16 corpus ``x16``, with K2's corrections
+    (``aux`` as for bf16_centered_scores). ``idx`` int32 is (B, S), one list
+    a query, or (1, S), one list shared by every query; a slot is empty
+    (key -inf) where its id is negative or, when ``slot_keys`` (laid out as
+    ``idx``) is given, where its key is -inf."""
+    if q.device.type == "cpu":
+        return bf16_gather_scores_plain(q, x16, aux, idx, slot_keys, metric)
+    code = _kernel_metric("bf16_gather_scores", metric)
+    b, d = q.shape
+    s = idx.shape[1]
+    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] not in (1, b):
+        raise ValueError("bf16_gather_scores: idx (B, S) or (1, S) int32 expected")
+    if slot_keys is not None and slot_keys.shape != idx.shape:
+        raise ValueError("bf16_gather_scores: slot_keys must be shaped like idx")
+    if x16.dtype != torch.bfloat16 or x16.shape[1] != d or q.dtype != torch.float32:
+        raise ValueError("bf16_gather_scores: q (B, D) float32 and x16 (N, D) bfloat16 expected")
+    qc16, qc_sq, qm, q_sq = _query_terms(q, aux["mean"])
+    _cuda.require_cuda("bf16_gather_scores", q, x16, idx, slot_keys, aux["xm"], aux["xc_sq"],
+                       aux["xsq_true"])
+    keys = torch.empty((b, s), dtype=torch.float32, device=q.device)
+    _cuda.call(
+        "lt_bf16_gather_scores", qc16.data_ptr(), x16.data_ptr(), idx.data_ptr(),
+        0 if idx.shape[0] == 1 else s, _cuda.ptr(slot_keys), qc_sq.data_ptr(),
+        qm.data_ptr(), q_sq.data_ptr(), aux["xm"].data_ptr(), aux["xc_sq"].data_ptr(),
+        aux["xsq_true"].data_ptr(), b, s, d, code, int(metric.ascending), keys.data_ptr(),
+        _cuda.stream_of(q),
+    )
+    bf16_gather_scores.launches += 1
+    return keys
+
+
+bf16_gather_scores.launches = 0
+
+
+def shortlist_device_rescore_ids(q: torch.Tensor, approx_keys: torch.Tensor, x16: torch.Tensor,
+                                 aux: dict, metric: Metric, s: int, c: int):
+    """The quantized indexes' second stage: the top S of the approximate
+    code-scan keys (B, N) (K5), a bf16 rescore of those S rows gathered from
+    the centred corpus (K11), then the top C (K5). Returns (keys (B, C) f32,
+    row ids (B, C) int32): the ids and keys K3 rescores exactly, -inf and -1
+    in slots nothing filled."""
+    top, cand = topk_select(approx_keys, min(s, approx_keys.shape[1]))
+    keys = bf16_gather_scores(q, x16, aux, cand, top, metric)
+    top2, j = topk_select(keys, min(c, keys.shape[1]))
+    gid = cand.gather(1, j.long())
+    return top2, torch.where(top2 > float("-inf"), gid, -1)
 
 
 # ── host-side exact scores ───────────────────────────────────────────────
@@ -705,6 +787,23 @@ class DeviceCorpus:
         ok = i >= 0
         ok &= (d <= threshold) if metric.ascending else (d >= threshold)
         return d[ok].astype(np.float32), i[ok].astype(np.int64)
+
+    def rescore(self, queries: np.ndarray, cand_ids: np.ndarray, metric: Metric) -> np.ndarray:
+        """Exact (B, C) distances of explicit candidate rows from the host
+        mirror, NaN where an id is negative. ``cand_ids`` is (B, C), or (C,)
+        shared by every query."""
+        if metric not in TWO_PASS_METRICS:
+            raise NotImplementedError(
+                f"rescore for {metric.value} is not ported yet (ROADMAP K10)")
+        q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        ids = np.asarray(cand_ids)
+        if ids.ndim == 1:
+            ids = np.broadcast_to(ids, (q.shape[0], ids.shape[0]))
+        valid = ids >= 0
+        safe = np.where(valid, ids, 0)
+        # flat 1-D gather then reshape (2-D fancy indexing is slower)
+        rows = self._host[safe.ravel()].reshape(safe.shape + (self.dim,))
+        return np.where(valid, host_exact_scores(q, rows, metric), np.nan)
 
 
 def _fetch(dists: torch.Tensor, ids: torch.Tensor):

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""FLAT search latency of lynsedb_tpu_torch on one CUDA card, by corpus.
+"""FLAT search latency of lynsedb_tpu_torch on one CUDA card, by corpus and
+FLAT index mode.
 
     python3 lynsedb_tpu_torch/tools/flat_latency.py [--corpus isotropic mixture]
+                                                    [--index FLAT-IP FLAT-IP-SQ8 ...]
                                                     [--package-root DIR]
 
-Drives what chip_smoke.py's flat phase drives, unfiltered: a FLAT-IP
-collection of 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, 100
-distinct single searches, then 4 batch searches at B=16 and 4 at B=256
-(k=10, host clock around each call). The corpora are seeded numpy:
-``isotropic`` is gaussian rows, ``mixture`` chip_smoke.py's mixture of 2,000
-gaussian clusters; both duplicate 1,000 rows. Then 20 more single searches
-run under torch.profiler to read the device time of one search.
+Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
+1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
+``--index`` mode (default FLAT-IP; a quantized mode such as FLAT-IP-SQ8 is
+built first, and its build seconds reported) 100 distinct single searches,
+then 4 batch searches at B=16 and 4 at B=256 (k=10, host clock around each
+call). The corpora are seeded numpy: ``isotropic`` is gaussian rows,
+``mixture`` chip_smoke.py's mixture of 2,000 gaussian clusters; both
+duplicate 1,000 rows. Then 20 more single searches run under torch.profiler
+to read the device time of one search, in all and by kernel.
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (for example an
 older commit unpacked with ``git archive``), so one script times two trees on
-the same card and data. Prints one JSON line per corpus: p50/p99 ms, q/s,
-device ms per single search (null where the profiler saw no device time) and
-the seconds the garbage collector took during the timed calls.
+the same card and data. Prints one JSON line per corpus and mode: p50/p99 ms,
+q/s, device ms per single search (null where the profiler saw no device
+time) and by kernel name, and the seconds the garbage collector took during
+the timed calls.
 """
 
 from __future__ import annotations
@@ -63,23 +68,28 @@ class GcClock:
         return total
 
 
-def device_ms_per_search(torch, coll, queries) -> float | None:
-    """Mean device time of one search (sum of the kernels torch.profiler saw)."""
+def device_ms_per_search(torch, coll, queries) -> tuple[float | None, dict]:
+    """Mean device time of one search: the sum of the kernels torch.profiler
+    saw, and that sum by kernel name (the top 8)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for qv in queries:
             coll.search(qv, k=K)
         torch.cuda.synchronize()
-    us = 0.0
+    by_name = {}
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            us += getattr(ev, "self_device_time_total", None) or getattr(
+            us = getattr(ev, "self_device_time_total", None) or getattr(
                 ev, "self_cuda_time_total", 0.0)
-    return us / 1e3 / len(queries) if us > 0 else None
+            by_name[ev.key[:60]] = by_name.get(ev.key[:60], 0.0) + us / 1e3 / len(queries)
+    total = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return (total if total > 0 else None), top
 
 
-def run(lynse, torch, kind: str, root: str, clock: GcClock) -> dict:
+def run(lynse, torch, kind: str, modes: list, root: str, clock: GcClock):
+    """Yields one result per index mode on one corpus."""
     rng = np.random.default_rng(SEED)
     x = make_corpus(kind, rng)
     singles = rng.normal(size=(100, DIM)).astype(np.float32)
@@ -92,32 +102,42 @@ def run(lynse, torch, kind: str, root: str, clock: GcClock) -> dict:
     coll.add(vectors=x, fields=[{"bucket": i % 10} for i in range(N)], batch_size=100_000)
     coll.commit()
     coll.prewarm()
-    clock.read()
-    lat = []
-    for qv in singles:
-        t0 = time.perf_counter()
-        coll.search(qv, k=K)
-        lat.append(time.perf_counter() - t0)
-    out = {"corpus": kind, "p50_ms": float(np.percentile(lat, 50) * 1e3),
-           "p99_ms": float(np.percentile(lat, 99) * 1e3), "single_gc_s": clock.read()}
-    for b, blocks in ((16, b16), (256, b256)):
-        secs = []
-        for blk in blocks:
+    for mode in modes:
+        out = {"corpus": kind, "index": mode}
+        if mode != "FLAT-IP":
             t0 = time.perf_counter()
-            coll.batch_search(blk, k=K)
-            secs.append(time.perf_counter() - t0)
-        out[f"qps_b{b}"] = b * len(blocks) / sum(secs)
-        out[f"call_s_b{b}"] = secs
-        out[f"gc_s_b{b}"] = clock.read()
-    out["device_ms_single"] = device_ms_per_search(torch, coll, extra)
+            coll.build_index(mode)
+            out["build_s"] = time.perf_counter() - t0
+            coll.search(singles[0] + 1.0, k=K)  # stages the index
+        clock.read()
+        lat = []
+        for qv in singles:
+            t0 = time.perf_counter()
+            coll.search(qv, k=K)
+            lat.append(time.perf_counter() - t0)
+        out.update({"p50_ms": float(np.percentile(lat, 50) * 1e3),
+                    "p99_ms": float(np.percentile(lat, 99) * 1e3), "single_gc_s": clock.read()})
+        for b, blocks in ((16, b16), (256, b256)):
+            secs = []
+            for blk in blocks:
+                t0 = time.perf_counter()
+                coll.batch_search(blk, k=K)
+                secs.append(time.perf_counter() - t0)
+            out[f"qps_b{b}"] = b * len(blocks) / sum(secs)
+            out[f"call_s_b{b}"] = secs
+            out[f"gc_s_b{b}"] = clock.read()
+        out["device_ms_single"], out["device_ms_by_kernel"] = device_ms_per_search(
+            torch, coll, extra)
+        yield out
     client.close()
-    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus", nargs="+", choices=("isotropic", "mixture"),
                     default=["isotropic", "mixture"])
+    ap.add_argument("--index", nargs="+", default=["FLAT-IP"],
+                    help="FLAT index modes, e.g. FLAT-IP FLAT-IP-SQ8 FLAT-IP-PQ")
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
@@ -131,9 +151,9 @@ def main() -> int:
     clock = GcClock()
     for kind in args.corpus:
         with tempfile.TemporaryDirectory(prefix="lynse_flat_") as root:
-            out = run(lynse, torch, kind, root, clock)
-        out["package"] = str(Path(lynse.__file__).resolve().parent)
-        print(json.dumps(out), flush=True)
+            for out in run(lynse, torch, kind, args.index, root, clock):
+                out["package"] = str(Path(lynse.__file__).resolve().parent)
+                print(json.dumps(out), flush=True)
     return 0
 
 

@@ -12,10 +12,15 @@ distances rtol=1e-5, atol=1e-4 (f32 sums in another order); K2 keys
 summation order differs); ids identical except between entries whose plain
 keys lie within that tolerance. kmeans_assign: ids equal except where a
 row's two best centroids lie within 1e-5 relative; kmeans_update: sums
-rtol=1e-5, atol=1e-4, counts exact, two runs bit-identical.
+rtol=1e-5, atol=1e-4, counts exact, two runs bit-identical. K14 rtol=1e-6
+(the same additions in the same order); K12 keys rtol=1e-5, atol=1e-5 (the
+integer dot is exact; the epilogue's roundings may contract differently);
+K13 and K11 keys rtol=1e-5, atol=1e-4 (f32 sums in another order).
 """
 
 from __future__ import annotations
+
+import shutil
 
 import numpy as np
 import pytest
@@ -25,7 +30,7 @@ import lynsedb_tpu_torch
 from lynsedb_tpu_torch.index import ivf
 from lynsedb_tpu_torch.metrics import Metric
 from lynsedb_tpu_torch.ops import distance as D
-from lynsedb_tpu_torch.ops import kmeans, scan, topk
+from lynsedb_tpu_torch.ops import kmeans, quantize, scan, topk
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 
 pytestmark = pytest.mark.cuda
@@ -276,6 +281,139 @@ def test_ivf_index_cuda_matches_cpu(dev, tmp_path, mode):
             assert torch.equal(torch.isfinite(got), torch.isfinite(want))
             fin = torch.isfinite(want)
             torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+        client.close()
+    for got, want in zip(*answers):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.distances, w.distances, rtol=1e-5, atol=1e-4)
+            wd = np.asarray(w.distances)[None]
+            _assert_ids_match(np.asarray(g.ids)[None], np.asarray(w.ids)[None], wd,
+                              1e-5 * np.abs(wd).max(axis=1) + 1e-4)
+
+
+# ── the quantized indexes: K11-K14 ───────────────────────────────────────
+
+
+@pytest.mark.parametrize("d", [8, 100, 128, 2048])
+def test_fwht_rotate_matches_plain(dev, d):
+    rng = np.random.default_rng(d)
+    dim_pad = quantize._next_pow2(d)
+    q = torch.from_numpy(rng.normal(size=(5, d)).astype(np.float32)).to(dev)
+    signs = torch.from_numpy(quantize.rotation_signs(dim_pad, 7)).to(dev)
+    got, want = quantize.fwht_rotate(q, signs, dim_pad), quantize.rotate(q, signs, dim_pad)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+def _code_state(kind, rng, n, d, dev):
+    """Random codes and terms of an int8-coded index, as the card holds them."""
+    if kind == "sq8":
+        codes = rng.integers(-128, 128, size=(n, d)).astype(np.int8)
+        st = {"codes": codes, "lo": rng.normal(size=d), "scale": rng.random(d) * 0.02 + 1e-3}
+    elif kind == "rabitq":
+        st = {"bits": np.where(rng.random((n, d)) < 0.5, 1, -1).astype(np.int8),
+              "alpha": rng.random(n) + 0.1}
+    else:
+        st = {"codes": rng.integers(0, 16, size=(n, d)).astype(np.int8),
+              "lo": -rng.random(n), "scale": rng.random(n) * 0.1 + 1e-3}
+    st["row_sq"] = rng.random(n) * 50 + 1.0
+    st["row_sq"][3] = 0.0  # a zero-norm row: cosine's 1.0 policy
+    return {k: torch.from_numpy(quantize.pad_codes(v) if v.dtype == np.int8 else
+                                v.astype(np.float32)).to(dev) for k, v in st.items()}
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("kind", ["sq8", "rabitq", "polarvec"])
+def test_int8_code_scores_matches_plain(dev, kind, metric):
+    rng = np.random.default_rng(11)
+    n, d = 5000, 100 if kind == "sq8" else 128
+    st = _code_state(kind, rng, n, d, dev)
+    valid = torch.from_numpy(rng.random(n + 64) < 0.8).to(dev)
+    for b in (1, 3, 16, 70):
+        q = torch.from_numpy(rng.normal(size=(b, 100)).astype(np.float32)).to(dev)
+        if b > 1:
+            q[0] = 0.0  # a zero query: scale 1, every code 0
+        q_rot = None
+        if kind != "sq8":
+            signs = torch.from_numpy(quantize.rotation_signs(128, 3)).to(dev)
+            q_rot = quantize.rotate(q, signs, 128)
+        got = quantize.int8_code_scores(kind, q, q_rot, st, valid, metric)
+        want = quantize.int8_code_scores_plain(kind, q, q_rot, st, valid, metric)
+        torch.cuda.synchronize()
+        assert got.shape == (b, n)
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("m,ds", [(16, 8), (12, 4), (64, 2), (240, 1)])
+def test_pq_adc_scores_matches_plain(dev, metric, m, ds):
+    """M=16 (16-byte code loads), 12 (byte loads), 64 (a 64 KB table: opt-in
+    shared memory) and 240 (a 240 KB table: built in two groups)."""
+    rng = np.random.default_rng(m)
+    n = 9000
+    codes = torch.from_numpy(rng.integers(0, 256, size=(n, m)).astype(np.uint8)).to(dev)
+    books = torch.from_numpy(rng.normal(size=(m, 256, ds)).astype(np.float32)).to(dev)
+    row_sq = torch.from_numpy((rng.random(n) * 10).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    for b in (1, 7):
+        q = torch.from_numpy(rng.normal(size=(b, m * ds)).astype(np.float32)).to(dev)
+        got = quantize.pq_adc_scores(q, codes, books, row_sq, valid, metric)
+        want = quantize.pq_adc_scores_plain(q, codes, books, row_sq, valid, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [100, 128])
+def test_bf16_gather_scores_matches_plain(dev, metric, d):
+    """Per-query lists with empty slots (a -1 id, a -inf slot key) and one
+    list shared by every query (stride 0); D=128 reads 16 bytes a lane, D=100
+    one bf16 at a time."""
+    rng = np.random.default_rng(d)
+    corpus = _aux(rng.normal(size=(7000, d)).astype(np.float32) + 0.5, dev)
+    aux, x16 = corpus.bf16_aux(), corpus._dev16
+    q = torch.from_numpy(rng.normal(size=(6, d)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 7000, size=(6, 300)).astype(np.int32)).to(dev)
+    idx[:, :4] = -1
+    slot_keys = torch.from_numpy(rng.normal(size=(6, 300)).astype(np.float32)).to(dev)
+    slot_keys[:, -7:] = float("-inf")
+    for ids, sk in ((idx, slot_keys), (idx[:1].contiguous(), None)):
+        got = scan.bf16_gather_scores(q, x16, aux, ids, sk, metric)
+        want = scan.bf16_gather_scores_plain(q, x16, aux, ids, sk, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["FLAT-IP-SQ8", "FLAT-L2-SQ8", "FLAT-IP-PQ", "FLAT-IP-RABITQ",
+                                  "FLAT-COS-POLARVEC"])
+def test_quantized_index_cuda_matches_cpu(dev, tmp_path, mode):
+    """An index built on the card answers as the plain versions do on the
+    same index files, through the device route and, with rows past the
+    encode, the host route."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(6000, 64)).astype(np.float32)
+    extra = rng.normal(size=(200, 64)).astype(np.float32)
+    q = rng.normal(size=(9, 64)).astype(np.float32)
+    client = lynsedb_tpu_torch.VectorDBClient(tmp_path / "card", device=dev)
+    coll = client.create_database("d").require_collection("c", dim=64)
+    coll.add(vectors=x, fields=[{"b": i % 2} for i in range(6000)])
+    coll.commit()
+    coll.build_index(mode)
+    client.close()
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    answers = []
+    for device, root in ((dev, tmp_path / "card"), ("cpu", tmp_path / "cpu")):
+        client = lynsedb_tpu_torch.VectorDBClient(root, device=device)
+        coll = client.get_database("d").get_collection("c")
+        got = [coll.batch_search(q, k=k, where=w) for k in (10, 100) for w in (None, "b = 0")]
+        coll.add(vectors=extra, fields=[{"b": 0}] * 200)  # uncommitted: the host route
+        got += [coll.batch_search(q, k=10, where=w) for w in (None, "b = 0")]
+        answers.append(got)
         client.close()
     for got, want in zip(*answers):
         for g, w in zip(got, want):
