@@ -36,10 +36,25 @@ Phases (each prints its seconds):
      collection (FLAT-IP-SQ8, FLAT-L2-SQ8, FLAT-IP-PQ, FLAT-IP-RABITQ,
      FLAT-IP-POLARVEC), each built and asked the IVF phase's queries,
      unfiltered and with where="bucket < 5".
-  8. checks: recall@10 and distances against a chunked numpy brute force
+  8. graph path: build_index("HNSW-L2") (m=16: layer 0 of degree 32 from
+     K19's exact top 64 and two K20 prune passes, upper layers by K19 with
+     L = 16) on the same collection, the IVF phase's queries at nprobe=100
+     (the gate's), unfiltered and with where="bucket < 5"; K17 (f32 and bf16
+     tiers, beam 100, B in {1, 16, 256}), K19 (one 4,096-query chunk, L=64)
+     and K20 (one 4,096-node chunk, L=72) against their plain versions; then
+     10,000 rows added and committed (the layer-0 insert: the f32 beam at
+     B=1,024 and K20's pair keys) and searched again. build_index
+     ("DISKANN-IP") (r=32, l=96, layered: PQ and SQ8 fitted) on the grown
+     collection, the same queries, the SQ8 and PQ tiers (100 queries each),
+     K17 in all four tiers at beam 125; then 1% of the rows tombstoned and
+     committed (the delete repair) and searched again. HNSW-IP and
+     DISKANN-L2 on a 100,000-row prefix collection.
+  9. checks: recall@10 and distances against a chunked numpy brute force
      (FLAT >= 0.999, IVF >= 0.85, SQ8 >= 0.95, PQ / RaBitQ / PolarVec >= 0.70,
-     with no repeated id), large k against the exact top 1,000.
-  9. the launch counts of each path (counts set to 0 just before a path and
+     HNSW / DiskANN >= 0.90 unfiltered in every tier, the half filter
+     reported; no repeated id, no filtered-out or deleted id), large k
+     against the exact top 1,000.
+ 10. the launch counts of each path (counts set to 0 just before a path and
      read just after; every kernel of the path > 0).
 The corpus is seeded numpy: 1M x 128 f32 rows drawn from a mixture of 2,000
 gaussian clusters (embedding-like data, on which a partition index has
@@ -65,6 +80,7 @@ from lynsedb_tpu_torch.index import ivf
 from lynsedb_tpu_torch.metrics import Metric
 from lynsedb_tpu_torch.ops import _cuda, kmeans, quantize, topk
 from lynsedb_tpu_torch.ops import distance as D
+from lynsedb_tpu_torch.ops import graph
 from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 from lynsedb_tpu_torch.tools.flat_latency import GcClock
@@ -88,6 +104,9 @@ QUANT_MODES = {"FLAT-IP-SQ8": 0.95, "FLAT-L2-SQ8": 0.95, "FLAT-IP-PQ": 0.70,
                "FLAT-IP-RABITQ": 0.70, "FLAT-IP-POLARVEC": 0.70}
 SHORTLIST, QUANT_BATCHES = 4000, (1, 16, 64)  # S at 1M rows and k=10; the query slice
 GC = GcClock()  # garbage-collection seconds, read around each timed batch call
+# the upstream gate's graph modes and setting (benchmarks/gate_index_modes.py:49-52)
+GRAPH_NPROBE, GRAPH_RECALL_FLOOR = 100, 0.90
+GRAPH_INSERT, GRAPH_DELETE, PREFIX = 10_000, 0.01, 100_000
 
 KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
     "K1 flat_scores_f32": (scan.flat_scores_f32, "lynsedb_tpu_torch/csrc/flat_scores_f32.cu",
@@ -115,6 +134,12 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
                           "lynsedb_tpu/ops/quantize.py:391"),
     "K14 fwht_rotate": (quantize.fwht_rotate, "lynsedb_tpu_torch/csrc/fwht_rotate.cu",
                         "lynsedb_tpu/ops/quantize.py:59"),
+    "K17 beam_search": (graph.beam_walk, "lynsedb_tpu_torch/csrc/beam_search.cu",
+                        "lynsedb_tpu/ops/graph.py:108"),
+    "K19 topl_scan": (graph.topl_scan, "lynsedb_tpu_torch/csrc/topl_scan.cu",
+                      "lynsedb_tpu/ops/graph.py:510"),
+    "K20 robust_prune": (graph.robust_prune, "lynsedb_tpu_torch/csrc/robust_prune.cu",
+                         "lynsedb_tpu/ops/graph.py:554"),
 }
 # the kernels each path must launch
 PATHS = {
@@ -126,6 +151,8 @@ PATHS = {
     "quantized": ("K3 rescore_topk", "K5 topk_select", "K11 bf16_gather_scores",
                   "K12 int8_code_scores", "K13 pq_adc_scores", "K14 fwht_rotate",
                   "K15 kmeans_assign"),
+    "graph": ("K1 flat_scores_f32", "K5 topk_select", "K17 beam_search", "K19 topl_scan",
+              "K20 robust_prune"),
 }
 
 
@@ -225,11 +252,11 @@ class Stats:
     def error(self, name, err) -> None:
         self.err[name] = max(self.err[name], float(err))
 
-    def time(self, name, label, fn, plain, library, bound_ms) -> None:
+    def time(self, name, label, fn, plain, library, bound_ms, reps: int = 10) -> None:
         with uncounted():
             self.rows[name][label] = {
-                "ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
-                "library_ms": None if library is None else cuda_ms(library),
+                "ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, reps),
+                "library_ms": None if library is None else cuda_ms(library, reps),
                 "bound_ms": bound_ms[0], "bound_by": bound_ms[1]}
 
     def table(self, card: str) -> None:
@@ -710,6 +737,284 @@ def ivf_scan_phase(coll, q_sets, stats: Stats, mode: str) -> None:
           f"{[len(qs) for qs in q_sets]}", flush=True)
 
 
+def _keys64(q, x, ids, metric):
+    """float64 keys (bigger = closer) of rows ``ids`` (B, L) for queries q."""
+    rows = x[np.maximum(ids, 0)].astype(np.float64)
+    q64 = q.astype(np.float64)[:, None, :]
+    ip = (rows * q64).sum(-1)
+    return ip if metric is Metric.IP else -((rows - q64) ** 2).sum(-1)
+
+
+def beam_tier_args(tier: str, idx, corpus) -> tuple:
+    """The arrays a guidance tier walks over (graph.beam_operands' args)."""
+    if tier == "f32":
+        return (corpus._data,)
+    if tier == "bf16":
+        aux = corpus.bf16_aux()
+        return (corpus.data16, aux["mean"], aux["xm"], aux["xc_sq"], aux["xsq_true"])
+    return idx._sq8_device() if tier == "sq8" else idx._pq_device()
+
+
+def beam_phase(eng, tiers, kind: str, beam: int, q_sets, stats: Stats, label: str) -> None:
+    """K17 against its plain version (on the card too, same operands) on the
+    built index, at ``beam`` and B in {1, 16, 256}: the same pool keys, ids
+    and visit counts. Times each tier at B=16."""
+    idx, corpus = eng._index, eng.corpus()
+    live = corpus.valid_mask()[: idx.built_rows]
+    hnsw = idx.kind == "hnsw"
+    adj = idx._device(corpus)["layer0"] if hnsw else idx._graph()
+    code = graph._KIND_CODE[kind]
+    for tier in tiers:
+        args = beam_tier_args(tier, idx, corpus)
+        for qs in q_sets:
+            b = len(qs)
+            qd = torch.from_numpy(np.ascontiguousarray(qs)).to(DEV)
+            starts = idx._starts(qd, corpus, live) if hnsw else idx._query_starts(eng, qd, live)
+            ops = graph.beam_operands(tier, qd, *args, kind=kind)
+            walk = (tier, ops["qop"], ops["qconst"], ops["rows"], ops["aux"], adj, starts, live)
+            kw = dict(code=code, beam=beam, max_steps=2 * beam, expand=1)
+            got, want = graph.beam_walk(*walk, **kw), graph.beam_walk_plain(*walk, **kw)
+            for g, w, what in zip(got, want, ("keys", "ids", "scanned")):
+                check(torch.equal(g, w), f"K17 {label} {tier} B={b}: {what} differ")
+            stats.error("K17 beam_search", 0.0)
+            if b == 16:
+                # bound: each visited node's guidance row, aux terms and
+                # valid byte, and the adjacency row of each expanded node,
+                # read once; the pool written; one multiply-add a dimension.
+                # Expanded nodes are at least the pool's finite entries (a
+                # walk ends when all are expanded, or after 2 x beam
+                # expansions). The visited bitmap is left out.
+                row_bytes = ops["rows"].shape[1] * ops["rows"].element_size() + 4 * sum(
+                    a is not None for a in ops["aux"])
+                visits = int(got[2].sum())
+                expanded = int((got[0] > float("-inf")).sum())
+                stats.time("K17 beam_search", f"{label} {tier} {kind} B={b} beam={beam}",
+                           lambda: graph.beam_walk(*walk, **kw),
+                           lambda: graph.beam_walk_plain(*walk, **kw), None,
+                           bound(visits * (row_bytes + 1) + expanded * adj.shape[1] * 4
+                                 + b * beam * 8, 2 * visits * DIM), reps=3)
+        print(f"   K17 {label} {tier} ({kind}, beam {beam}): equal to its plain version at "
+              f"B in {[len(qs) for qs in q_sets]}", flush=True)
+
+
+def entry_scan_phase(eng, q_sets, report) -> None:
+    """K18, the entry scan (K1 + K5, no kernel of its own) over the HNSW
+    index's finest upper layer, against its plain version (K1's and K5's on
+    the card), at B in {1, 16, 256}: the same entry ids except where two
+    rows' keys lie within 1e-5 of each other. Times it at B=16."""
+    idx, corpus = eng._index, eng.corpus()
+    dev = idx._device(corpus)
+    ids, ct = dev["upper_ids"], dev["upper_ct"]
+    live = corpus.valid_mask()[: idx.built_rows]
+    s = 4
+
+    def plain(qd):
+        qt = D.query_transform(qd, Metric.L2)
+        keys = scan.flat_scores_f32_plain(qt["x"], ct["x"], qt["sq"], ct["sq"], live[ids.long()],
+                                          Metric.L2)
+        return ids[topk.topk_select_plain(keys, s)[1].long()]
+
+    for qs in q_sets:
+        qd = torch.from_numpy(np.ascontiguousarray(qs)).to(DEV)
+        got = graph.entry_scan(qd, ct, ids, live, metric=Metric.L2, s=s)
+        want = plain(qd)
+        gi, wi = got.cpu().numpy(), want.cpu().numpy()
+        local = np.arange(gi.size).reshape(gi.shape)  # keys of the gathered rows
+        kg = _keys64(qs, corpus.host_rows(gi.ravel()), local, Metric.L2)
+        kw = _keys64(qs, corpus.host_rows(wi.ravel()), local, Metric.L2)
+        check(bool((np.abs(kg - kw) <= 1e-5 * np.abs(kw) + 1e-4).all()), "K18 entry scan ids")
+        if len(qs) == 16:
+            n_s = int(ids.shape[0])
+            t = {"ms": cuda_ms(lambda: graph.entry_scan(qd, ct, ids, live, metric=Metric.L2, s=s)),
+                 "plain_ms": cuda_ms(lambda: plain(qd)),
+                 "library_ms": cuda_ms(lambda: torch.topk(qd @ ct["x"].T, s, dim=1))}
+            t["bound_ms"], t["bound_by"] = bound(n_s * (DIM * 4 + 4 + 4 + 1) + 16 * DIM * 4
+                                                 + 16 * s * 4, 2 * 16 * n_s * DIM)
+            report[f"K18 entry_scan (K1 + K5) over {n_s} nodes, B=16"] = t
+    print(f"   K18 entry_scan (K1 + K5) over {int(ids.shape[0])} upper-layer nodes: agrees with "
+          "its plain version at B in [1, 16, 256]", flush=True)
+
+
+def build_kernel_phase(eng, x: np.ndarray, rng, stats: Stats) -> None:
+    """K19 on one 4,096-query chunk (the HNSW-L2 build's L=64 over all 1M
+    rows) and K20 on one 4,096-node chunk of pass A (64 exact + 8 random
+    candidates), each against its plain version on the card."""
+    corpus = eng.corpus()
+    xd = corpus._data[:N]
+    xsq = (xd * xd).sum(-1)
+    chunk, l = 4096, 64
+    q_ids = torch.arange(chunk, dtype=torch.int32, device=DEV)
+    args = (xd[:chunk], q_ids, xd, xsq[:chunk], xsq, N, l, graph.TOPL_L2_RAW)
+    gk, gi = graph.topl_scan(*args)
+    wk, wi = graph.topl_scan_plain(*args)
+    err = (gk - wk).abs()
+    check(bool((err <= 1e-4 + 1e-5 * wk.abs()).all()), "K19: keys")
+    gi_np, wi_np = gi.cpu().numpy(), wi.cpu().numpy()
+    check(not (gi_np == np.arange(chunk)[:, None]).any(), "K19: a self-match")
+    k_got, k_want = _keys64(x[:chunk], x, gi_np, Metric.L2), _keys64(x[:chunk], x, wi_np, Metric.L2)
+    tol = 1e-5 * np.abs(k_want).max(axis=1, keepdims=True) + 1e-4
+    check(bool((np.abs(k_got - k_want) <= tol).all()), "K19: ids differ beyond a near-tie")
+    stats.error("K19 topl_scan", err.max())
+
+    def library():
+        for lo in range(0, N, 131072):
+            torch.topk(2.0 * (xd[:chunk] @ xd[lo : lo + 131072].T) - xsq[None, lo : lo + 131072],
+                       l, dim=1)
+
+    stats.time("K19 topl_scan", f"L2 chunk={chunk} N={N} L={l}", lambda: graph.topl_scan(*args),
+               lambda: graph.topl_scan_plain(*args), library,
+               bound(N * DIM * 4 + N * 4 + chunk * (DIM + 1) * 4 + chunk * l * 8,
+                     2 * chunk * N * DIM), reps=3)
+    print(f"   K19 topl_scan: a {chunk}-query chunk over {N} rows agrees with its plain "
+          f"version (ids equal but at near-ties: {int((gi_np != wi_np).sum())} slots)", flush=True)
+
+    extra = rng.integers(0, N, size=(chunk, 8)).astype(np.int32)
+    cands = torch.cat([gi, torch.from_numpy(extra).to(DEV)], dim=1).contiguous()
+    kw = dict(metric=Metric.L2, r=32, alpha=1.2, descending=False)
+    got = graph.robust_prune(xd, q_ids, cands, **kw)
+    want = graph.robust_prune_plain(xd, q_ids, cands, **kw)
+    check(torch.equal(got, want), "K20: pruned lists differ")
+    link = cands[:1024, :l].contiguous()  # the insert's shapes: 1,024 nodes, L = l_build
+    pk, pp = graph.robust_prune(xd, q_ids[:1024], link, metric=Metric.L2, keys_only=True)
+    wpk, wpp = graph.robust_prune_plain(xd, q_ids[:1024], link, metric=Metric.L2, keys_only=True)
+    check(torch.equal(pk, wpk) and torch.equal(pp, wpp), "K20 keys mode differs")
+    stats.error("K20 robust_prune", 0.0)
+    # bound: a node's m = L + 1 rows and L candidate ids read, r ids written;
+    # the symmetric half of the m x m Gram, m (m + 1) / 2 dot products
+    m = cands.shape[1] + 1
+    rows = xd[torch.cat([cands, q_ids[:, None]], 1).long()]
+    stats.time("K20 robust_prune", f"L2 nodes={chunk} L={m - 1} r=32",
+               lambda: graph.robust_prune(xd, q_ids, cands, **kw),
+               lambda: graph.robust_prune_plain(xd, q_ids, cands, **kw),
+               lambda: torch.bmm(rows, rows.transpose(1, 2)),
+               bound(chunk * (m * DIM * 4 + (m - 1) * 4 + 32 * 4), chunk * m * (m + 1) * DIM),
+               reps=3)
+    print(f"   K20 robust_prune: {chunk} nodes x {m - 1} candidates equal to its plain version "
+          f"(both modes)", flush=True)
+
+
+def graph_path(db, coll, x, centers, rng, q_sets, report, stats):
+    """The graph phase: HNSW-L2 and DISKANN-IP at 1M (builds, searches,
+    insert, delete), the deep tiers, the prefix modes, the kernel checks.
+    Returns (results by label, the added rows, the deleted ids)."""
+    out, eng = {}, coll._engine
+    singles = q_sets[0]
+
+    def build(c, mode):
+        t0 = time.perf_counter()
+        c.build_index(mode)
+        report[f"{mode} build_s"] = time.perf_counter() - t0
+        phases = c._engine._index.last_build_phases
+        report[f"{mode} build_phases_s"] = phases
+        print(f"   build_index({mode!r}): {report[f'{mode} build_s']:.2f} s {phases}", flush=True)
+        t0 = time.perf_counter()
+        c.search(centers[0], k=K, nprobe=GRAPH_NPROBE)  # stages the graph
+        print(f"   first search: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    build(coll, "HNSW-L2")
+    for where in (None, "bucket < 5"):
+        out[("HNSW-L2", where)] = run_queries(coll, *q_sets, where, nprobe=GRAPH_NPROBE)
+    sync()
+    with uncounted():
+        beam_phase(eng, ("f32", "bf16"), "l2", 100, [q_sets[0][:1], q_sets[1][0], q_sets[2][0]],
+                   stats, "HNSW-L2")
+        entry_scan_phase(eng, [q_sets[0][:1], q_sets[1][0], q_sets[2][0]], report)
+        build_kernel_phase(eng, x, rng, stats)
+
+    extra = mixture_queries(rng, centers, GRAPH_INSERT)
+    t0 = time.perf_counter()
+    coll.add(vectors=extra, fields=[{"bucket": i % 10} for i in range(N, N + GRAPH_INSERT)])
+    coll.commit()  # links the rows into layer 0 in place
+    sync()
+    report["HNSW-L2 insert_10k_s"] = time.perf_counter() - t0
+    check(eng._index.built_rows == N + GRAPH_INSERT, "HNSW-L2: the new rows were not linked")
+    print(f"   add + commit {GRAPH_INSERT} rows (layer-0 insert): "
+          f"{report['HNSW-L2 insert_10k_s']:.2f} s", flush=True)
+    out[("HNSW-L2 inserted", None)] = run_queries(coll, singles, [], [], None, nprobe=GRAPH_NPROBE)
+
+    build(coll, "DISKANN-IP")
+    idx = eng._index
+    check(idx.layered, "DISKANN-IP at 1M is layered (PQ and SQ8 fitted)")
+    for where in (None, "bucket < 5"):
+        out[("DISKANN-IP", where)] = run_queries(coll, *q_sets, where, nprobe=GRAPH_NPROBE)
+    for tier in ("sq8", "pq"):
+        setattr(idx, f"_force_{tier}", True)
+        coll._engine._search_cache.clear()
+        out[(f"DISKANN-IP {tier}", None)] = run_queries(coll, singles, [], [], None,
+                                                        nprobe=GRAPH_NPROBE)
+        setattr(idx, f"_force_{tier}", False)
+    sync()
+    with uncounted():
+        beam_phase(eng, ("f32", "bf16", "sq8", "pq"), "ip", 125,
+                   [q_sets[0][:1], q_sets[1][0], q_sets[2][0]], stats, "DISKANN-IP")
+
+    n_all = N + GRAPH_INSERT
+    dead = np.sort(rng.choice(n_all, int(GRAPH_DELETE * n_all), replace=False))
+    t0 = time.perf_counter()
+    coll.delete(dead.tolist())
+    coll.commit()  # repairs the edges into the deleted nodes in place
+    sync()
+    report["DISKANN-IP delete_1pct_s"] = time.perf_counter() - t0
+    print(f"   delete + commit {len(dead)} rows (edge repair): "
+          f"{report['DISKANN-IP delete_1pct_s']:.2f} s", flush=True)
+    out[("DISKANN-IP deleted", None)] = run_queries(coll, singles, [], [], None,
+                                                    nprobe=GRAPH_NPROBE)
+
+    pc = db.require_collection("prefix", dim=DIM)
+    pc.add(vectors=x[:PREFIX], fields=[{"bucket": i % 10} for i in range(PREFIX)])
+    pc.commit()
+    for mode in ("HNSW-IP", "DISKANN-L2"):
+        build(pc, mode)
+        out[(f"{mode} prefix", None)] = run_queries(pc, *q_sets, None, nprobe=GRAPH_NPROBE)
+    sync()
+    return out, extra, dead
+
+
+def check_graph(out, x, extra, dead, q_all, report) -> None:
+    """recall@10 of every graph result set against numpy's exact top 10 over
+    the rows that set could return (>= 0.90 unfiltered; the half filter's
+    recall reported, every id passing it); no repeated, filtered-out or
+    deleted id; distances exact."""
+    x_all = np.concatenate([x, extra])
+    ids_all = np.arange(len(x_all))
+    live = np.ones(len(x_all), dtype=bool)
+    live[dead] = False
+    xsq = (x_all.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    cells = [  # label, metric, rows the index could return
+        ("HNSW-L2", Metric.L2, ids_all[:N]),
+        ("HNSW-L2 inserted", Metric.L2, ids_all),
+        ("DISKANN-IP", Metric.IP, ids_all),
+        ("DISKANN-IP sq8", Metric.IP, ids_all),
+        ("DISKANN-IP pq", Metric.IP, ids_all),
+        ("DISKANN-IP deleted", Metric.IP, ids_all[live]),
+        ("HNSW-IP prefix", Metric.IP, ids_all[:PREFIX]),
+        ("DISKANN-L2 prefix", Metric.L2, ids_all[:PREFIX]),
+    ]
+    for label, metric, rows in cells:
+        for where in (None, "bucket < 5"):
+            if (label, where) not in out:
+                continue
+            views, lat, calls = out[(label, where)]
+            sel = rows if where is None else rows[rows % 10 < 5]
+            n_q = 100 + sum(len(views[b]) for b in (16, 256) if b in views)
+            _, gt = exact_topk(x_all, sel, q_all[:n_q], K, metric, xsq)
+            name = f"{label} {'unfiltered' if where is None else where}"
+            floor = GRAPH_RECALL_FLOOR if where is None else 0.0
+            for b, lo, hi in ((1, 0, 100), (16, 100, 164), (256, 164, len(q_all))):
+                if not views.get(b):
+                    continue
+                for v in views[b]:
+                    got = np.asarray(v.ids, dtype=np.int64)
+                    check(np.isin(got, sel).all(), f"{name} B={b}: an id outside the rows it "
+                                                   "may return (filtered out or deleted)")
+                report[f"{name} recall_b{b}"] = check_results(
+                    x_all, q_all[lo:hi], views[b], gt[lo:hi], f"{name} B={b}", metric, floor)
+                if b > 1:
+                    report[f"{name} qps_b{b}"] = len(views[b]) / sum(calls[b]["s"])
+            report[f"{name} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+            report[f"{name} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -821,9 +1126,14 @@ def main() -> int:
                     quant_out[(mode, where)] = run_queries(coll, *ivf_sets, where)
                 sync()
         counts["quantized"] = read_counts()
+
+        set_counts({})
+        with phase("8 graph path"):
+            graph_out, extra, dead = graph_path(db, coll, x, centers, rng, ivf_sets, report, stats)
+        counts["graph"] = read_counts()
         client.close()
 
-    with phase("8 checks against numpy brute force"):
+    with phase("9 checks against numpy brute force"):
         all_rows = np.arange(N)
         for where, rows in ((None, all_rows), ("bucket = 3", np.nonzero(all_rows % 10 == 3)[0])):
             label = "unfiltered" if where is None else where
@@ -887,8 +1197,9 @@ def main() -> int:
                     report[f"{label} calls_b{b}"] = calls[b]
                 report[f"{label} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
                 report[f"{label} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
+        check_graph(graph_out, x, extra, dead, ivf_q, report)
 
-    with phase("9 launch counts"):
+    with phase("10 launch counts"):
         by_path = {path: counts[path] for path in PATHS}
         for path, names in PATHS.items():
             print(f"   {path}: {by_path[path]}")
@@ -909,7 +1220,8 @@ def main() -> int:
              "K16 ivf_scan_blocks": f"IVF-L2 B=16 nprobe={NPROBE}",
              "K11 bf16_gather_scores": f"IP B=16 S={SHORTLIST}",
              "K12 int8_code_scores": "sq8 IP B=16", "K13 pq_adc_scores": "M=16 IP B=16",
-             "K14 fwht_rotate": "B=64"}
+             "K14 fwht_rotate": "B=64", "K17 beam_search": "DISKANN-IP bf16 ip B=16 beam=125",
+             "K19 topl_scan": f"L2 chunk=4096 N={N} L=64", "K20 robust_prune": "L2 nodes=4096 L=72 r=32"}
     kernels = []
     for name, (_, src, rep) in KERNELS.items():
         row = stats.rows[name][shown[name]]

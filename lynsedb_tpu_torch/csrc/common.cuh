@@ -1,4 +1,4 @@
-// Shared pieces of the flat-scan kernels: the metric codes, the selection
+// Shared pieces of the kernels: the metric codes and keys, the selection
 // order, an in-shared-memory bitonic sort and a tiled f32 score product.
 //
 // Every entry point of the library is a plain C function that launches on the
@@ -104,6 +104,16 @@ __device__ __forceinline__ float cosine_distance(float num, float denom) {
   return denom < 1e-30f ? 1.f : 1.f - num / fmaxf(denom, 1e-30f);
 }
 
+// D.pairwise's oriented IP / L2 / cosine key from a dot product and the two
+// squared norms, every operation separately rounded, so the plain versions in
+// ops/graph.py form the same bits (K17's f32 tier and K20).
+__device__ __forceinline__ float pairwise_key(float ip, float sa, float sb, int metric) {
+  if (metric == kIP) return ip;
+  if (metric == kL2) return -clamp_nonneg(__fsub_rn(__fadd_rn(sa, sb), __fmul_rn(2.f, ip)));
+  const float denom = __fsqrt_rn(__fmul_rn(sa, sb));
+  return -(denom < 1e-30f ? 1.f : __fsub_rn(1.f, __fdiv_rn(ip, fmaxf(denom, 1e-30f))));
+}
+
 // The oriented, masked selection key of a score: NaN and masked rows -> -inf.
 __device__ __forceinline__ float to_key(float score, bool ascending, bool valid) {
   const float key = ascending ? -score : score;
@@ -116,6 +126,46 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfl
 constexpr int kTile = 64;          // corpus rows per block (and queries, for B > 16)
 constexpr int kTileK = 16;         // depth of one shared-memory stage
 constexpr int kTileThreads = 256;  // 16 x 16 threads, (TQ / 16) x 4 outputs each
+
+// acc[i][j] += q[q0 + ty * RQ + i] . x[n0 + tx * 4 + j] over all D dimensions
+// (tx = thread % 16, ty = thread / 16, RQ = TQ / 16), staged kTileK dimensions
+// at a time through qs and xs; queries >= B and rows >= n_end read as 0. The
+// products and sums are f32 FMA in dimension order. All kTileThreads threads
+// of the block call it.
+template <int TQ, typename T>
+__device__ __forceinline__ void tile_accumulate(const T* __restrict__ q, const T* __restrict__ x,
+                                                int B, int64_t n_end, int D, int q0, int64_t n0,
+                                                float (&qs)[kTileK][TQ + 4],
+                                                float (&xs)[kTileK][kTile + 4],
+                                                float (&acc)[TQ / 16][4]) {
+  constexpr int RQ = TQ / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int k0 = 0; k0 < D; k0 += kTileK) {
+    for (int e = threadIdx.x; e < kTile * kTileK; e += kTileThreads) {
+      const int r = e / kTileK, c = e % kTileK, d = k0 + c;
+      if (r < TQ) {
+        const int qi = q0 + r;
+        qs[c][r] = (qi < B && d < D) ? load_f32(q + (int64_t)qi * D + d) : 0.f;
+      }
+      const int64_t ni = n0 + r;
+      xs[c][r] = (ni < n_end && d < D) ? load_f32(x + ni * D + d) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kTileK; ++kk) {
+      float a[RQ], b[4];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) a[i] = qs[kk][ty * RQ + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = xs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
 
 // keys[b, n] = epi(b, n, q[b] . x[n]) for a (B, D) query block against an
 // (N, D) corpus, both row-major. Products and sums are f32 FMA (no TF32, no
@@ -134,31 +184,7 @@ __global__ void __launch_bounds__(kTileThreads)
   const int q0 = blockIdx.y * TQ;
   const int64_t n0 = (int64_t)blockIdx.x * kTile;
   float acc[RQ][4] = {};
-  for (int k0 = 0; k0 < D; k0 += kTileK) {
-    for (int e = threadIdx.x; e < kTile * kTileK; e += kTileThreads) {
-      const int r = e / kTileK, c = e % kTileK, d = k0 + c;
-      if (r < TQ) {
-        const int qi = q0 + r;
-        qs[c][r] = (qi < B && d < D) ? load_f32(q + (int64_t)qi * D + d) : 0.f;
-      }
-      const int64_t ni = n0 + r;
-      xs[c][r] = (ni < N && d < D) ? load_f32(x + ni * D + d) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[RQ], b[4];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = qs[kk][ty * RQ + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = xs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  tile_accumulate<TQ>(q, x, B, N, D, q0, n0, qs, xs, acc);
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int b = q0 + ty * RQ + i;

@@ -6,14 +6,16 @@ Canberra/Bray-Curtis exact-only; IndexBuildOptions :510-648 — unknown keys
 rejected, inapplicable keys filtered per family; engine aux quantized modes
 FLAT-*-PQ/RABITQ/POLARVEC engine.rs:4576-4595).
 
-Index families (this package serves FLAT, with or without a quantizer, and
-IVF and SPANN over IP/L2/cosine; HNSW and DiskANN raise NotImplementedError
-naming the ROADMAP item that ports them):
+Index families (this package serves every family over IP/L2/cosine; HNSW
+under a domain metric and IVF under a binary one raise NotImplementedError
+naming ROADMAP K6, the distance kernel they need):
   FLAT    — no index object; the engine scans the device corpus directly.
   IVF     — k-means partitions, probe top-nprobe partitions on device.
   SPANN   — IVF with boundary replicas.
-  HNSW    — small-world graph (host graph walk + device distance batches).
-  DISKANN — Vamana graph, PQ-guided beam + exact rescore.
+  HNSW    — layered small-world graph: an entry scan of the finest upper
+            layer, then a bf16-guided beam walk of layer 0 on the card.
+  DISKANN — Vamana graph: a sampled entry scan, then a bf16-guided beam walk
+            (SQ8 / PQ guidance tiers fitted past 200,000 rows).
 Aux (FLAT-only) quantized shortlist indexes: PQ, RABITQ, POLARVEC, SQ8
 (index/quantized.py).
 """
@@ -210,15 +212,15 @@ def _index_dir(coll) -> Path:
     return coll.root / "index"
 
 
-# ROADMAP items that port each index family
-_NOT_PORTED = {"HNSW": "A.10", "DISKANN": "A.10"}
 _AUX_QUANTIZERS = ("sq8", "pq", "rabitq", "polarvec")
 
 
 def _check_ported(mode: ResolvedMode) -> None:
-    item = _NOT_PORTED.get(mode.family)
+    item = None
     if mode.family == "IVF" and mode.metric.is_binary:
         item = "K6"  # hamming / jaccard IVF needs the binary distance kernel
+    if mode.family == "HNSW" and mode.metric not in _ANN_METRICS:
+        item = "K6"  # HNSW's domain metrics need the generic distance kernel
     if item is not None:
         raise NotImplementedError(
             f"index mode {mode.canonical} is not ported to the CUDA engine yet (ROADMAP {item})"
@@ -249,6 +251,14 @@ def build_index(coll, index_mode: str, options: dict) -> None:
         from .ivf import IVFIndex
 
         coll._index = IVFIndex.build(coll, mode, opts)
+    elif mode.family == "HNSW":
+        from .hnsw import HNSWIndex
+
+        coll._index = HNSWIndex.build(coll, mode, opts)
+    elif mode.family == "DISKANN":
+        from .diskann import DiskANNIndex
+
+        coll._index = DiskANNIndex.build(coll, mode, opts)
 
     meta = {
         "index_mode": mode.canonical,
@@ -282,4 +292,12 @@ def load_index(coll):
         from .ivf import IVFIndex
 
         return IVFIndex.load(coll, mode, opts), None
+    if mode.family == "HNSW":
+        from .hnsw import HNSWIndex
+
+        return HNSWIndex.load(coll, mode, opts), None
+    if mode.family == "DISKANN":
+        from .diskann import DiskANNIndex
+
+        return DiskANNIndex.load(coll, mode, opts), None
     return None, None

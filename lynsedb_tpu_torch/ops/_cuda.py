@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every entry point: each pointer and the stream is c_void_p, so
 # no 64-bit address is ever passed as a 32-bit int
 _SIGNATURES = {
@@ -52,6 +52,10 @@ _SIGNATURES = {
     "lt_pq_adc_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "lt_bf16_gather_scores": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                               _P),
+    "lt_beam_search": (_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
+                       _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
+    "lt_topl_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "lt_robust_prune": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P),
 }
 
 _LOCK = threading.Lock()

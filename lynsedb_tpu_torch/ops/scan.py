@@ -648,6 +648,26 @@ class DeviceCorpus:
         """Exact f32 rows from the host mirror (no device traffic)."""
         return self._host[np.asarray(row_ids, dtype=np.int64)]
 
+    @property
+    def data16(self) -> torch.Tensor:
+        """The staged mean-centred bf16 copy (cap, D): the graph beams score
+        their guidance from it with the bf16_aux corrections."""
+        self._ensure_staged()
+        if self._dev16 is None:
+            raise ValueError("empty corpus")
+        return self._dev16
+
+    def host_sq_norms(self) -> np.ndarray:
+        """True squared row norms (n,) from the staging aux (the graph
+        indexes pin the top-norm band into their IP entry samples)."""
+        self._ensure_staged()
+        return self._xsqtrue_host[: self.n]
+
+    def would_stream(self) -> bool:
+        """Always False: the port has no streaming tier, and staging a corpus
+        whose copies do not fit raises in _check_fits (ROADMAP A.5)."""
+        return False
+
     def bf16_aux(self) -> dict:
         """Device aux arrays of the centred bf16 copy: mean (D,), xm (cap,),
         xc_sq (cap,), xsq_true (cap,) — see bf16_centered_scores."""

@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""FLAT search latency of lynsedb_tpu_torch on one CUDA card, by corpus and
-FLAT index mode.
+"""Search latency of lynsedb_tpu_torch on one CUDA card, by corpus and index
+mode.
 
     python3 lynsedb_tpu_torch/tools/flat_latency.py [--corpus isotropic mixture]
                                                     [--index FLAT-IP FLAT-IP-SQ8 ...]
-                                                    [--package-root DIR]
+                                                    [--nprobe N] [--package-root DIR]
 
 Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
-``--index`` mode (default FLAT-IP; a quantized mode such as FLAT-IP-SQ8 is
-built first, and its build seconds reported) 100 distinct single searches,
-then 4 batch searches at B=16 and 4 at B=256 (k=10, host clock around each
-call). The corpora are seeded numpy: ``isotropic`` is gaussian rows,
+``--index`` mode (default FLAT-IP; any other mode, such as FLAT-IP-SQ8 or
+HNSW-L2, is built first, and its build seconds reported) 100 distinct single
+searches, then 4 batch searches at B=16 and 4 at B=256 (k=10, ``--nprobe``,
+the client's default 10 unless given; host clock around each call). The corpora are seeded numpy: ``isotropic`` is gaussian rows,
 ``mixture`` chip_smoke.py's mixture of 2,000 gaussian clusters; both
 duplicate 1,000 rows. Then 20 more single searches run under torch.profiler
 to read the device time of one search, in all and by kernel.
@@ -68,14 +68,14 @@ class GcClock:
         return total
 
 
-def device_ms_per_search(torch, coll, queries) -> tuple[float | None, dict]:
+def device_ms_per_search(torch, coll, queries, nprobe: int) -> tuple[float | None, dict]:
     """Mean device time of one search: the sum of the kernels torch.profiler
     saw, and that sum by kernel name (the top 8)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for qv in queries:
-            coll.search(qv, k=K)
+            coll.search(qv, k=K, nprobe=nprobe)
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
@@ -88,7 +88,7 @@ def device_ms_per_search(torch, coll, queries) -> tuple[float | None, dict]:
     return (total if total > 0 else None), top
 
 
-def run(lynse, torch, kind: str, modes: list, root: str, clock: GcClock):
+def run(lynse, torch, kind: str, modes: list, nprobe: int, root: str, clock: GcClock):
     """Yields one result per index mode on one corpus."""
     rng = np.random.default_rng(SEED)
     x = make_corpus(kind, rng)
@@ -103,17 +103,17 @@ def run(lynse, torch, kind: str, modes: list, root: str, clock: GcClock):
     coll.commit()
     coll.prewarm()
     for mode in modes:
-        out = {"corpus": kind, "index": mode}
+        out = {"corpus": kind, "index": mode, "nprobe": nprobe}
         if mode != "FLAT-IP":
             t0 = time.perf_counter()
             coll.build_index(mode)
             out["build_s"] = time.perf_counter() - t0
-            coll.search(singles[0] + 1.0, k=K)  # stages the index
+            coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the index
         clock.read()
         lat = []
         for qv in singles:
             t0 = time.perf_counter()
-            coll.search(qv, k=K)
+            coll.search(qv, k=K, nprobe=nprobe)
             lat.append(time.perf_counter() - t0)
         out.update({"p50_ms": float(np.percentile(lat, 50) * 1e3),
                     "p99_ms": float(np.percentile(lat, 99) * 1e3), "single_gc_s": clock.read()})
@@ -121,13 +121,13 @@ def run(lynse, torch, kind: str, modes: list, root: str, clock: GcClock):
             secs = []
             for blk in blocks:
                 t0 = time.perf_counter()
-                coll.batch_search(blk, k=K)
+                coll.batch_search(blk, k=K, nprobe=nprobe)
                 secs.append(time.perf_counter() - t0)
             out[f"qps_b{b}"] = b * len(blocks) / sum(secs)
             out[f"call_s_b{b}"] = secs
             out[f"gc_s_b{b}"] = clock.read()
         out["device_ms_single"], out["device_ms_by_kernel"] = device_ms_per_search(
-            torch, coll, extra)
+            torch, coll, extra, nprobe)
         yield out
     client.close()
 
@@ -137,7 +137,9 @@ def main() -> int:
     ap.add_argument("--corpus", nargs="+", choices=("isotropic", "mixture"),
                     default=["isotropic", "mixture"])
     ap.add_argument("--index", nargs="+", default=["FLAT-IP"],
-                    help="FLAT index modes, e.g. FLAT-IP FLAT-IP-SQ8 FLAT-IP-PQ")
+                    help="index modes, e.g. FLAT-IP FLAT-IP-SQ8 FLAT-IP-PQ HNSW-L2")
+    ap.add_argument("--nprobe", type=int, default=10,
+                    help="the searches' nprobe (IVF probes; HNSW / DiskANN beam width)")
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
@@ -151,7 +153,7 @@ def main() -> int:
     clock = GcClock()
     for kind in args.corpus:
         with tempfile.TemporaryDirectory(prefix="lynse_flat_") as root:
-            for out in run(lynse, torch, kind, args.index, root, clock):
+            for out in run(lynse, torch, kind, args.index, args.nprobe, root, clock):
                 out["package"] = str(Path(lynse.__file__).resolve().parent)
                 print(json.dumps(out), flush=True)
     return 0

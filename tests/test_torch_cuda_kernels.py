@@ -30,6 +30,7 @@ import lynsedb_tpu_torch
 from lynsedb_tpu_torch.index import ivf
 from lynsedb_tpu_torch.metrics import Metric
 from lynsedb_tpu_torch.ops import distance as D
+from lynsedb_tpu_torch.ops import graph as graph_ops
 from lynsedb_tpu_torch.ops import kmeans, quantize, scan, topk
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 
@@ -421,3 +422,185 @@ def test_quantized_index_cuda_matches_cpu(dev, tmp_path, mode):
             wd = np.asarray(w.distances)[None]
             _assert_ids_match(np.asarray(g.ids)[None], np.asarray(w.ids)[None], wd,
                               1e-5 * np.abs(wd).max(axis=1) + 1e-4)
+
+
+# ── the graph kernels (K17 beam_search, K19 topl_scan, K20 robust_prune) ──
+# K17 and K20 form every key as the same chain of separately rounded f32
+# operations as their plain versions, so kernel and plain agree exactly: the
+# same pool keys, ids and visit counts, the same pruned lists. K19's product
+# is tiled FMA, so its keys agree to rtol 1e-5 and its ids up to swaps
+# between keys within that tolerance.
+
+_GRAPH_DIM = 40  # not a multiple of 32: the lane sums' ragged tail
+
+
+def _graph_inputs(dev, seed=11, n=3000, d=_GRAPH_DIM, r=16):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32) + 0.3
+    x[n // 2 : n // 2 + 50] = x[:50]  # duplicated rows: exact key ties
+    xd = torch.from_numpy(x).to(dev)
+    graph = torch.from_numpy(graph_ops.build_vamana(xd, Metric.L2, r=r, l_build=32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) >= 0.1).to(dev)  # a 10% mask
+    return rng, x, xd, graph, valid
+
+
+def _tier_args(tier, rng, x, xd, dev):
+    """The arrays of one guidance tier on the card (beam_operands' args)."""
+    n, d = x.shape
+    if tier == "f32":
+        return (xd,)
+    if tier == "bf16":
+        corpus = _aux(x, dev)
+        aux = corpus.bf16_aux()
+        return (corpus.data16[:n], aux["mean"], aux["xm"][:n], aux["xc_sq"][:n],
+                aux["xsq_true"][:n])
+    row_sq = torch.from_numpy((x * x).sum(1)).to(dev)
+    if tier == "sq8":
+        codes = torch.from_numpy(rng.integers(-128, 128, size=(n, d), dtype=np.int8)).to(dev)
+        lo = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(dev)
+        scale = torch.from_numpy(rng.random(d).astype(np.float32) * 0.02 + 1e-3).to(dev)
+        return (codes, lo, scale, row_sq)
+    m = 8
+    codes = torch.from_numpy(rng.integers(0, 256, size=(n, m), dtype=np.uint8)).to(dev)
+    books = torch.from_numpy(rng.normal(size=(m, 256, d // m)).astype(np.float32)).to(dev)
+    alpha = torch.from_numpy(rng.random(n).astype(np.float32) + 0.5).to(dev)
+    return (codes, books, alpha, row_sq)
+
+
+def _walk_both(tier, kind, q, args, graph, starts, valid, beam, expand):
+    """K17 and its plain version (on the card too) on the same operands."""
+    ops = graph_ops.beam_operands(tier, q, *args, kind=kind)
+    kw = dict(code=graph_ops._KIND_CODE[kind], beam=beam, max_steps=2 * beam, expand=expand)
+    got = graph_ops.beam_walk(tier, ops["qop"], ops["qconst"], ops["rows"], ops["aux"], graph,
+                              starts, valid, **kw)
+    before = graph_ops.beam_walk.launches
+    want = graph_ops.beam_walk_plain(tier, ops["qop"], ops["qconst"], ops["rows"], ops["aux"],
+                                     graph, starts, valid, **kw)
+    assert graph_ops.beam_walk.launches == before  # the plain version counts nothing
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("expand", [1, 2])
+@pytest.mark.parametrize("kind", ["ip", "l2", "cos"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "sq8", "pq"])
+def test_beam_search_matches_plain(dev, tier, kind, expand):
+    rng, x, xd, graph, valid = _graph_inputs(dev)
+    args = _tier_args(tier, rng, x, xd, dev)
+    q = torch.from_numpy(x[rng.integers(0, len(x), 6)] + 0.1 * rng.normal(size=(6, x.shape[1]))
+                         .astype(np.float32)).to(dev)
+    per_query = torch.from_numpy(rng.integers(0, len(x), size=(6, 5), dtype=np.int32)).to(dev)
+    shared = torch.from_numpy(rng.choice(len(x), 600, replace=False).astype(np.int32)).to(dev)
+    for starts in (per_query, shared):  # 600 shared starts enter in three chunks
+        got, want = _walk_both(tier, kind, q, args, graph, starts, valid, 48, expand)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (tier, kind, expand)
+        assert (got[2] > 0).all()
+        ids = got[1].cpu().numpy()
+        assert valid.cpu().numpy()[ids[ids >= 0]].all()  # the filter prunes the walk
+
+
+def test_beam_search_large_pool_matches_plain(dev):
+    """A pool above 1,024 (k=1,000 under IP: 1,250) in shared memory."""
+    rng, x, xd, graph, valid = _graph_inputs(dev, n=4000)
+    q = torch.from_numpy(rng.normal(size=(2, x.shape[1])).astype(np.float32)).to(dev)
+    starts = torch.from_numpy(np.array([5, 77, 900], dtype=np.int32)).to(dev)
+    got, want = _walk_both("f32", "ip", q, (xd,), graph, starts, valid, 1250, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[1] >= 0).sum(1).min()) >= 1000
+
+
+def _keys64(q, x, ids, mode):
+    """float64 keys of rows ``ids`` (B, L) for K19's modes."""
+    rows = x[np.maximum(ids, 0)].astype(np.float64)
+    q64 = q.astype(np.float64)[:, None, :]
+    ip = (rows * q64).sum(-1)
+    if mode == graph_ops.TOPL_DOT:
+        return ip
+    qsq, xsq = (q64 * q64).sum(-1), (rows * rows).sum(-1)
+    if mode == graph_ops.TOPL_COS:
+        return ip / np.sqrt(qsq * xsq) - 1.0
+    return -(qsq + xsq - 2 * ip)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("l", [16, 64, 96])
+def test_topl_scan_matches_plain(dev, l, mode):
+    rng = np.random.default_rng(l + mode)
+    n, d = 20_000, 48
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[100:110] = x[5]  # exact ties: the lower id first
+    xd = torch.from_numpy(x).to(dev)
+    sq = (xd * xd).sum(-1)
+    for lo, hi in ((0, 4096), (4096, 4096 + 37), (n - 300, n)):  # ragged chunks
+        q_ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        args = (xd[lo:hi], q_ids, xd, sq[lo:hi], sq, n - 7, l, mode)  # 7 rows past n_real
+        gk, gi = graph_ops.topl_scan(*args)
+        wk, wi = graph_ops.topl_scan_plain(*args)
+        torch.cuda.synchronize()
+        gi, wi = gi.cpu().numpy(), wi.cpu().numpy()
+        assert not (gi == np.arange(lo, hi)[:, None]).any()  # self-matches masked
+        assert (gi < n - 7).all()
+        np.testing.assert_allclose(gk.cpu().numpy(), wk.cpu().numpy(), rtol=1e-5, atol=1e-4)
+        exact = _keys64(x[lo:hi], x, gi, mode)
+        want = _keys64(x[lo:hi], x, wi, mode)
+        tol = 1e-5 * np.abs(want).max(axis=1, keepdims=True) + 1e-4
+        assert (np.abs(exact - want) <= tol).all()  # ids differ only at near-ties
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.COSINE, Metric.IP])
+def test_robust_prune_matches_plain(dev, metric):
+    rng = np.random.default_rng(3)
+    n, d, l, r = 5000, 40, 72, 32
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[200:210] = x[3]
+    xd = torch.from_numpy(x).to(dev)
+    nodes = torch.from_numpy(rng.choice(n, 700, replace=False).astype(np.int32)).to(dev)
+    cands = rng.integers(0, n, size=(700, l)).astype(np.int32)
+    cands[rng.random(cands.shape) < 0.1] = -1
+    cands[:, 5] = nodes.cpu().numpy()  # self candidates are dropped
+    cands = torch.from_numpy(cands).to(dev)
+    desc = metric is Metric.IP
+    got = graph_ops.robust_prune(xd, nodes, cands, metric=metric, r=r, alpha=1.2, descending=desc)
+    want = graph_ops.robust_prune_plain(xd, nodes, cands, metric=metric, r=r, alpha=1.2,
+                                        descending=desc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got >= 0).sum() > 700
+    for node_ids in (nodes, None):  # the keys mode, with and without point keys
+        gp, gq = graph_ops.robust_prune(xd, node_ids, cands, metric=metric, keys_only=True)
+        wp, wq = graph_ops.robust_prune_plain(xd, node_ids, cands, metric=metric, keys_only=True)
+        assert torch.equal(gq, wq)
+        assert (gp is None) == (wp is None) and (gp is None or torch.equal(gp, wp))
+
+
+@pytest.mark.parametrize("mode", ["HNSW-L2", "HNSW-IP", "DISKANN-L2", "DISKANN-IP", "DISKANN-COS"])
+def test_graph_index_cuda_matches_cpu(dev, tmp_path, mode):
+    """The same collection indexed and searched on the card and on the CPU:
+    the same graph (K19 and K20 against their plain versions inside the
+    build), the same answers."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4000, 32)).astype(np.float32)
+    q = rng.normal(size=(20, 32)).astype(np.float32)
+    answers, graphs = [], []
+    for i, device in enumerate((dev, "cpu")):
+        client = lynsedb_tpu_torch.VectorDBClient(tmp_path / f"root{i}", device=device)
+        try:
+            coll = client.create_database("d").require_collection("c", dim=32)
+            coll.add(vectors=x, fields=[{"b": i % 2} for i in range(len(x))])
+            coll.commit()
+            coll.build_index(mode)
+            idx = coll._engine._index
+            graphs.append(idx.layer0_np if mode.startswith("HNSW") else idx.graph_np)
+            answers.append([(np.asarray(r.ids), np.asarray(r.distances))
+                            for where in (None, "b = 1")
+                            for r in coll.batch_search(q, k=10, where=where, nprobe=64)])
+        finally:
+            client.close()
+    assert (graphs[0] == graphs[1]).all(axis=1).mean() >= 0.99  # near-tie rows may differ
+    same = np.mean([np.array_equal(g[0], w[0]) for g, w in zip(*answers)])
+    assert same >= 0.95
+    for (gi, gd), (wi, wd) in zip(*answers):
+        if np.array_equal(gi, wi):
+            np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-4)

@@ -26,7 +26,9 @@ import lynsedb_tpu_torch
 from lynsedb_tpu.index.ivf import _ivf_search_kernel
 from lynsedb_tpu.ops.scan import unpack_search_step
 from lynsedb_tpu_torch.configs.config import config as torch_config
-from test_torch_scan import assert_same_ids
+from test_torch_scan import assert_same_ids, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DIM, N, K = 32, 5000, 10
 MODES = [("IVF-L2", {}, "l2"), ("IVF-IP", {}, "ip"), ("IVF-COS", {}, "cosine"),

@@ -32,7 +32,9 @@ from lynsedb_tpu_torch.metrics import Metric
 from lynsedb_tpu_torch.ops import quantize as TQ
 from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus, _to_key
+from test_torch_scan import one_torch_thread  # noqa: F401 (pytestmark's fixture)
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 N = 5000
 KINDS = ("sq8", "rabitq", "polarvec", "pq")
 METRICS = ("ip", "l2", "cosine")

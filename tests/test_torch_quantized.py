@@ -29,8 +29,9 @@ import torch
 import lynsedb_tpu
 import lynsedb_tpu_torch
 from lynsedb_tpu_torch.index import resolve_index_mode
-from test_torch_scan import assert_same_ids
+from test_torch_scan import assert_same_ids, one_torch_thread  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 DIM, N, K_MAX = 64, 5000, 100
 KINDS = ("SQ8", "PQ", "RABITQ", "POLARVEC")
 METRIC = {"IP": "ip", "L2": "l2", "COS": "cosine"}

@@ -28,6 +28,18 @@ SIZES = (2000, 20000)
 METRICS = ("ip", "l2", "cosine")
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for a test module. The plain versions run
+    many small torch ops, which one thread runs about as fast, and parallel
+    test workers then do not oversubscribe the cores (each worker's torch
+    would start a thread a core)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(n: int):
     rng = np.random.default_rng(n)
     x = rng.normal(size=(n, DIM)).astype(np.float32) + 0.25
