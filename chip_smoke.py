@@ -18,8 +18,11 @@ Phases (each prints its seconds):
   4. flat path: VectorDBClient(device="cuda") -> create_database ->
      require_collection(dim=128, FLAT-IP) -> add 1,000,000 rows with
      fields {"bucket": i % 10} -> commit -> 100 single searches and batch
-     searches at B=16 and B=256, each unfiltered and with where="bucket = 3";
-     then a 2,000-row collection (the exact K1 plan).
+     searches at B=16 and B=256, each unfiltered and with where="bucket = 3"
+     (100,000 rows: the gather route, K11 -> K5 -> K3, scanned_vectors
+     100,000 + the shortlist); then a 2,000-row collection (the exact K1
+     plan). K11 against its plain version on the route's own (1, 100,000)
+     row list and slot keys, B in {1, 16, 256}.
   5. large k: search(k=1000) and search_range(max_results=1000) on the 1M
      collection (a shortlist of 1,280: K5's sort-and-merge path, K3 via K5).
      Then the quantized scans at 1,000,000 x 128: K12 int8_code_scores for
@@ -49,12 +52,27 @@ Phases (each prints its seconds):
      K17 in all four tiers at beam 125; then 1% of the rows tombstoned and
      committed (the delete repair) and searched again. HNSW-IP and
      DISKANN-L2 on a 100,000-row prefix collection.
-  9. checks: recall@10 and distances against a chunked numpy brute force
+  9. metrics path: the same collection rebuilt as FLAT-L1, -CHEBYSHEV,
+     -CANBERRA, -BRAY-CURTIS and -CORRELATION; 1,000,000 x 128 histograms
+     (the mixture exponentiated, 1,000 rows with a negative entry, 100 all
+     zero) as FLAT-HELLINGER, -JENSEN-SHANNON, -WASSERSTEIN; 1,000,000 x
+     1,024-bit fingerprints (2,000 scaffold prototypes at 10% density, 2% of
+     bits flipped) as FLAT-TANIMOTO-, -JACCARD-, -DICE-, -HAMMING-BINARY;
+     1,000,000 (lon, lat) points uniform on the sphere (100 with |lat| > 90)
+     as FLAT-HAVERSINE; phase 4's 2,000-row collection as FLAT-L2 (K1). Each mode: 100 single queries and a batch at B=16 and
+     B=256, unfiltered and with where="bucket = 3"; the L1 family also
+     approx=True at B=16 (K6c bf16 -> K5 -> K6c gather -> K5); FLAT-L1 also
+     search_range(max_results=1000). Every id and distance against a float64
+     brute force on the card (recall@10 >= 0.999 exact, >= 0.90 approx, ties
+     within the distance tolerance counted; no filtered-out row, no row at
+     +inf). K6a / K6b / K6c against their plain versions on the staged
+     transforms at B in {1, 16, 256}, with the bf16 and gather modes.
+ 10. checks: recall@10 and distances against a chunked numpy brute force
      (FLAT >= 0.999, IVF >= 0.85, SQ8 >= 0.95, PQ / RaBitQ / PolarVec >= 0.70,
      HNSW / DiskANN >= 0.90 unfiltered in every tier, the half filter
      reported; no repeated id, no filtered-out or deleted id), large k
      against the exact top 1,000.
- 10. the launch counts of each path (counts set to 0 just before a path and
+ 11. the launch counts of each path (counts set to 0 just before a path and
      read just after; every kernel of the path > 0).
 The corpus is seeded numpy: 1M x 128 f32 rows drawn from a mixture of 2,000
 gaussian clusters (embedding-like data, on which a partition index has
@@ -98,6 +116,10 @@ DEV = torch.device("cuda")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 and dense bf16 flop/s,
 # dense int8 op/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
+# f32 instructions a second outside the tensor cores (67 TFLOP/s counts an
+# FMA as two flops), and the special-function units' and popcount's rate:
+# 132 SMs x 16 a clock x 1.98 GHz (a reciprocal, a logarithm, a popcount)
+F32_OPS, SFU_OPS = F32_FLOPS / 2, 132 * 16 * 1.98e9
 # the upstream gate's quantized modes (benchmarks/gate_index_modes.py:39-43)
 # and their recall@10 floors (SURVEY.md section 6)
 QUANT_MODES = {"FLAT-IP-SQ8": 0.95, "FLAT-L2-SQ8": 0.95, "FLAT-IP-PQ": 0.70,
@@ -140,11 +162,18 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
                       "lynsedb_tpu/ops/graph.py:510"),
     "K20 robust_prune": (graph.robust_prune, "lynsedb_tpu_torch/csrc/robust_prune.cu",
                          "lynsedb_tpu/ops/graph.py:554"),
+    "K6a gemm_metric_scores": (scan.gemm_metric_scores, "lynsedb_tpu_torch/csrc/flat_scores_f32.cu",
+                               "lynsedb_tpu/ops/distance.py:149"),
+    "K6b binary_scores": (scan.binary_scores, "lynsedb_tpu_torch/csrc/binary_scores.cu",
+                          "lynsedb_tpu/ops/distance.py:177"),
+    "K6c elementwise_scores": (scan.elementwise_scores,
+                               "lynsedb_tpu_torch/csrc/elementwise_scores.cu",
+                               "lynsedb_tpu/ops/distance.py:199"),
 }
 # the kernels each path must launch
 PATHS = {
     "flat": ("K1 flat_scores_f32", "K2 bf16_centered_scores", "K3 rescore_topk",
-             "K5 topk_select"),
+             "K5 topk_select", "K11 bf16_gather_scores"),
     "large_k": ("K2 bf16_centered_scores", "K3 rescore_topk", "K5 topk_select"),
     "ivf": ("K1 flat_scores_f32", "K5 topk_select", "K15 kmeans_assign", "K15 kmeans_update",
             "K16 ivf_scan_blocks"),
@@ -153,6 +182,8 @@ PATHS = {
                   "K15 kmeans_assign"),
     "graph": ("K1 flat_scores_f32", "K5 topk_select", "K17 beam_search", "K19 topl_scan",
               "K20 robust_prune"),
+    "metrics": ("K1 flat_scores_f32", "K5 topk_select", "K6a gemm_metric_scores", "K6b binary_scores",
+                "K6c elementwise_scores"),
 }
 
 
@@ -211,10 +242,16 @@ def uncounted():
         set_counts(saved)
 
 
-def bound(bytes_moved: float, flops: float, peak_flops: float = F32_FLOPS):
-    """(ms, "bytes" or "operations"): the least time for the work."""
-    t_bytes, t_ops = bytes_moved / HBM_BPS * 1e3, flops / peak_flops * 1e3
+def bound_t(bytes_moved: float, t_ops: float):
+    """(ms, "bytes" or "operations"): the least time for the work, the
+    larger of its bytes over the memory rate and its operations' time
+    ``t_ops`` in seconds."""
+    t_bytes, t_ops = bytes_moved / HBM_BPS * 1e3, t_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(bytes_moved: float, flops: float, peak_flops: float = F32_FLOPS):
+    return bound_t(bytes_moved, flops / peak_flops)
 
 
 def make_corpus(rng):
@@ -491,6 +528,51 @@ def synthetic_code_state(kind: str, gen: torch.Generator) -> dict:
     return st
 
 
+def check_gather(got, want, q, aux, ids, metric, what: str, stats: Stats) -> None:
+    """K11's keys against its plain version's: the same empty slots, and
+    each key within K2's tolerance (1e-5 of |q - mean| |x - mean|, over the
+    norms for cosine): the same bf16 products summed in another order."""
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)), f"{what}: empty slots")
+    safe = ids.clamp_min(0).long()
+    qc_norm = (q - aux["mean"][None, :]).norm(dim=1)[:, None]
+    tol = 1e-5 * qc_norm * torch.sqrt(aux["xc_sq"][safe]) + 1e-5
+    if metric is Metric.COSINE:
+        tol = tol / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][safe]).clamp_min(1e-30)
+    err = (got - want).abs()
+    check(bool((err[fin] <= tol.expand_as(err)[fin]).all()), what)
+    stats.error("K11 bf16_gather_scores", err[fin].max())
+
+
+def gather_route_phase(coll, rng, stats: Stats) -> None:
+    """K11 against its plain version at the flat path's gather-route inputs:
+    the engine's bucket = 3 handle over the 1M collection, its (1, 100,000)
+    row list shared by every query and its slot keys, B in {1, 16, 256},
+    IP / L2 / cosine; timed under IP (the collection's metric)."""
+    eng = coll._engine
+    corpus, handle = eng.corpus(), eng.resolve_filter("bucket = 3")
+    check(handle.use_gather(corpus.n), "bucket = 3 takes the gather route")
+    idx, slot = corpus.gather_inputs(handle)
+    s = idx.shape[1]
+    x16, aux = corpus.data16, corpus.bf16_aux()
+    for metric in METRICS:
+        for b in BATCHES:
+            q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
+            got = scan.bf16_gather_scores(q, x16, aux, idx, slot, metric)
+            want = scan.bf16_gather_scores_plain(q, x16, aux, idx, slot, metric)
+            check(got.shape == (b, s), f"K11 shared list B={b}: shape {tuple(got.shape)}")
+            check_gather(got, want, q, aux, idx, metric, f"K11 {metric} shared S={s} B={b}", stats)
+            del got, want
+            if metric is Metric.IP:  # rows, xm, the list and its slot keys; B x S keys out
+                stats.time("K11 bf16_gather_scores", f"IP B={b} shared S={s}",
+                           lambda: scan.bf16_gather_scores(q, x16, aux, idx, slot, metric),
+                           lambda: scan.bf16_gather_scores_plain(q, x16, aux, idx, slot, metric),
+                           None, bound(s * (DIM * 2 + 4 + 8) + b * s * 4 + b * DIM * 4,
+                                       2 * b * s * DIM))
+    print(f"   K11 bf16_gather_scores over the shared (1, {s}) list: agrees with its plain "
+          "version", flush=True)
+
+
 def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
     """K12, K13, K14, K11 and kmeans_assign against their plain versions at
     the quantized path's shapes: 1M x 128 codes, B in {1, 16, 64} (the
@@ -585,17 +667,7 @@ def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
                                          SHORTLIST)
             got = scan.bf16_gather_scores(q, x16, aux, cand, top, metric)
             want = scan.bf16_gather_scores_plain(q, x16, aux, cand, top, metric)
-            fin = torch.isfinite(want)
-            check(torch.equal(fin, torch.isfinite(got)), f"K11 {metric} B={b}: empty slots")
-            safe = cand.clamp_min(0).long()
-            qc_norm = (q - aux["mean"][None, :]).norm(dim=1)[:, None]
-            tol = 1e-5 * qc_norm * torch.sqrt(aux["xc_sq"][safe]) + 1e-5  # as K2's
-            if metric is Metric.COSINE:
-                tol = tol / torch.sqrt((q * q).sum(-1)[:, None]
-                                       * aux["xsq_true"][safe]).clamp_min(1e-30)
-            err = (got - want).abs()
-            check(bool((err[fin] <= tol[fin]).all()), f"K11 {metric} B={b}")
-            stats.error("K11 bf16_gather_scores", err[fin].max())
+            check_gather(got, want, q, aux, cand, metric, f"K11 {metric} B={b}", stats)
             if metric is Metric.IP:
                 n_cand = int((top > float("-inf")).sum())  # the rows it gathers
                 stats.time("K11 bf16_gather_scores", f"IP B={b} S={SHORTLIST}",
@@ -1015,6 +1087,392 @@ def check_graph(out, x, extra, dead, q_all, report) -> None:
             report[f"{name} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
 
 
+# ── the metrics path: FLAT under the other 13 metrics ────────────────────
+
+METRIC_MODES = {  # collection -> its FLAT modes
+    "real": ("FLAT-L1", "FLAT-CHEBYSHEV", "FLAT-CANBERRA", "FLAT-BRAY-CURTIS", "FLAT-CORRELATION"),
+    "hist": ("FLAT-HELLINGER", "FLAT-JENSEN-SHANNON", "FLAT-WASSERSTEIN"),
+    "bits": ("FLAT-TANIMOTO-BINARY", "FLAT-JACCARD-BINARY", "FLAT-DICE-BINARY",
+             "FLAT-HAMMING-BINARY"),
+    "geo": ("FLAT-HAVERSINE",),
+}
+APPROX_MODES = ("FLAT-L1", "FLAT-CHEBYSHEV", "FLAT-CANBERRA", "FLAT-BRAY-CURTIS")
+APPROX_RECALL_FLOOR = 0.90  # tests/test_approx.py:34
+BITS_N, BITS_DIM, BITS_DENSITY, GEO_N = 1_000_000, 1024, 0.1, 1_000_000
+N_MQ = 100 + 16 + 256  # the singles, one B=16 batch, one B=256 batch
+SQUARED = (Metric.HELLINGER, Metric.JENSEN_SHANNON)  # held on the squared distance
+# per-element f32 instructions and special-function operations (a reciprocal,
+# a logarithm) of K6c; Haversine's are a (query, row) pair's
+ELEM_OPS = {Metric.L1: (2, 0), Metric.CHEBYSHEV: (2, 0), Metric.CANBERRA: (4, 1),
+            Metric.BRAY_CURTIS: (4, 0), Metric.WASSERSTEIN: (2, 0),
+            Metric.JENSEN_SHANNON: (3, 1), Metric.HAVERSINE: (12, 6)}
+
+
+def dist_tol(metric: Metric, d64: torch.Tensor) -> torch.Tensor:
+    """A returned f32 distance's tolerance against float64 (on the squared
+    distance for Hellinger and Jensen-Shannon): Hamming exact; Jaccard, Dice
+    one f32 division; Wasserstein the cdf's cumulative sums; Haversine an f32
+    angle's ulp (0.76 m of arc) on each coordinate; the rest f32 sums of D
+    terms."""
+    if metric is Metric.HAMMING:
+        return torch.zeros_like(d64)
+    if metric.is_binary:
+        return torch.full_like(d64, 1e-6)
+    if metric in SQUARED:  # f32 sums of D terms of about ln D (JS) or 1 / D (Hellinger)
+        return torch.full_like(d64, 4e-7 * DIM)
+    if metric is Metric.WASSERSTEIN:
+        return 1e-4 * d64.abs() + 1e-5 * DIM
+    if metric is Metric.HAVERSINE:
+        return 1e-5 * d64 + 4.0
+    return 1e-5 * d64.abs() + 1e-5
+
+
+def _sq(metric: Metric, d: torch.Tensor) -> torch.Tensor:
+    return d * d if metric in SQUARED else d
+
+
+def _prob64(t: torch.Tensor):
+    bad = (~torch.isfinite(t) | (t < 0)).any(1)
+    t = torch.where(bad[:, None], 0.0, t)
+    mass = t.sum(1)
+    return t / torch.where(mass > 0, mass, 1.0)[:, None], mass, bad
+
+
+def dist64(metric: Metric, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float64 (Q, C) distances, written from the metrics' definitions (the
+    reference's policies for constant, zero-mass, invalid and out-of-range
+    rows), independent of the port's code."""
+    inf = float("inf")
+    if metric is Metric.L1:
+        return torch.cdist(q, x, p=1)
+    if metric is Metric.CHEBYSHEV:
+        return torch.cdist(q, x, p=inf)
+    if metric is Metric.BRAY_CURTIS:
+        num, den = torch.cdist(q, x, p=1), torch.cdist(q, -x, p=1)
+        return torch.where(den == 0, torch.where(num == 0, 0.0, inf), num / den)
+    if metric is Metric.CANBERRA:
+        a, b = q[:, None], x[None]
+        den = a.abs() + b.abs()
+        return torch.where(den == 0, 0.0, (a - b).abs() / den).sum(-1)
+    if metric is Metric.CORRELATION:
+        qc, xc = q - q.mean(1, keepdim=True), x - x.mean(1, keepdim=True)
+        vq, vx = (qc * qc).sum(1)[:, None], (xc * xc).sum(1)[None]
+        r = (qc @ xc.T) / torch.sqrt(vq * vx)
+        same = (vq <= 1e-12) & (vx <= 1e-12) & (q.mean(1)[:, None] == x.mean(1)[None])
+        return torch.where((vq <= 1e-12) | (vx <= 1e-12), torch.where(same, 0.0, 1.0),
+                           1.0 - r.clamp(-1.0, 1.0))
+    if metric in (Metric.HELLINGER, Metric.WASSERSTEIN, Metric.JENSEN_SHANNON):
+        (pq, mq, bq), (px, mx, bx) = _prob64(q), _prob64(x)
+        if metric is Metric.HELLINGER:
+            d, zero = torch.sqrt((1.0 - torch.sqrt(pq) @ torch.sqrt(px).T).clamp_min(0.0)), 1.0
+        elif metric is Metric.WASSERSTEIN:
+            d, zero = torch.cdist(pq.cumsum(1)[:, :-1], px.cumsum(1)[:, :-1], p=1), inf
+        else:
+            a, b = pq[:, None], px[None]
+            js = np.log(2.0) + 0.5 * (torch.xlogy(a, a) + torch.xlogy(b, b)
+                                      - torch.xlogy(a + b, a + b)).sum(-1)
+            d, zero = torch.sqrt(js.clamp_min(0.0)), float(np.sqrt(np.log(2.0)))
+        zq, zx = (mq == 0)[:, None], (mx == 0)[None]
+        d = torch.where(zq | zx, torch.where(zq & zx, 0.0, zero), d)
+        return torch.where(bq[:, None] | bx[None], inf, d)
+    if metric.is_binary:
+        inter = q @ x.T
+        cq, cx = q.sum(1)[:, None], x.sum(1)[None]
+        if metric is Metric.HAMMING:
+            return cq + cx - 2 * inter
+        if metric is Metric.DICE:
+            return torch.where(cq + cx == 0, 0.0, 1.0 - 2 * inter / (cq + cx))
+        return torch.where(cq + cx - inter == 0, 0.0, 1.0 - inter / (cq + cx - inter))
+    rad = np.pi / 180.0  # Haversine: (lon, lat) degrees, the IUGG mean radius
+    lon1, lat1 = q[:, 0:1] * rad, q[:, 1:2] * rad
+    lon2, lat2 = x[None, :, 0] * rad, x[None, :, 1] * rad
+    h = torch.sin((lat2 - lat1) / 2) ** 2 + torch.cos(lat1) * torch.cos(lat2) * torch.sin(
+        (lon2 - lon1) / 2) ** 2
+    d = 2 * 6_371_008.8 * torch.asin(torch.sqrt(h.clamp(0.0, 1.0)))
+    bad_q, bad_x = q[:, 1].abs() > 90, x[:, 1].abs() > 90
+    return torch.where(bad_q[:, None] | bad_x[None], inf, d)
+
+
+def brute64(metric: Metric, q64: torch.Tensor, rows: torch.Tensor, masks: dict, k: int) -> dict:
+    """Chunked float64 brute force on the card: for each allowed-row mask,
+    the k smallest distances (Q, k), ascending, and their row ids."""
+    n, (nq, d) = rows.shape[0], q64.shape
+    step = max(256, (1 << 26) // (nq * d)) if metric in (
+        Metric.JENSEN_SHANNON, Metric.CANBERRA) else 1 << 16
+    best = {name: None for name in masks}
+    for lo in range(0, n, step):
+        dd = dist64(metric, q64, rows[lo : lo + step].double())
+        for name, ok in masks.items():
+            part = torch.where(ok[lo : lo + step][None], dd, float("inf"))
+            v, i = torch.topk(part, min(k, part.shape[1]), dim=1, largest=False)
+            if best[name] is not None:
+                v, i = torch.cat([best[name][0], v], 1), torch.cat([best[name][1], i + lo], 1)
+                v, j = torch.topk(v, min(k, v.shape[1]), dim=1, largest=False)
+                best[name] = (v, i.gather(1, j))
+            else:
+                best[name] = (v, i + lo)
+    return best
+
+
+def check_metric_views(metric, label, views, q64, rows, ok, kth, floor) -> float:
+    """Every returned row allowed (filter, live), no repeat, no row at +inf,
+    each distance within its tolerance of float64; recall@10 where a row
+    counts when its float64 distance is at most the 10th true one plus the
+    tolerance (Hamming's integer ties)."""
+    hits = 0
+    for lo in range(0, len(views), 50):
+        blk = views[lo : lo + 50]
+        ids = np.stack([np.asarray(v.ids, dtype=np.int64) for v in blk])
+        check(ids.shape[1] == K, f"{label}: {ids.shape[1]} rows returned, {K} asked")
+        check(all(len(set(r.tolist())) == K for r in ids), f"{label}: a repeated id")
+        ids_d = torch.from_numpy(ids).to(DEV)
+        check(bool(ok[ids_d].all()), f"{label}: a filtered-out or deleted row returned")
+        got = torch.from_numpy(np.stack([np.asarray(v.distances) for v in blk])).to(DEV).double()
+        nb = len(blk)
+        full = dist64(metric, q64[lo : lo + nb], rows[ids_d.ravel()].double())
+        d64 = full.view(nb, nb, K)[torch.arange(nb), torch.arange(nb)]  # each query's own rows
+        check(bool(torch.isfinite(got).all()), f"{label}: a row at +inf distance returned")
+        err = (_sq(metric, got) - _sq(metric, d64)).abs()
+        check(bool((err <= dist_tol(metric, d64)).all()),
+              f"{label}: a distance off float64 by {float(err.max())}")
+        t = kth[lo : lo + nb, None]
+        hits += int((_sq(metric, d64) <= _sq(metric, t) + dist_tol(metric, t)).sum())
+    recall = hits / (K * len(views))
+    print(f"   {label}: recall@10 {recall:.4f} over {len(views)} queries", flush=True)
+    check(recall >= floor, f"{label}: recall@10 {recall} < {floor}")
+    return recall
+
+
+def keys_error(metric: Metric, got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """A distance kernel's keys against its plain version's: the binary
+    family and Chebyshev equal; else the same -inf slots and distances within
+    rtol 1e-5 (the squared distance for Hellinger and Jensen-Shannon, atol
+    4e-7 x D; Haversine atol 1 m; Wasserstein atol 1e-5 x D): sums in
+    another order."""
+    if metric.is_binary or metric is Metric.CHEBYSHEV:
+        check(torch.equal(got, want), f"{what}: keys differ from the plain version's")
+        return 0.0
+    check(torch.equal(torch.isinf(got), torch.isinf(want)), f"{what}: -inf slots differ")
+    fin = torch.isfinite(want)
+    g, w = -got[fin].double(), -want[fin].double()
+    if metric in SQUARED:
+        err, tol = (g * g - w * w).abs(), 4e-7 * DIM + 1e-5 * w * w
+    else:
+        atol = {Metric.HAVERSINE: 1.0, Metric.WASSERSTEIN: 1e-5 * DIM}.get(
+            metric, 1e-5 * float(w.abs().max()))
+        err, tol = (g - w).abs(), atol + 1e-5 * w.abs()
+    check(bool((err <= tol).all()), f"{what}: off the plain version by {float(err.max())}")
+    return float((g - w).abs().max()) if len(g) else 0.0
+
+
+def metric_kernel_phase(corpus: DeviceCorpus, metric: Metric, qs: np.ndarray, stats: Stats,
+                        timed: tuple) -> None:
+    """K6a / K6b / K6c against their plain version at the path's shapes (the
+    staged 1M-row transform, B in {1, 16, 256}; the L1 family's bf16 mode
+    and every metric's gather mode over a shortlist of K x 8 rows at B = 16),
+    timed at the batch sizes ``timed``."""
+    ct, valid = corpus.transform(metric), corpus.valid_mask()
+    rows, n_live, d = valid.shape[0], int(valid.sum()), corpus.dim
+    if metric in D.BINARY_METRICS:
+        name, w = "K6b binary_scores", D.words_for(d)
+        x01 = torch.empty((rows, 32 * w), dtype=torch.bfloat16, device=DEV)
+        for lo in range(0, rows, 1 << 16):
+            x01[lo : lo + (1 << 16)] = D.unpack_bits(ct["bits"][lo : lo + (1 << 16)])
+    elif metric in D.ELEMENTWISE_METRICS:
+        name = "K6c elementwise_scores"
+    else:
+        name = "K6a gemm_metric_scores"
+    for b in BATCHES:
+        qd = torch.from_numpy(np.ascontiguousarray(qs[:b])).to(DEV)
+        qt = D.query_transform(qd, metric)
+        got = scan.metric_keys(qt, ct, valid, metric)
+        want = scan.metric_keys_plain(qt, ct, valid, metric)
+        stats.error(name, keys_error(metric, got, want, f"{name} {metric.value} B={b}"))
+        del got, want
+        if b not in timed:
+            continue
+        keys_bytes = b * rows * 4 + rows + b * d * 4
+        library = None
+        if name == "K6b binary_scores":
+            q01 = D.unpack_bits(qt["bits"]).to(torch.bfloat16)
+            library = lambda: q01 @ x01.T  # noqa: E731
+            bd = bound_t(n_live * (w * 4 + 4) + keys_bytes, b * n_live * w / SFU_OPS)
+        elif name == "K6a gemm_metric_scores":
+            lead = scan._gemm_rows(ct, metric)
+            ql = scan._gemm_rows(qt, metric)
+            library = lambda: ql @ lead.T  # noqa: E731
+            extra = 8 if metric is Metric.CORRELATION else 5
+            bd = bound(n_live * (d * 4 + extra) + keys_bytes, 2 * b * n_live * d)
+        else:
+            x32 = corpus._data
+            if metric in (Metric.L1, Metric.CHEBYSHEV):
+                p = 1 if metric is Metric.L1 else float("inf")
+                library = accepted(lambda: torch.cdist(qd, x32, p=p))
+            f32_ops, sfu_ops = ELEM_OPS[metric]
+            elems = b * n_live * (1 if metric is Metric.HAVERSINE else (
+                d - 1 if metric is Metric.WASSERSTEIN else d))
+            extra = 9 if metric in (Metric.WASSERSTEIN, Metric.JENSEN_SHANNON) else 0
+            bd = bound_t(n_live * (d * 4 + extra) + keys_bytes,
+                         max(elems * f32_ops / F32_OPS, elems * sfu_ops / SFU_OPS))
+        stats.time(name, f"{metric.value} B={b}", lambda: scan.metric_keys(qt, ct, valid, metric),
+                   lambda: scan.metric_keys_plain(qt, ct, valid, metric), library, bd,
+                   reps=3 if b == 256 else 10)
+    # the gather mode (the approximate search's f32 rescore, K10) at B = 16
+    qd = torch.from_numpy(np.ascontiguousarray(qs[:16])).to(DEV)
+    qt = D.query_transform(qd, metric)
+    c = K * 8
+    ids = torch.randint(0, corpus.n, (16, c), device=DEV, dtype=torch.int32)
+    ids[:, -4:] = -1
+    got = scan.metric_keys(qt, ct, None, metric, ids=ids)
+    want = scan.metric_keys_plain(qt, ct, None, metric, ids=ids)
+    stats.error(name, keys_error(metric, got, want, f"{name} {metric.value} gather"))
+    if metric is Metric.L1:
+        n_cand = int((ids >= 0).sum())
+        stats.time(name, f"l1 gather B=16 C={c}",
+                   lambda: scan.metric_keys(qt, ct, None, metric, ids=ids),
+                   lambda: scan.metric_keys_plain(qt, ct, None, metric, ids=ids), None,
+                   bound_t(n_cand * d * 4 + 16 * c * 8 + 16 * d * 4,
+                           n_cand * d * ELEM_OPS[metric][0] / F32_OPS))
+    print(f"   {name} {metric.value}: agrees with its plain version at B in {BATCHES} and in "
+          f"the gather mode", flush=True)
+    if metric not in (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS):
+        return
+    mean, x16 = corpus.bf16_aux()["mean"], corpus.data16  # the bf16 mode (K9)
+    for b in BATCHES:
+        qt = {"x": torch.from_numpy(np.ascontiguousarray(qs[:b])).to(DEV)}
+        got = scan.elementwise_scores(qt, {"x": x16}, valid, metric, mean=mean)
+        want = scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean)
+        stats.error(name, keys_error(metric, got, want, f"{name} {metric.value} bf16 B={b}"))
+        if metric is Metric.L1 and b == 16:
+            stats.time(name, "l1 bf16 B=16",
+                       lambda: scan.elementwise_scores(qt, {"x": x16}, valid, metric, mean=mean),
+                       lambda: scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean),
+                       None, bound_t(n_live * d * 2 + d * 4 + 16 * rows * 4 + rows + 16 * d * 4,
+                                     16 * n_live * d * 3 / F32_OPS))
+    print(f"   {name} {metric.value} bf16 mode: agrees with its plain version", flush=True)
+
+
+def metric_collection(db, name: str, x: np.ndarray):
+    coll = db.require_collection(name, dim=x.shape[1])
+    t0 = time.perf_counter()
+    coll.add(vectors=x, fields=[{"bucket": i % 10} for i in range(len(x))], batch_size=100_000)
+    coll.commit()
+    return coll, time.perf_counter() - t0
+
+
+def fingerprints(gen: torch.Generator, protos: torch.Tensor, n: int) -> torch.Tensor:
+    """ECFP-like {0, 1} rows: a scaffold prototype (10% density) with 2% of
+    its bits flipped. (n, BITS_DIM) uint8 on the card."""
+    out = torch.empty((n, BITS_DIM), dtype=torch.uint8, device=DEV)
+    for lo in range(0, n, 1 << 16):
+        m = min(1 << 16, n - lo)
+        pick = torch.randint(0, protos.shape[0], (m,), generator=gen, device=DEV)
+        flip = torch.rand((m, BITS_DIM), generator=gen, device=DEV) < 0.02
+        out[lo : lo + m] = protos[pick] ^ flip
+    return out
+
+
+def metrics_path(db, coll, x, extra, dead, centers, rng, report, stats) -> None:
+    """The metrics phase: the phase-4 collection rebuilt as FLAT-L1,
+    -CHEBYSHEV, -CANBERRA, -BRAY-CURTIS and -CORRELATION; 1M x 128 histograms
+    (Hellinger, Jensen-Shannon, Wasserstein); 1M x 1,024 fingerprints
+    (Tanimoto, Jaccard, Dice, Hamming); 1M geo points (Haversine). Each mode:
+    100 single queries and a batch at B = 16 and 256, unfiltered and
+    ``bucket = 3``; the L1 family also approx=True at B = 16, FLAT-L1 also
+    search_range(max_results=1000); every answer held to a float64 brute
+    force on the card; the kernels against their plain versions."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 1)
+    x_real = np.concatenate([x, extra])
+    live = np.ones(len(x_real), dtype=bool)
+    live[dead] = False
+    q_real = mixture_queries(rng, centers, N_MQ)
+    x_hist = np.exp(x)
+    x_hist[rng.choice(N, 1000, replace=False), rng.integers(0, DIM, 1000)] = -1.0  # invalid
+    x_hist[rng.choice(N, 100, replace=False)] = 0.0  # zero mass
+    q_hist = np.exp(mixture_queries(rng, centers, N_MQ)).astype(np.float32)
+    protos = torch.rand((N_CENTERS, BITS_DIM), generator=gen, device=DEV) < BITS_DENSITY
+    bits_dev, q_bits = fingerprints(gen, protos, BITS_N), fingerprints(gen, protos, N_MQ)
+    lon, lat = rng.uniform(-180, 180, GEO_N), np.degrees(np.arcsin(rng.uniform(-1, 1, GEO_N)))
+    lat[rng.choice(GEO_N, 100, replace=False)] = 95.0  # |lat| > 90: +inf
+    x_geo = np.stack([lon, lat], 1).astype(np.float32)
+    q_geo = np.stack([rng.uniform(-180, 180, N_MQ),
+                      np.degrees(np.arcsin(rng.uniform(-1, 1, N_MQ)))], 1).astype(np.float32)
+    sets = {"real": (coll, x_real, live, q_real), "hist": (None, x_hist, None, q_hist),
+            "bits": (None, bits_dev, None, q_bits.cpu().numpy().astype(np.float32)),
+            "geo": (None, x_geo, None, q_geo)}
+    timed = {"FLAT-CORRELATION": BATCHES, "FLAT-HELLINGER": (16,), "FLAT-TANIMOTO-BINARY": BATCHES,
+             "FLAT-L1": BATCHES}
+    for kind, (c, rows, live_np, qs) in sets.items():
+        if c is None:
+            host = rows.cpu().numpy().astype(np.float32) if torch.is_tensor(rows) else rows
+            c, t_add = metric_collection(db, kind, host)
+            del host
+            report[f"metrics {kind} add+commit_s"] = t_add
+            print(f"   {kind}: add + commit {len(rows)} x {rows.shape[1]}: {t_add:.2f} s",
+                  flush=True)
+        n = rows.shape[0]
+        rows_d = rows if torch.is_tensor(rows) else torch.from_numpy(rows).to(DEV)
+        ok = torch.ones(n, dtype=torch.bool, device=DEV) if live_np is None else torch.from_numpy(
+            live_np).to(DEV)
+        masks = {None: ok, "bucket = 3": ok & (torch.arange(n, device=DEV) % 10 == 3)}
+        q64 = torch.from_numpy(qs).to(DEV).double()
+        gts = {}
+        for mode in METRIC_MODES[kind]:
+            metric = Metric.from_index_mode(mode)
+            c.build_index(mode)
+            t0 = time.perf_counter()
+            c.search(qs[0], k=K)  # stages the metric's transform
+            print(f"   {mode}: first search (the transform): {time.perf_counter() - t0:.2f} s",
+                  flush=True)
+            out = {where: run_queries(c, qs[:100], [qs[100:116]], [qs[116:]], where)
+                   for where in masks}
+            approx = []
+            if mode in APPROX_MODES:
+                approx = [v for blk in qs[:64].reshape(4, 16, -1)
+                          for v in c.batch_search(blk, k=K, approx=True)]
+            if mode == "FLAT-L1":
+                big = [c.search(qv, k=BIG_K) for qv in qs[:4]]
+                thresholds = [float(np.asarray(v.distances)[BIG_K // 2]) for v in big]
+                ranged = [c.search_range(qv, t, max_results=BIG_K)
+                          for qv, t in zip(qs[:4], thresholds)]
+            sync()
+            with uncounted():
+                metric_kernel_phase(c._engine.corpus(), metric, qs, stats, timed.get(mode, (16,)))
+            ref = Metric.JACCARD if metric is Metric.TANIMOTO else metric  # one formula
+            if ref not in gts:
+                gts[ref] = brute64(ref, q64, rows_d, masks, K)
+            gt = gts[ref]
+            for where, (views, lat, calls) in out.items():
+                label = f"{mode} {'unfiltered' if where is None else where}"
+                kth = gt[where][0][:, K - 1]
+                for b, lo, hi in ((1, 0, 100), (16, 100, 116), (256, 116, N_MQ)):
+                    report[f"{label} recall_b{b}"] = check_metric_views(
+                        metric, f"{label} B={b}", views[b], q64[lo:hi], rows_d, masks[where],
+                        kth[lo:hi], RECALL_FLOOR)
+                    if b > 1:
+                        report[f"{label} qps_b{b}"] = len(views[b]) / sum(calls[b]["s"])
+                report[f"{label} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+                report[f"{label} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
+            if approx:
+                report[f"{mode} approx recall_b16"] = check_metric_views(
+                    metric, f"{mode} approx=True B=16", approx, q64[:64], rows_d, masks[None],
+                    gt[None][0][:64, K - 1], APPROX_RECALL_FLOOR)
+            if mode == "FLAT-L1":
+                top = brute64(metric, q64[:4], rows_d, {None: ok}, BIG_K)[None]
+                for r, (view, t) in enumerate(zip(ranged, thresholds)):
+                    got = torch.from_numpy(np.asarray(view.ids, dtype=np.int64)).to(DEV)
+                    d64 = dist64(metric, q64[r : r + 1], rows_d[got].double())[0]
+                    tol = 1e-5 * t + 1e-5
+                    check(bool((d64 <= t + tol).all()), f"search_range L1: query {r} out of range")
+                    inside = set(top[1][r][top[0][r] < t - tol].tolist())
+                    check(inside <= set(got.tolist()), f"search_range L1: query {r} misses rows")
+                print(f"   {mode} search_range(max_results={BIG_K}): every row in range, none "
+                      "outside", flush=True)
+        del rows_d, q64, masks, gts
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1077,8 +1535,17 @@ def main() -> int:
             sc.add(vectors=small)
             sc.commit()
             small_views = [sc.search(qv, k=K) for qv in small_q]
+            # bucket = 3 is 100,000 of 1M rows: the gather route scores them
+            # and the shortlist, not the corpus
+            prof = coll.search_profile(singles[0], k=K, where="bucket = 3")
+            want = N // 10 + coll._engine.corpus()._shortlist_size(K, N // 10)
+            check(prof["scanned_vectors"] == want,
+                  f"bucket = 3: scanned_vectors {prof['scanned_vectors']}, want {want}")
+            print(f"   bucket = 3: scanned_vectors {want} (the gather route)", flush=True)
             sync()
         counts["flat"] = read_counts()
+        with uncounted():
+            gather_route_phase(coll, np.random.default_rng(SEED + 2), stats)
 
         set_counts({})
         with phase("5 large k"):
@@ -1131,9 +1598,16 @@ def main() -> int:
         with phase("8 graph path"):
             graph_out, extra, dead = graph_path(db, coll, x, centers, rng, ivf_sets, report, stats)
         counts["graph"] = read_counts()
+
+        set_counts({})
+        with phase("9 metrics path"):
+            sc.build_index("FLAT-L2")  # 2,000 rows: the exact plan, K1 under L2
+            small_l2 = [sc.search(qv, k=K) for qv in small_q]
+            metrics_path(db, coll, x, extra, dead, centers, rng, report, stats)
+        counts["metrics"] = read_counts()
         client.close()
 
-    with phase("9 checks against numpy brute force"):
+    with phase("10 checks against numpy brute force"):
         all_rows = np.arange(N)
         for where, rows in ((None, all_rows), ("bucket = 3", np.nonzero(all_rows % 10 == 3)[0])):
             label = "unfiltered" if where is None else where
@@ -1155,6 +1629,9 @@ def main() -> int:
             check(np.array_equal(np.asarray(view.ids), gi[r]), f"small: ids differ at query {r}")
             np.testing.assert_allclose(np.asarray(view.distances), gd[r], rtol=1e-5, atol=1e-5)
         print(f"   small collection: {len(small_views)} queries equal numpy's exact top-{K}")
+        small_sq = (small.astype(np.float64) ** 2).sum(1).astype(np.float32)
+        gi = exact_topk(small, np.arange(len(small)), small_q, K, Metric.L2, small_sq)[1]
+        check_results(small, small_q, small_l2, gi, "small FLAT-L2", Metric.L2)
 
         gd, gi = exact_topk(x, all_rows, big_q, BIG_K)
         hits = 0
@@ -1199,7 +1676,7 @@ def main() -> int:
                 report[f"{label} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
         check_graph(graph_out, x, extra, dead, ivf_q, report)
 
-    with phase("10 launch counts"):
+    with phase("11 launch counts"):
         by_path = {path: counts[path] for path in PATHS}
         for path, names in PATHS.items():
             print(f"   {path}: {by_path[path]}")
@@ -1221,7 +1698,10 @@ def main() -> int:
              "K11 bf16_gather_scores": f"IP B=16 S={SHORTLIST}",
              "K12 int8_code_scores": "sq8 IP B=16", "K13 pq_adc_scores": "M=16 IP B=16",
              "K14 fwht_rotate": "B=64", "K17 beam_search": "DISKANN-IP bf16 ip B=16 beam=125",
-             "K19 topl_scan": f"L2 chunk=4096 N={N} L=64", "K20 robust_prune": "L2 nodes=4096 L=72 r=32"}
+             "K19 topl_scan": f"L2 chunk=4096 N={N} L=64",
+             "K20 robust_prune": "L2 nodes=4096 L=72 r=32",
+             "K6a gemm_metric_scores": "correlation B=16", "K6b binary_scores": "tanimoto B=16",
+             "K6c elementwise_scores": "l1 B=16"}
     kernels = []
     for name, (_, src, rep) in KERNELS.items():
         row = stats.rows[name][shown[name]]

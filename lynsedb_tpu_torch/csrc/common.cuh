@@ -16,7 +16,7 @@
 
 namespace lt {
 
-enum Metric : int { kIP = 0, kL2 = 1, kCosine = 2 };
+enum Metric : int { kIP = 0, kL2 = 1, kCosine = 2, kCorrelation = 3, kHellinger = 4 };
 
 // The selection order of the whole port: the bigger key first, and between
 // equal keys the lower index first (lax.top_k's order in the JAX package).
@@ -97,6 +97,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // max(d, 0) that keeps a NaN, as jnp.maximum does (fmaxf would drop it).
 __device__ __forceinline__ float clamp_nonneg(float d) { return d < 0.f ? 0.f : d; }
+
+// jnp.maximum / jnp.minimum / jnp.clip, which keep a NaN in the first operand.
+__device__ __forceinline__ float max_keep_nan(float a, float b) { return a < b ? b : a; }
+__device__ __forceinline__ float min_keep_nan(float a, float b) { return a > b ? b : a; }
+__device__ __forceinline__ float clip_keep_nan(float a, float lo, float hi) {
+  return min_keep_nan(max_keep_nan(a, lo), hi);
+}
+
+// The reference's zero-mass policy of two rows' masses: both zero -> 0, one
+// zero -> `one_zero`, neither -> `d`.
+__device__ __forceinline__ float mass_policy(float mass_q, float mass_x, float one_zero, float d) {
+  const bool zq = mass_q == 0.f, zx = mass_x == 0.f;
+  return (zq || zx) ? ((zq && zx) ? 0.f : one_zero) : d;
+}
 
 // 1 - num / denom with the reference's zero-norm policy (denominator below
 // 1e-30 gives distance 1.0).

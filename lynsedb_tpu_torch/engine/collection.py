@@ -760,8 +760,8 @@ class Collection:
                 # scanned_vectors = rows whose distance was actually computed
                 # on this query's path (reference engine.rs:6906): probed
                 # cluster rows for IVF, visited nodes for graphs, N (+exact
-                # rescore shortlist) for flat two-pass, the compact subset
-                # for gathered filters
+                # rescore shortlist) for flat two-pass, the filter's rows
+                # (+ the shortlist) for a filter on the gather route
                 prof = QueryProfile(
                     index_path=index_path,
                     filter_matches=subset,

@@ -6,9 +6,10 @@ Canberra/Bray-Curtis exact-only; IndexBuildOptions :510-648 — unknown keys
 rejected, inapplicable keys filtered per family; engine aux quantized modes
 FLAT-*-PQ/RABITQ/POLARVEC engine.rs:4576-4595).
 
-Index families (this package serves every family over IP/L2/cosine; HNSW
-under a domain metric and IVF under a binary one raise NotImplementedError
-naming ROADMAP K6, the distance kernel they need):
+Index families (FLAT serves all 16 metrics, every other family IP/L2/cosine;
+HNSW under a domain metric raises NotImplementedError naming ROADMAP K6g, the
+graph's generic-metric keys, and IVF under Hamming or Jaccard naming ROADMAP
+K16b, the binary form of the block scan):
   FLAT    — no index object; the engine scans the device corpus directly.
   IVF     — k-means partitions, probe top-nprobe partitions on device.
   SPANN   — IVF with boundary replicas.
@@ -218,9 +219,9 @@ _AUX_QUANTIZERS = ("sq8", "pq", "rabitq", "polarvec")
 def _check_ported(mode: ResolvedMode) -> None:
     item = None
     if mode.family == "IVF" and mode.metric.is_binary:
-        item = "K6"  # hamming / jaccard IVF needs the binary distance kernel
+        item = "K16b"  # hamming / jaccard IVF needs a binary form of the block scan
     if mode.family == "HNSW" and mode.metric not in _ANN_METRICS:
-        item = "K6"  # HNSW's domain metrics need the generic distance kernel
+        item = "K6g"  # HNSW's domain metrics need the graph's generic-metric keys
     if item is not None:
         raise NotImplementedError(
             f"index mode {mode.canonical} is not ported to the CUDA engine yet (ROADMAP {item})"

@@ -39,7 +39,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # no 64-bit address is ever passed as a 32-bit int
 _SIGNATURES = {
     "lt_topk_select": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    "lt_flat_scores_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "lt_gemm_metric_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                              _P),
+    "lt_binary_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "lt_elementwise_scores": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P, _P),
     "lt_bf16_centered_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_rescore_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "lt_rescore_keys": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),

@@ -669,7 +669,7 @@ def knn_candidates(corpus_rows: torch.Tensor, metric: Metric, *, l: int,
         mode = TOPL_DOT
     else:
         raise NotImplementedError(
-            f"graph construction under {metric.value} is not ported yet (ROADMAP K6: "
+            f"graph construction under {metric.value} is not ported yet (ROADMAP K6g: "
             "the JAX package's _topl_generic)")
     xsq = (rows * rows).sum(-1) if mode == TOPL_L2_RAW else None
     out = np.full((n, l), -1, dtype=np.int32)
@@ -698,7 +698,7 @@ def exact_knn_graph(rows: torch.Tensor, metric: Metric, r: int, chunk: int = 409
     mode = {Metric.IP: TOPL_DOT, Metric.L2: TOPL_L2, Metric.COSINE: TOPL_COS}.get(metric)
     if mode is None:
         raise NotImplementedError(
-            f"HNSW under {metric.value} is not ported yet (ROADMAP K6)")
+            f"HNSW under {metric.value} is not ported yet (ROADMAP K6g)")
     sq = None if mode == TOPL_DOT else (rows * rows).sum(-1)
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)

@@ -6,21 +6,35 @@ Port of lynsedb_tpu/ops/scan.py. The corpus keeps
     device array is staged from;
   * on the device: a mean-centred **bf16** copy (the first-pass scan array),
     its per-row aux arrays (``xm``, ``xc_sq``, ``xsq_true``), an **f32** copy
-    (the exact scan and the rescore gather from it) and the validity mask.
+    (the exact scan and the rescore gather from it), the validity mask and the
+    corpus transform of the metric searched last (norms, centred or
+    probability rows, bit-packed rows; ops/distance.py).
 
-A search runs one of two plans, each a chain of hand-written kernels:
+A search runs one of three plans, each a chain of hand-written kernels:
 
-  * **exact** (fewer than ``TWO_PASS_MIN_ROWS`` rows, or ``mode="exact"``):
-    K1 ``flat_scores_f32`` scores every row in f32, K5 ``topk_select`` takes
-    the top k;
+  * **exact** (every metric below ``TWO_PASS_MIN_ROWS`` rows or under
+    ``mode="exact"``, and always for the 13 metrics outside IP/L2/cosine): the
+    metric's distance kernel scores every row of its transform — K1
+    ``flat_scores_f32`` (IP, L2, cosine), K6a ``gemm_metric_scores``
+    (correlation, Hellinger), K6b ``binary_scores`` (Hamming, Jaccard,
+    Tanimoto, Dice) or K6c ``elementwise_scores`` (the rest) — and K5
+    ``topk_select`` takes the top k;
   * **two-pass** (IP/L2/cosine): K2 ``bf16_centered_scores`` scores the
     centred bf16 copy, K5 takes a top-C shortlist, K3 ``rescore_topk``
-    rescores it exactly in f32 and sorts on (score, id).
+    rescores it exactly in f32 and sorts on (score, id);
+  * **gather** (IP/L2/cosine under a selective filter: at most
+    ``GATHER_MAX_ROWS`` rows and at most a quarter of the corpus, K4): K11
+    ``bf16_gather_scores`` scores only the filter's rows from the centred
+    copy, K5 takes the top C of them, K3 rescores with global ids.
 
-Every filter is a mask on that pass: the JAX package's gather route for
-selective filters (K4) is not ported, and gives the same answer. Neither are
-its host-rescore route and its streaming tier for corpora whose copies do not
-fit on the device (ROADMAP A.5): staging such a corpus raises.
+Every other filter is a mask on its plan's pass. ``search_approx`` for the L1
+family is K6c on the bf16 copy, K5, then K6c over the shortlist's f32 rows
+(K9, K10); range search is the top-(max_results) search with a threshold test
+(K10); ``rescore`` of explicit rows runs on the host mirror for IP/L2/cosine
+and through the distance kernels' gather mode for the rest (K10). The JAX
+package's host-rescore route and its streaming tier for corpora whose copies
+do not fit on the device are not ported (ROADMAP A.5b): staging such a corpus
+raises.
 
 The quantized FLAT indexes (index/quantized.py) end in the same K3 rescore:
 their code scan's top S goes through :func:`shortlist_device_rescore_ids`
@@ -47,6 +61,9 @@ from .topk import topk_select, unorient
 TWO_PASS_METRICS = (Metric.IP, Metric.L2, Metric.COSINE)
 # Below this row count the one-pass f32 exact scan serves every search.
 TWO_PASS_MIN_ROWS = 4096
+# Filters this selective (and at most a quarter of the corpus) gather their
+# rows instead of masking a full scan (reference: engine.rs:95-102).
+GATHER_MAX_ROWS = 100_000
 # Device arrays hold the row count rounded up to this (the kernels need no
 # padding; the slack lets small appends restage in place). Padded rows are
 # invalid, so they never reach a result.
@@ -56,11 +73,18 @@ ROW_ALIGN = 128
 SCORE_BUDGET = 1 << 28
 # Rows converted per host staging step.
 STAGE_ROWS = 1 << 17
+# Largest (B, rows, D) element count one step of an elementwise plain version
+# materialises.
+PLAIN_ELEMENTS = 1 << 25
 
 # Largest shortlist K3 sorts in shared memory; a larger one goes through K5.
 RESCORE_SORT_MAX = 1024
 
 _METRIC_CODE = {Metric.IP: 0, Metric.L2: 1, Metric.COSINE: 2}
+_GEMM_CODE = {**_METRIC_CODE, Metric.CORRELATION: 3, Metric.HELLINGER: 4}
+_BINARY_CODE = {Metric.HAMMING: 0, Metric.JACCARD: 1, Metric.TANIMOTO: 1, Metric.DICE: 2}
+_ELEM_CODE = {Metric.L1: 0, Metric.CHEBYSHEV: 1, Metric.CANBERRA: 2, Metric.BRAY_CURTIS: 3,
+              Metric.WASSERSTEIN: 4, Metric.JENSEN_SHANNON: 5, Metric.HAVERSINE: 6}
 
 
 def resolve_device(device) -> torch.device:
@@ -82,8 +106,9 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _kernel_metric(name: str, metric: Metric) -> int:
+    """The code of a kernel that serves IP, L2 and cosine only."""
     if metric not in _METRIC_CODE:
-        raise NotImplementedError(f"{name}: metric {metric.value} is not ported yet (ROADMAP K6)")
+        raise ValueError(f"{name} serves IP, L2 and cosine, not {metric.value}")
     return _METRIC_CODE[metric]
 
 
@@ -126,15 +151,204 @@ def flat_scores_f32(q: torch.Tensor, x: torch.Tensor, qsq: Optional[torch.Tensor
         raise ValueError("flat_scores_f32: valid (N,) bool expected")
     keys = torch.empty((b, n), dtype=torch.float32, device=q.device)
     _cuda.call(
-        "lt_flat_scores_f32", q.data_ptr(), x.data_ptr(), _cuda.ptr(qsq), _cuda.ptr(xsq),
-        valid.data_ptr(), b, n, d, code, int(metric.ascending), keys.data_ptr(),
-        _cuda.stream_of(q),
+        "lt_gemm_metric_scores", q.data_ptr(), x.data_ptr(), _cuda.ptr(qsq), None, None,
+        _cuda.ptr(xsq), None, None, valid.data_ptr(), None, b, n, d, 0, code,
+        int(metric.ascending), keys.data_ptr(), _cuda.stream_of(q),
     )
     flat_scores_f32.launches += 1
     return keys
 
 
 flat_scores_f32.launches = 0
+
+
+# ── K6: the distance kernels of the other metrics ────────────────────────
+
+
+def metric_keys_plain(qt: dict, ct: dict, valid, metric: Metric, ids=None,
+                      mean=None) -> torch.Tensor:
+    """Plain version of the distance kernels: D.pairwise of the transforms,
+    oriented and masked. Tile mode (``ids`` None): (B, N) over every row of
+    ``ct``, masked by ``valid`` (N,); the binary and elementwise forms run a
+    step of rows at a time (``PLAIN_ELEMENTS`` unpacked bits or (B, rows, D)
+    terms). Gather mode: (B, C) over the rows ``ids`` (B, C), -inf at NaN
+    and where an id is negative. ``mean`` (D,): ``ct["x"]`` is the centred
+    bf16 copy, the mean added back in f32 (K6c's bf16 mode)."""
+    if mean is not None:
+        ct = {"x": ct["x"].to(torch.float32) + mean[None, :]}
+    if ids is not None:
+        rows = []
+        for b in range(ids.shape[0]):
+            safe = ids[b].clamp_min(0).long()
+            qb = {name: leaf[b : b + 1] for name, leaf in qt.items()}
+            rows.append(D.pairwise(qb, {name: leaf[safe] for name, leaf in ct.items()}, metric)[0])
+        scores = torch.stack(rows)
+        keys = -scores if metric.ascending else scores
+        return torch.where((ids >= 0) & ~torch.isnan(keys), keys, float("-inf")).contiguous()
+    if metric in D.GEMM_METRICS:
+        return _to_key(D.pairwise(qt, ct, metric), metric.ascending, valid)
+    n = valid.shape[0]
+    if metric in D.BINARY_METRICS:  # a product of the rows unpacked a step at a time
+        per_row = 32 * ct["bits"].shape[1]
+    else:  # (B, rows, D) elementwise terms
+        per_row = next(iter(qt.values())).shape[0] * max(
+            leaf.shape[1] if leaf.dim() == 2 else 1 for leaf in ct.values())
+    step = max(1, PLAIN_ELEMENTS // max(per_row, 1))
+    parts = [D.pairwise(qt, {name: leaf[lo : lo + step] for name, leaf in ct.items()}, metric)
+             for lo in range(0, n, step)]
+    return _to_key(torch.cat(parts, dim=1), metric.ascending, valid)
+
+
+def _side_terms(t: dict, metric: Metric):
+    """(a, b, invalid) per-row terms a GEMM-family epilogue reads."""
+    if metric is Metric.CORRELATION:
+        return t["var"], t["mean"], None
+    if metric is Metric.HELLINGER:
+        return t["mass"], None, t["invalid"]
+    return t.get("sq"), None, None
+
+
+def _gemm_rows(t: dict, metric: Metric) -> torch.Tensor:
+    """The rows a GEMM-family product reads: centred (correlation), square
+    roots (Hellinger) or the rows."""
+    return t[{Metric.CORRELATION: "xc", Metric.HELLINGER: "s"}.get(metric, "x")]
+
+
+def _check_ids(name: str, ids, b: int) -> None:
+    if ids is not None and (ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != b):
+        raise ValueError(f"{name}: ids (B, C) int32 expected")
+
+
+def gemm_metric_scores(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metric,
+                       ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6a: oriented, masked keys of the GEMM family (IP, L2, cosine,
+    correlation, Hellinger) from the f32 product of the transformed rows
+    (``xc`` for correlation, ``s`` for Hellinger) and the per-row terms.
+    Tile mode (``ids`` None): (B, N), masked by ``valid`` (N,) bool. Gather
+    mode: (B, C) over the rows ``ids`` (B, C) int32, -inf where an id is
+    negative (the flat plan runs K1 for IP/L2/cosine; this serves the other
+    two and every explicit-row rescore of the family)."""
+    q, x = _gemm_rows(qt, metric), _gemm_rows(ct, metric)
+    if q.device.type == "cpu":
+        return metric_keys_plain(qt, ct, valid, metric, ids)
+    b, d = q.shape
+    n = x.shape[0]
+    _check_ids("gemm_metric_scores", ids, b)
+    qa, qb, qinv = _side_terms(qt, metric)
+    xa, xb, xinv = _side_terms(ct, metric)
+    _cuda.require_cuda("gemm_metric_scores", q, x, qa, qb, qinv, xa, xb, xinv,
+                       valid if ids is None else None, ids)
+    if q.dtype != torch.float32 or x.dtype != torch.float32 or x.shape[1] != d:
+        raise ValueError("gemm_metric_scores: transformed rows (B, D), (N, D) float32 expected")
+    if ids is None and (valid is None or valid.shape != (n,) or valid.dtype != torch.bool):
+        raise ValueError("gemm_metric_scores: valid (N,) bool expected")
+    c = 0 if ids is None else ids.shape[1]
+    keys = torch.empty((b, n if ids is None else c), dtype=torch.float32, device=q.device)
+    _cuda.call(
+        "lt_gemm_metric_scores", q.data_ptr(), x.data_ptr(), _cuda.ptr(qa), _cuda.ptr(qb),
+        _cuda.ptr(qinv), _cuda.ptr(xa), _cuda.ptr(xb), _cuda.ptr(xinv),
+        None if ids is not None else valid.data_ptr(), _cuda.ptr(ids), b, n, d, c,
+        _GEMM_CODE[metric], int(metric.ascending), keys.data_ptr(), _cuda.stream_of(q),
+    )
+    gemm_metric_scores.launches += 1
+    return keys
+
+
+gemm_metric_scores.launches = 0
+
+
+def binary_scores(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metric,
+                  ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6b: oriented, masked keys of the binary family (Hamming, Jaccard,
+    Tanimoto, Dice) from the popcounts of bit-packed rows (``bits`` (N, W)
+    int32 words, ``cnt`` (N,) bit counts). Tile mode and gather mode as
+    :func:`gemm_metric_scores`. Equal to the bit to the plain version."""
+    q, x = qt["bits"], ct["bits"]
+    if q.device.type == "cpu":
+        return metric_keys_plain(qt, ct, valid, metric, ids)
+    b, w = q.shape
+    n = x.shape[0]
+    _check_ids("binary_scores", ids, b)
+    _cuda.require_cuda("binary_scores", q, x, qt["cnt"], ct["cnt"],
+                       valid if ids is None else None, ids)
+    if q.dtype != torch.int32 or x.dtype != torch.int32 or x.shape[1] != w:
+        raise ValueError("binary_scores: bits (B, W) and (N, W) int32 words expected")
+    if ids is None and (valid is None or valid.shape != (n,) or valid.dtype != torch.bool):
+        raise ValueError("binary_scores: valid (N,) bool expected")
+    c = 0 if ids is None else ids.shape[1]
+    keys = torch.empty((b, n if ids is None else c), dtype=torch.float32, device=q.device)
+    _cuda.call(
+        "lt_binary_scores", q.data_ptr(), x.data_ptr(), qt["cnt"].data_ptr(),
+        ct["cnt"].data_ptr(), None if ids is not None else valid.data_ptr(), _cuda.ptr(ids),
+        b, n, w, c, _BINARY_CODE[metric], keys.data_ptr(), _cuda.stream_of(q),
+    )
+    binary_scores.launches += 1
+    return keys
+
+
+binary_scores.launches = 0
+
+
+def _elem_rows(t: dict, metric: Metric) -> torch.Tensor:
+    if metric is Metric.WASSERSTEIN:
+        return t["cdf"]
+    return t["p"] if metric is Metric.JENSEN_SHANNON else t["x"]
+
+
+def elementwise_scores(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metric,
+                       ids: Optional[torch.Tensor] = None,
+                       mean: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6c: oriented, masked keys of the elementwise family (L1, Chebyshev,
+    Canberra, Bray-Curtis, Haversine, Wasserstein over ``cdf``,
+    Jensen-Shannon over ``p``). Tile mode and gather mode as
+    :func:`gemm_metric_scores`. ``mean`` (D,) given: ``ct["x"]`` is the
+    mean-centred bf16 copy and the mean is added back in f32 (L1, Chebyshev,
+    Canberra, Bray-Curtis; tile mode only)."""
+    q, x = _elem_rows(qt, metric), _elem_rows(ct, metric)
+    if q.device.type == "cpu":
+        return metric_keys_plain(qt, ct, valid, metric, ids, mean)
+    b, d = q.shape
+    n = x.shape[0]
+    _check_ids("elementwise_scores", ids, b)
+    bf16 = mean is not None
+    if bf16 and (ids is not None or _ELEM_CODE[metric] > 3 or x.dtype != torch.bfloat16
+                 or mean.shape != (d,)):
+        raise ValueError("elementwise_scores: the bf16 mode takes L1, Chebyshev, Canberra or "
+                         "Bray-Curtis over (N, D) bfloat16 rows and a (D,) mean, in tile mode")
+    if q.dtype != torch.float32 or x.shape[1] != d or (not bf16 and x.dtype != torch.float32):
+        raise ValueError("elementwise_scores: rows (B, D) and (N, D) float32 expected")
+    if ids is None and (valid is None or valid.shape != (n,) or valid.dtype != torch.bool):
+        raise ValueError("elementwise_scores: valid (N,) bool expected")
+    prob = metric in (Metric.WASSERSTEIN, Metric.JENSEN_SHANNON)
+    terms = [t.get(name) if prob else None for t in (qt, ct) for name in ("mass", "ent", "invalid")]
+    _cuda.require_cuda("elementwise_scores", q, x, mean, *terms, valid if ids is None else None,
+                       ids)
+    c = 0 if ids is None else ids.shape[1]
+    keys = torch.empty((b, n if ids is None else c), dtype=torch.float32, device=q.device)
+    _cuda.call(
+        "lt_elementwise_scores", q.data_ptr(), x.data_ptr(), int(bf16), _cuda.ptr(mean),
+        *(_cuda.ptr(t) for t in terms), None if ids is not None else valid.data_ptr(),
+        _cuda.ptr(ids), b, n, d, c, _ELEM_CODE[metric], keys.data_ptr(), _cuda.stream_of(q),
+    )
+    elementwise_scores.launches += 1
+    return keys
+
+
+elementwise_scores.launches = 0
+
+
+def metric_keys(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metric,
+                ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Oriented, masked keys of any metric through its family's kernel: K1
+    for IP/L2/cosine over every row, K6a, K6b or K6c otherwise (tile mode
+    over every row masked by ``valid``, or gather mode over ``ids``)."""
+    if metric in D.BINARY_METRICS:
+        return binary_scores(qt, ct, valid, metric, ids)
+    if metric in D.ELEMENTWISE_METRICS:
+        return elementwise_scores(qt, ct, valid, metric, ids)
+    if metric in _METRIC_CODE and ids is None:
+        return flat_scores_f32(qt["x"], ct["x"], qt.get("sq"), ct.get("sq"), valid, metric)
+    return gemm_metric_scores(qt, ct, valid, metric, ids)
 
 
 # ── K2: centred bf16 first pass ──────────────────────────────────────────
@@ -162,7 +376,7 @@ def bf16_centered_scores_plain(q, x16, aux: dict, valid, metric: Metric) -> torc
         denom = torch.sqrt(q_sq[:, None] * aux["xsq_true"][None, :])
         scores = torch.where(denom < 1e-30, 1.0, 1.0 - num / torch.clamp_min(denom, 1e-30))
     else:
-        D.check_supported(metric)
+        _kernel_metric("bf16_centered_scores", metric)
     return _to_key(scores, metric.ascending, valid)
 
 
@@ -299,7 +513,7 @@ def bf16_gather_scores_plain(q, x16, aux: dict, idx, slot_keys, metric: Metric) 
         denom = torch.sqrt(q_sq[:, None] * aux["xsq_true"][safe])
         scores = torch.where(denom < 1e-30, 1.0, 1.0 - num / torch.clamp_min(denom, 1e-30))
     else:
-        D.check_supported(metric)
+        _kernel_metric("bf16_gather_scores", metric)
     keys = -scores if metric.ascending else scores
     return torch.where(ok & ~torch.isnan(keys), keys, float("-inf")).contiguous()
 
@@ -379,17 +593,25 @@ def host_exact_scores(q: np.ndarray, rows: np.ndarray, metric: Metric) -> np.nda
 
 
 class FilterHandle:
-    """A resolved row filter: host mask + count, with the device mask staged
-    lazily and cached per corpus epoch. Collections cache these per
-    where-string so repeated filtered queries pay no re-upload."""
+    """A resolved row filter: host mask + count, with the device mask and the
+    gather route's index list staged lazily and cached per corpus epoch.
+    Collections cache these per where-string so repeated filtered queries pay
+    no re-upload."""
 
-    __slots__ = ("mask", "count", "_epoch", "_dev_mask")
+    __slots__ = ("mask", "count", "_epoch", "_dev_mask", "_idx_epoch", "_dev_idx")
 
     def __init__(self, mask: np.ndarray):
         self.mask = np.asarray(mask, dtype=bool)
         self.count = int(self.mask.sum())
         self._epoch = -1
         self._dev_mask: Optional[torch.Tensor] = None
+        self._idx_epoch = -1
+        self._dev_idx: Optional[torch.Tensor] = None
+
+    def use_gather(self, total_rows: int) -> bool:
+        """Reference policy engine.rs:95-102: gather the subset when it is
+        small absolutely and relatively."""
+        return 0 < self.count <= GATHER_MAX_ROWS and self.count * 4 <= max(total_rows, 1)
 
     def device_mask(self, n_pad: int, epoch: int, device: torch.device) -> torch.Tensor:
         if self._dev_mask is None or self._epoch != epoch or self._dev_mask.shape[0] != n_pad:
@@ -399,6 +621,14 @@ class FilterHandle:
             self._dev_mask = torch.from_numpy(full).to(device)
             self._epoch = epoch
         return self._dev_mask
+
+    def device_indices(self, n_rows: int, epoch: int, device: torch.device) -> torch.Tensor:
+        """(1, S) int32: the rows below ``n_rows`` that pass, ascending."""
+        if self._dev_idx is None or self._idx_epoch != epoch:
+            rows = np.nonzero(self.mask[:n_rows])[0].astype(np.int32)
+            self._dev_idx = torch.from_numpy(rows)[None].to(device)
+            self._idx_epoch = epoch
+        return self._dev_idx
 
 
 def _handle(filter_mask) -> Optional[FilterHandle]:
@@ -441,7 +671,10 @@ class DeviceCorpus:
         self._xsqtrue_host: Optional[np.ndarray] = None  # (cap,) true row norms
         self._aux: Optional[dict] = None  # device copies of mean and the aux rows
         self._valid_base: Optional[torch.Tensor] = None
-        self._transforms: dict[Metric, dict] = {}
+        # (metric, corpus transform) of the metric searched last: one at a time;
+        # a restage counts that metric's transform (_check_fits)
+        self._transform: Optional[tuple[Metric, dict]] = None
+        self._last_metric: Optional[Metric] = None
         self._dirty = True
         self._dirty_lo = 0
         # rows scored by the most recent search (QueryProfile.scanned_vectors)
@@ -452,29 +685,45 @@ class DeviceCorpus:
     def _cap_for(self, n: int) -> int:
         return _round_up(max(n, 1), ROW_ALIGN)
 
-    def device_bytes(self, cap: int) -> int:
+    def device_bytes(self, cap: int, metric: Optional[Metric] = None) -> int:
         """Device memory a corpus of ``cap`` rows needs at its largest: the
-        bf16 and f32 copies, the aux rows and masks, and one search's scratch
-        (the (B, cap) score matrix at the largest batch, and K5's two
-        buffers, which hold at most cap (key, index) pairs a row for any k)."""
+        bf16 and f32 copies, the aux rows and masks, the corpus transform of
+        ``metric`` (none if None), and one search's scratch (the (B, cap)
+        score matrix at the largest batch, and K5's two buffers, which hold
+        at most cap (key, index) pairs a row for any k)."""
         copies = cap * self.dim * (2 + 4) + cap * (4 * 3 + 2)
+        if metric is not None:
+            copies += cap * D.transform_row_bytes(metric, self.dim)
         b_max = max(1, SCORE_BUDGET // cap)
         return copies + b_max * cap * 4 + 2 * b_max * cap * 8
 
-    def _check_fits(self, cap: int) -> None:
-        """Raise before staging a corpus whose device copies and search
-        scratch do not fit the card's free memory. Such corpora need the
-        host-rescore route or the streaming tier, which are not ported."""
+    def _held_bytes(self) -> int:
+        """Device bytes of the copies, aux rows and mask staged now (the
+        metric transform is dropped before any check that counts it)."""
+        held = [self._dev16, self._dev32, self._valid_base, *(self._aux or {}).values()]
+        return sum(t.numel() * t.element_size() for t in held if t is not None)
+
+    def _free_bytes(self) -> int:
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free + torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(
+            self.device)
+
+    def _check_fits(self, cap: int, metric: Optional[Metric]) -> None:
+        """Raise before staging a corpus, or ``metric``'s transform of it,
+        whose device copies, transform and search scratch do not fit the
+        card's free memory beside what this corpus holds already. Such
+        corpora need the host-rescore route or the streaming tier, which are
+        not ported."""
         if self.device.type != "cuda":
             return
-        free, _ = torch.cuda.mem_get_info(self.device)
-        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
-        need = self.device_bytes(cap)
+        free, need = self._free_bytes() + self._held_bytes(), self.device_bytes(cap, metric)
         if need > free:
+            what = "" if metric is None else f" and the {metric.value} transform"
             raise RuntimeError(
                 f"a corpus of {self.n} x {self.dim} rows needs {need} bytes on {self.device} "
-                f"(bf16 and f32 copies plus search scratch) but {free} are free; the host-rescore "
-                "route and the streaming tier for such corpora are not ported yet (ROADMAP A.5)"
+                f"(bf16 and f32 copies{what} and search scratch) but {free} are free; the "
+                "host-rescore route and the streaming tier for such corpora are not ported yet "
+                "(ROADMAP A.5)"
             )
 
     def _ensure_staged(self) -> None:
@@ -506,7 +755,7 @@ class DeviceCorpus:
             self._dev16 = None  # free before reallocating
             self._dev32 = None
             self._aux = None
-            self._check_fits(cap)
+            self._check_fits(cap, self._last_metric)
             self._compute_mean()
             full16 = torch.zeros((cap, self.dim), dtype=torch.bfloat16)
             self._sq_host = np.zeros(cap, dtype=np.float32)
@@ -550,7 +799,7 @@ class DeviceCorpus:
     def _invalidate(self) -> None:
         self.epoch += 1
         self._valid_base = None
-        self._transforms.clear()
+        self._transform = None
 
     def append(self, rows: np.ndarray) -> None:
         rows = np.ascontiguousarray(rows, dtype=np.float32)
@@ -681,11 +930,16 @@ class DeviceCorpus:
         return self._aux
 
     def transform(self, metric: Metric) -> dict:
-        ct = self._transforms.get(metric)
-        if ct is None:
-            ct = D.corpus_transform(self._data, metric)
-            self._transforms[metric] = ct
-        return ct
+        """The corpus transform of ``metric`` over the f32 copy. One metric's
+        is staged at a time: another metric's replaces it, after a check that
+        the copies, the new transform and the search scratch fit."""
+        if self._transform is None or self._transform[0] is not metric:
+            data = self._data
+            self._transform = None  # free before staging another
+            self._last_metric = metric
+            self._check_fits(self.capacity, metric)
+            self._transform = (metric, D.corpus_transform(data, metric))
+        return self._transform[1]
 
     def valid_mask(self, filter_mask=None) -> torch.Tensor:
         """(cap,) bool: rows in range, not tombstoned, and passing the filter."""
@@ -725,7 +979,9 @@ class DeviceCorpus:
     ) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
         """Launch a search; returns a zero-arg resolver that waits for the
         device and returns (dists (B, k'), row ids (B, k')) trimmed of empty
-        slots (ids -1 pad rows that found fewer). Distances are exact f32."""
+        slots (ids -1 pad rows that found fewer). Distances are exact f32.
+        ``mode``: "auto" picks the plan by metric, size and filter; "exact"
+        forces the one-pass scan; "approx" is search_approx's plan."""
         q = np.ascontiguousarray(np.atleast_2d(np.asarray(queries, dtype=np.float32)))
         b = q.shape[0]
         if self.n == 0:
@@ -736,6 +992,7 @@ class DeviceCorpus:
         self._ensure_staged()
         # keep the (B, cap) score matrix within SCORE_BUDGET by splitting
         # oversized batches; every part is launched before any is resolved
+        # (the gather route scores fewer rows and splits the same way)
         max_b = max(1, SCORE_BUDGET // self.capacity)
         if b > max_b:
             resolvers = [
@@ -747,24 +1004,71 @@ class DeviceCorpus:
 
     def _submit(self, q: np.ndarray, k: int, metric: Metric, handle, mode: str, oversample: int):
         qd = torch.from_numpy(q).to(self.device)
-        valid = self.valid_mask(handle)
+        if mode == "approx" and metric not in TWO_PASS_METRICS:
+            return self._approx_submit(qd, k, metric, self.valid_mask(handle), oversample)
         two_pass = mode != "exact" and metric in TWO_PASS_METRICS and self.n >= TWO_PASS_MIN_ROWS
         if not two_pass:
-            return self._exact_submit(qd, k, metric, valid)
+            return self._exact_submit(qd, k, metric, self.valid_mask(handle))
+        if handle is not None and handle.use_gather(self.n):
+            return self._gather_submit(qd, k, metric, handle, oversample)
         c = self._shortlist_size(k, self.n, oversample)
         self.last_scanned = self.n + c  # full first pass + exact rescore rows
-        keys = bf16_centered_scores(qd, self._dev16, self.bf16_aux(), valid, metric)
+        keys = bf16_centered_scores(qd, self._dev16, self.bf16_aux(), self.valid_mask(handle),
+                                    metric)
         cand_keys, cand_idx = topk_select(keys, c)
         del keys
         dists, ids = rescore_topk(qd, self._data, cand_keys, cand_idx, min(k, c), metric)
         return lambda: _trim_results(*_fetch(dists, ids))
 
+    def gather_inputs(self, handle: FilterHandle) -> tuple[torch.Tensor, torch.Tensor]:
+        """The gather route's K11 inputs: the filter's (1, S) int32 row list,
+        shared by every query, and its (1, S) slot keys (-inf for a deleted
+        row, else 0)."""
+        idx = handle.device_indices(self.n, self.epoch, self.device)
+        return idx, torch.where(self.valid_mask()[idx.long()], 0.0, float("-inf"))
+
+    def _gather_submit(self, qd: torch.Tensor, k: int, metric: Metric, handle: FilterHandle,
+                       oversample: int):
+        """The gather route of a selective filter (K4): K11 scores the
+        filter's rows of the centred bf16 copy, K5 takes the top C, K3
+        rescores them exactly with global ids."""
+        idx, slot = self.gather_inputs(handle)
+        c = min(self._shortlist_size(k, handle.count, oversample), idx.shape[1])
+        self.last_scanned = handle.count + c  # the subset + exact rescore rows
+        keys = bf16_gather_scores(qd, self._dev16, self.bf16_aux(), idx, slot, metric)
+        top, local = topk_select(keys, c)
+        del keys
+        gid = torch.where(top > float("-inf"), idx[0][local.long()], -1)
+        dists, ids = rescore_topk(qd, self._data, top, gid, min(k, c), metric)
+        return lambda: _trim_results(*_fetch(dists, ids))
+
+    def _approx_submit(self, qd: torch.Tensor, k: int, metric: Metric, valid: torch.Tensor,
+                       oversample: int):
+        """The L1 family's approximate plan (K9): K6c scores the centred bf16
+        copy with the mean added back, K5 takes a shortlist of k x
+        oversample, K6c's gather mode rescores its f32 rows (K10) and K5
+        orders them on (score, id)."""
+        shortlist = min(max(k * oversample, k), self.capacity)
+        self.last_scanned = self.n + shortlist
+        qt = {"x": qd}
+        keys = elementwise_scores(qt, {"x": self._dev16}, valid, metric,
+                                  mean=self.bf16_aux()["mean"])
+        top, cand = topk_select(keys, shortlist)
+        del keys
+        cand = torch.where(top > float("-inf"), cand, -1)
+        exact = elementwise_scores(qt, {"x": self._data}, None, metric, ids=cand)
+        best, ids = topk_select(exact, min(k, shortlist), ids=cand)
+        dists = unorient(best, metric.ascending)
+        ids = torch.where(best > float("-inf"), ids.long(), -1)
+        return lambda: _trim_results(*_fetch(dists, ids))
+
     def _exact_submit(self, qd: torch.Tensor, k: int, metric: Metric, valid: torch.Tensor):
-        """One-pass f32 exact scan: K1 scores, K5 top-k."""
+        """One-pass f32 exact scan: the metric's distance kernel (K1, K6a,
+        K6b or K6c) scores every row, K5 takes the top k. Rows at +inf
+        distance (and NaN) get a -inf key and never reach a result."""
         self.last_scanned = self.n  # masked scans still touch every row
         ct = self.transform(metric)
-        qt = D.query_transform(qd, metric)
-        keys = flat_scores_f32(qt["x"], ct["x"], qt.get("sq"), ct.get("sq"), valid, metric)
+        keys = metric_keys(D.query_transform(qd, metric), ct, valid, metric)
         top, idx = topk_select(keys, min(k, self.capacity))
         del keys
         dists = unorient(top, metric.ascending)
@@ -779,28 +1083,28 @@ class DeviceCorpus:
 
     def search_approx(self, queries: np.ndarray, k: int, metric: Metric, eps: float = 1e-4,
                       filter_mask=None):
-        """Approximate two-pass scan (explicit opt-in, reference
-        approx_search.rs): the default two-pass plan with eps steering the
-        shortlist's oversample. Below the engage threshold it is the exact
-        search (approx_search.rs:49)."""
+        """Approximate scan (explicit opt-in, reference approx_search.rs):
+        eps steers the shortlist's oversample. IP/L2/cosine take the default
+        two-pass plan, the L1 family its approximate plan (K9, _approx_submit).
+        Below the engage threshold it is the exact search
+        (approx_search.rs:49)."""
         if self.n <= self.APPROX_MIN_ROWS or not metric.supports_flat_approx:
             return self.search(queries, k, metric, filter_mask)
-        if metric not in TWO_PASS_METRICS:
-            raise NotImplementedError(
-                f"approximate search for {metric.value} is not ported yet (ROADMAP K9)")
         oversample = 4 if eps >= 1e-3 else (8 if eps >= 1e-5 else 16)
-        return self.search_submit(queries, k, metric, filter_mask, oversample=oversample)()
+        return self.search_submit(queries, k, metric, filter_mask, mode="approx",
+                                  oversample=oversample)()
 
     def range_search(self, query: np.ndarray, threshold: float, metric: Metric,
                      max_results: int = 1000, filter_mask=None):
         """All rows within ``threshold`` (<= for ascending metrics, >= for
         IP), best first, capped at max_results (reference: engine.rs:6410):
-        the top-(max_results) search with a threshold test."""
+        the top-(max_results) search with a threshold test. For the 13
+        metrics outside IP/L2/cosine that search is the exact plan over every
+        row (K6, then K5), which replaces the JAX package's full (1, N) score
+        fetch (K10) with the same answer: its stable ascending sort keeps the
+        lower id first among ties, as K5 does."""
         if self.n == 0:
             return np.zeros(0, dtype=np.float32), np.zeros(0, dtype=np.int64)
-        if metric not in TWO_PASS_METRICS:
-            raise NotImplementedError(
-                f"range search for {metric.value} is not ported yet (ROADMAP K10)")
         qv = np.asarray(query, dtype=np.float32).reshape(1, -1)
         d, i = self.search(qv, max_results, metric, filter_mask=filter_mask)
         d, i = d[0], i[0]
@@ -809,21 +1113,27 @@ class DeviceCorpus:
         return d[ok].astype(np.float32), i[ok].astype(np.int64)
 
     def rescore(self, queries: np.ndarray, cand_ids: np.ndarray, metric: Metric) -> np.ndarray:
-        """Exact (B, C) distances of explicit candidate rows from the host
-        mirror, NaN where an id is negative. ``cand_ids`` is (B, C), or (C,)
-        shared by every query."""
-        if metric not in TWO_PASS_METRICS:
-            raise NotImplementedError(
-                f"rescore for {metric.value} is not ported yet (ROADMAP K10)")
+        """Exact (B, C) distances of explicit candidate rows, NaN where an id
+        is negative. ``cand_ids`` is (B, C), or (C,) shared by every query.
+        IP/L2/cosine rescore on the host mirror; the other metrics through
+        their distance kernel's gather mode over the staged transform (K10)."""
         q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         ids = np.asarray(cand_ids)
         if ids.ndim == 1:
             ids = np.broadcast_to(ids, (q.shape[0], ids.shape[0]))
         valid = ids >= 0
-        safe = np.where(valid, ids, 0)
-        # flat 1-D gather then reshape (2-D fancy indexing is slower)
-        rows = self._host[safe.ravel()].reshape(safe.shape + (self.dim,))
-        return np.where(valid, host_exact_scores(q, rows, metric), np.nan)
+        if metric in TWO_PASS_METRICS:
+            safe = np.where(valid, ids, 0)
+            # flat 1-D gather then reshape (2-D fancy indexing is slower)
+            rows = self._host[safe.ravel()].reshape(safe.shape + (self.dim,))
+            return np.where(valid, host_exact_scores(q, rows, metric), np.nan)
+        if ids.shape[1] == 0:
+            return np.zeros(ids.shape, dtype=np.float32)
+        ct = self.transform(metric)
+        qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        ids_d = torch.from_numpy(np.where(valid, ids, -1).astype(np.int32)).to(self.device)
+        keys = metric_keys(D.query_transform(qd, metric), ct, None, metric, ids=ids_d)
+        return np.where(valid, unorient(keys, metric.ascending).cpu().numpy(), np.nan)
 
 
 def _fetch(dists: torch.Tensor, ids: torch.Tensor):

@@ -15,7 +15,11 @@ row's two best centroids lie within 1e-5 relative; kmeans_update: sums
 rtol=1e-5, atol=1e-4, counts exact, two runs bit-identical. K14 rtol=1e-6
 (the same additions in the same order); K12 keys rtol=1e-5, atol=1e-5 (the
 integer dot is exact; the epilogue's roundings may contract differently);
-K13 and K11 keys rtol=1e-5, atol=1e-4 (f32 sums in another order).
+K13 and K11 keys rtol=1e-5, atol=1e-4 (f32 sums in another order). K6b
+(the binary family) and K6c's Chebyshev equal (integer counts, the same f32
+operations; a max of exact terms); the other K6a / K6c distances rtol=1e-5,
+atol=1e-5 x the largest (Haversine atol 1 m; Hellinger and Jensen-Shannon
+on the squared distance, atol 1e-5, as their terms cancel).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from lynsedb_tpu_torch.metrics import Metric
 from lynsedb_tpu_torch.ops import distance as D
 from lynsedb_tpu_torch.ops import graph as graph_ops
 from lynsedb_tpu_torch.ops import kmeans, quantize, scan, topk
-from lynsedb_tpu_torch.ops.scan import DeviceCorpus
+from lynsedb_tpu_torch.ops.scan import DeviceCorpus, FilterHandle
 
 pytestmark = pytest.mark.cuda
 
@@ -604,3 +608,169 @@ def test_graph_index_cuda_matches_cpu(dev, tmp_path, mode):
     for (gi, gd), (wi, wd) in zip(*answers):
         if np.array_equal(gi, wi):
             np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-4)
+
+
+# ── K6a, K6b, K6c: the distance kernels of the other 13 metrics ──────────
+
+OTHER_METRICS = [m for m in Metric if m not in METRICS]
+EXACT_KEYS = (Metric.HAMMING, Metric.JACCARD, Metric.TANIMOTO, Metric.DICE, Metric.CHEBYSHEV)
+
+
+def _metric_rows(metric: Metric, rng, n: int, d: int) -> np.ndarray:
+    """Rows in a metric's domain with its corner rows: invalid and zero-mass
+    probability rows, constant rows (correlation), |lat| > 90 (Haversine),
+    all-zero rows (Canberra's and Bray-Curtis's 0/0), empty fingerprints."""
+    if metric is Metric.HAVERSINE:
+        x = np.stack([rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)], 1)
+        x[:3, 1] = 95.0
+    elif metric in (Metric.HELLINGER, Metric.WASSERSTEIN, Metric.JENSEN_SHANNON):
+        x = np.exp(rng.normal(size=(n, d)))
+        x[:3, 0] = -1.0
+        x[3:6] = 0.0
+    elif metric.is_binary:
+        x = (rng.random((n, d)) < 0.1).astype(np.float64)
+        x[:3] = 0.0
+    else:
+        x = rng.normal(size=(n, d))
+        x[:3] = 0.0
+        x[3:5] = 2.5  # constant rows
+    return x.astype(np.float32)
+
+
+def _assert_keys_close(metric: Metric, got: torch.Tensor, want: torch.Tensor) -> None:
+    """The kernel's keys against the plain version's: the binary family and
+    Chebyshev equal; otherwise the same -inf slots and the distances within
+    the family's tolerance (Hellinger and Jensen-Shannon on the squared
+    distance: sums in another order move the cancelling terms by ulps)."""
+    if metric in EXACT_KEYS:
+        assert torch.equal(got, want)
+        return
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    g, w = -got[fin].double(), -want[fin].double()
+    if metric in (Metric.HELLINGER, Metric.JENSEN_SHANNON):
+        torch.testing.assert_close(g * g, w * w, rtol=1e-5, atol=1e-5)
+    elif metric is Metric.HAVERSINE:
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1.0)
+    else:
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("metric", OTHER_METRICS, ids=[m.value for m in OTHER_METRICS])
+@pytest.mark.parametrize("b,d", [(1, 48), (5, 48), (40, 70), (3, 1100)])
+def test_metric_kernels_match_plain(dev, metric, b, d):
+    """K6a / K6b / K6c in tile mode (every row, masked) and gather mode
+    (explicit rows, -1 slots empty) against their plain version on the
+    card; D = 1,100 is 35 words a binary row (more than one staged chunk)."""
+    if metric is Metric.HAVERSINE:
+        d = 2
+    rng = np.random.default_rng(d + b)
+    x = torch.from_numpy(_metric_rows(metric, rng, 3000, d)).to(dev)
+    q = torch.from_numpy(_metric_rows(metric, rng, b + 3, d)[3:]).to(dev)
+    if b > 1:
+        q[0] = x[7]  # a query's own row
+    qt, ct = D.query_transform(q, metric), D.corpus_transform(x, metric)
+    valid = torch.from_numpy(rng.random(3000) < 0.8).to(dev)
+    got = scan.metric_keys(qt, ct, valid, metric)
+    want = scan.metric_keys_plain(qt, ct, valid, metric)
+    torch.cuda.synchronize()
+    _assert_keys_close(metric, got, want)
+    ids = torch.from_numpy(rng.integers(0, 3000, size=(b, 300)).astype(np.int32)).to(dev)
+    ids[:, -20:] = -1
+    got = scan.metric_keys(qt, ct, None, metric, ids=ids)
+    want = scan.metric_keys_plain(qt, ct, None, metric, ids=ids)
+    torch.cuda.synchronize()
+    _assert_keys_close(metric, got, want)
+
+
+@pytest.mark.parametrize("metric", [Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA,
+                                    Metric.BRAY_CURTIS])
+@pytest.mark.parametrize("b", [1, 16, 70])
+def test_elementwise_bf16_mode_matches_plain(dev, metric, b):
+    """K6c over the centred bf16 copy with the mean added back (K9)."""
+    rng = np.random.default_rng(b)
+    corpus = _aux(rng.normal(size=(5000, 40)).astype(np.float32) + 0.3, dev)
+    mean, x16 = corpus.bf16_aux()["mean"], corpus._dev16
+    qt = {"x": torch.from_numpy(rng.normal(size=(b, 40)).astype(np.float32)).to(dev)}
+    valid = corpus.valid_mask()
+    got = scan.elementwise_scores(qt, {"x": x16}, valid, metric, mean=mean)
+    want = scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean)
+    torch.cuda.synchronize()
+    _assert_keys_close(metric, got, want)
+
+
+def test_bf16_gather_scores_shared_list_with_mask(dev):
+    """K11 with one (1, S) index list for every query and slot keys that
+    empty the deleted rows' slots: the gather route's first pass (K4)."""
+    rng = np.random.default_rng(12)
+    corpus = _aux(rng.normal(size=(8000, 64)).astype(np.float32), dev)
+    corpus.set_tombstones(np.arange(8000) % 7 == 0)
+    idx = torch.from_numpy(np.nonzero(np.arange(8000) % 10 == 3)[0].astype(np.int32))[None].to(dev)
+    slot = torch.where(corpus.valid_mask()[idx.long()], 0.0, float("-inf"))
+    q = torch.from_numpy(rng.normal(size=(16, 64)).astype(np.float32)).to(dev)
+    for metric in METRICS:
+        args = (q, corpus._dev16, corpus.bf16_aux(), idx, slot, metric)
+        got, want = scan.bf16_gather_scores(*args), scan.bf16_gather_scores_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        assert bool(torch.isinf(got[:, torch.isinf(slot[0])]).all())
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("metric", OTHER_METRICS, ids=[m.value for m in OTHER_METRICS])
+def test_metric_corpus_cuda_matches_cpu(dev, monkeypatch, metric):
+    """DeviceCorpus on the card against the CPU (plain versions): search
+    unfiltered and filtered, range search, rescore; the L1 family's
+    approximate search with APPROX_MIN_ROWS lowered to engage it."""
+    monkeypatch.setattr(DeviceCorpus, "APPROX_MIN_ROWS", 1000)
+    rng = np.random.default_rng(13)
+    d = 2 if metric is Metric.HAVERSINE else 24
+    x = _metric_rows(metric, rng, 6000, d)
+    q = _metric_rows(metric, rng, 12, d)[3:]
+    mask = rng.random(6000) < 0.3
+    cand = rng.integers(0, 6000, size=(len(q), 40))
+    cand[:, -5:] = -1
+    out = []
+    for device in (dev, "cpu"):
+        corpus = DeviceCorpus(d, device=device)
+        corpus.append(x)
+        corpus.set_tombstones(np.arange(6000) % 13 == 0)
+        top = corpus.search(q, 11, metric)
+        res = [top, corpus.search(q, 10, metric, filter_mask=mask)]
+        if metric.supports_flat_approx:
+            res.append(corpus.search_approx(q, 10, metric))
+        threshold = float((top[0][0, 9] + top[0][0, 10]) / 2)  # between two rows
+        res.append(corpus.range_search(q[0], threshold, metric, max_results=50))
+        out.append((res, corpus.rescore(q, cand, metric)))
+    (g_res, g_re), (w_res, w_re) = out
+    for (gd, gi), (wd, wi) in zip(g_res, w_res):
+        gd, gi, wd, wi = (np.atleast_2d(a) for a in (gd, gi, wd, wi))
+        assert gi.shape == wi.shape
+        _assert_keys_close(metric, torch.from_numpy(-gd), torch.from_numpy(-wd))
+        _assert_ids_match(gi, wi, wd, 1e-5 * np.abs(wd).max(axis=1) + 1e-4)
+    np.testing.assert_array_equal(np.isnan(g_re), np.isnan(w_re))
+    fin = np.isfinite(w_re)
+    _assert_keys_close(metric, torch.from_numpy(-g_re[fin]), torch.from_numpy(-w_re[fin]))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_gather_route_cuda_matches_cpu(dev, metric):
+    """A filter of a tenth of the rows takes the gather route (K11 over the
+    shared list, K5, K3) on the card and the CPU alike, scanned rows
+    included."""
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(20000, 32)).astype(np.float32)
+    q = rng.normal(size=(16, 32)).astype(np.float32)
+    mask = np.arange(20000) % 10 == 3
+    out = []
+    for device in (dev, "cpu"):
+        corpus = DeviceCorpus(32, device=device)
+        corpus.append(x)
+        corpus.set_tombstones(np.arange(20000) % 17 == 0)
+        out.append(corpus.search(q, 10, metric, filter_mask=FilterHandle(mask)))
+        assert corpus.last_scanned == 2000 + corpus._shortlist_size(10, 2000)
+    (gd, gi), (wd, wi) = out
+    assert np.all(mask[gi]) and not np.any(gi % 17 == 0)
+    np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-4)
+    _assert_ids_match(gi, wi, wd, 1e-5 * np.abs(wd).max(axis=1) + 1e-4)

@@ -258,5 +258,5 @@ def test_ivf_incremental_insert_no_rebuild(tmp_path):
 @pytest.mark.parametrize("mode", ["IVF-HAMMING", "IVF-JACCARD"])
 def test_binary_ivf_raises(port_coll, mode):
     coll, _, _ = port_coll
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(NotImplementedError, match="K16b"):
         coll.build_index(mode)

@@ -267,8 +267,11 @@ def test_host_rescore_matches_jax(corpora, metric):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     shared = tc.rescore(q, cand[0], Metric(metric))  # one list for every query
     assert shared.shape == (len(q), 50)
-    with pytest.raises(NotImplementedError, match="K10"):
-        tc.rescore(q, cand, Metric.L1)
+    # the other metrics rescore through their distance kernel's gather mode
+    want = jc.rescore(q, cand, JaxMetric.L1)
+    got = tc.rescore(q, cand, Metric.L1)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_merge_drops_repeats_and_empty_slots():

@@ -203,8 +203,9 @@ def test_empty_and_fully_filtered():
     d, i = tc.search(np.zeros((2, DIM), np.float32), 5, Metric.IP,
                      filter_mask=np.zeros(10, bool))
     assert i.shape == (2, 0)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tc.search(np.zeros((1, DIM), np.float32), 5, Metric.L1)
+    d, i = tc.search(np.zeros((1, DIM), np.float32), 5, Metric.L1)  # every metric is served
+    np.testing.assert_array_equal(i, [[0, 1, 2, 3, 4]])
+    np.testing.assert_array_equal(d, np.full((1, 5), DIM, np.float32))
 
 
 @pytest.mark.parametrize("metric", METRICS)
