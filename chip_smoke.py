@@ -67,12 +67,25 @@ Phases (each prints its seconds):
      within the distance tolerance counted; no filtered-out row, no row at
      +inf). K6a / K6b / K6c against their plain versions on the staged
      transforms at B in {1, 16, 256}, with the bf16 and gather modes.
- 10. checks: recall@10 and distances against a chunked numpy brute force
+ 10. index-metrics path: IVF-HAMMING and IVF-JACCARD on phase 9's
+     fingerprints (n_clusters=1000, nprobe=32), HNSW-L1 on the 1.01M
+     mixture rows, HNSW-HAVERSINE on the geo points, HNSW-CHEBYSHEV and
+     -CORRELATION on phase 8's 100,000-row prefix, HNSW-HELLINGER,
+     -WASSERSTEIN and -JENSEN-SHANNON on the histograms' first 100,000 rows
+     (nprobe=100). Each mode: 100 single queries and a batch at B=16 and
+     B=256, unfiltered and with where="bucket < 5", against the float64
+     brute force (HNSW >= 0.90 unfiltered, IVF-HAMMING >= 0.85; IVF-JACCARD
+     >= 0.999 against the exact answer over the clusters its probe picks,
+     its full recall reported); 10,000 rows then added to HNSW-L1 and
+     IVF-HAMMING, committed and searched again. K16b ivf_binary_blocks and
+     the domain-metric forms of K17, K19 and K20 (K6g) against their plain
+     versions at the path's shapes, with times, bounds and library calls.
+ 11. checks: recall@10 and distances against a chunked numpy brute force
      (FLAT >= 0.999, IVF >= 0.85, SQ8 >= 0.95, PQ / RaBitQ / PolarVec >= 0.70,
      HNSW / DiskANN >= 0.90 unfiltered in every tier, the half filter
      reported; no repeated id, no filtered-out or deleted id), large k
      against the exact top 1,000.
- 11. the launch counts of each path (counts set to 0 just before a path and
+ 12. the launch counts of each path (counts set to 0 just before a path and
      read just after; every kernel of the path > 0).
 The corpus is seeded numpy: 1M x 128 f32 rows drawn from a mixture of 2,000
 gaussian clusters (embedding-like data, on which a partition index has
@@ -169,6 +182,8 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
     "K6c elementwise_scores": (scan.elementwise_scores,
                                "lynsedb_tpu_torch/csrc/elementwise_scores.cu",
                                "lynsedb_tpu/ops/distance.py:199"),
+    "K16b ivf_binary_blocks": (ivf.ivf_binary_blocks, "lynsedb_tpu_torch/csrc/ivf_scan_blocks.cu",
+                               "lynsedb_tpu/index/ivf.py:43"),
 }
 # the kernels each path must launch
 PATHS = {
@@ -184,6 +199,8 @@ PATHS = {
               "K20 robust_prune"),
     "metrics": ("K1 flat_scores_f32", "K5 topk_select", "K6a gemm_metric_scores", "K6b binary_scores",
                 "K6c elementwise_scores"),
+    "index_metrics": ("K5 topk_select", "K6b binary_scores", "K16b ivf_binary_blocks",
+                      "K17 beam_search", "K19 topl_scan", "K20 robust_prune"),
 }
 
 
@@ -283,8 +300,8 @@ class Stats:
     the plain version's and the library call's ms and the bound."""
 
     def __init__(self):
-        self.err = {name: 0.0 for name in KERNELS}
-        self.rows = {name: {} for name in KERNELS}
+        self.err = {name: 0.0 for name in (*KERNELS, *K6G)}
+        self.rows = {name: {} for name in (*KERNELS, *K6G)}
 
     def error(self, name, err) -> None:
         self.err[name] = max(self.err[name], float(err))
@@ -1380,7 +1397,8 @@ def metrics_path(db, coll, x, extra, dead, centers, rng, report, stats) -> None:
     100 single queries and a batch at B = 16 and 256, unfiltered and
     ``bucket = 3``; the L1 family also approx=True at B = 16, FLAT-L1 also
     search_range(max_results=1000); every answer held to a float64 brute
-    force on the card; the kernels against their plain versions."""
+    force on the card; the kernels against their plain versions. Returns the
+    data sets by kind: (collection, rows, live mask or None, queries)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 1)
     x_real = np.concatenate([x, extra])
@@ -1407,6 +1425,7 @@ def metrics_path(db, coll, x, extra, dead, centers, rng, report, stats) -> None:
         if c is None:
             host = rows.cpu().numpy().astype(np.float32) if torch.is_tensor(rows) else rows
             c, t_add = metric_collection(db, kind, host)
+            sets[kind] = (c, rows, live_np, qs)  # the index-metrics phase reuses them
             del host
             report[f"metrics {kind} add+commit_s"] = t_add
             print(f"   {kind}: add + commit {len(rows)} x {rows.shape[1]}: {t_add:.2f} s",
@@ -1471,6 +1490,306 @@ def metrics_path(db, coll, x, extra, dead, centers, rng, report, stats) -> None:
                       "outside", flush=True)
         del rows_d, q64, masks, gts
         torch.cuda.empty_cache()
+    return sets
+
+
+# ── the index-metrics path: IVF under Hamming / Jaccard, HNSW under the
+# ── domain metrics ──────────────────────────────────────────────────────
+
+INDEX_METRIC_MODES = {  # data set -> its modes
+    "bits": ("IVF-HAMMING", "IVF-JACCARD"),
+    "real": ("HNSW-L1",),
+    "geo": ("HNSW-HAVERSINE",),
+    "real prefix": ("HNSW-CHEBYSHEV", "HNSW-CORRELATION"),
+    "hist prefix": ("HNSW-HELLINGER", "HNSW-WASSERSTEIN", "HNSW-JENSEN-SHANNON"),
+}
+INSERTED = ("HNSW-L1", "IVF-HAMMING")  # GRAPH_INSERT rows added and searched again
+# recall@10 floors against the full brute force. IVF-JACCARD is held instead
+# to the exact answer over the clusters its probe picks (probed_kth): the
+# reference's probe, the query's Jaccard distance to the centroids
+# thresholded at 0.5, ties the many centroids whose thresholded bits are few
+# or none, and its recall on scaffold fingerprints is about 0.6 in both
+# packages (PERF.md §6), so its full-brute-force recall is reported.
+BINARY_IVF_FLOOR = {"IVF-HAMMING": IVF_RECALL_FLOOR, "IVF-JACCARD": 0.0}
+TOPL_CHUNK = 1024  # K19's timed chunk under L1 (and its library call's)
+# the domain-metric forms of K17, K19 and K20 (the JAX package's
+# _keyed_pairwise inside its beam, _topl_generic and candidate_pair_keys),
+# reported apart from their IP / L2 / cosine rows: name -> (the kernel, the
+# JAX function it replaces)
+K6G = {"K6g beam_search": ("K17 beam_search", "lynsedb_tpu/ops/graph.py:99"),
+       "K6g topl_scan": ("K19 topl_scan", "lynsedb_tpu/ops/graph.py:815"),
+       "K6g robust_prune": ("K20 robust_prune", "lynsedb_tpu/ops/graph.py:446")}
+
+
+def binary_ivf_phase(coll, qs: np.ndarray, stats: Stats, mode: str) -> None:
+    """K16b against its plain version on the built index, equal to the bit,
+    at B in {1, 16, 256} under the half filter, timed at each."""
+    eng = coll._engine
+    idx = eng._index
+    state = idx._device_state(eng)
+    n = eng.corpus().n
+    live = eng.corpus().valid_mask(np.arange(n) % 10 < 5)
+    metric, w = idx.metric, state["blocks"].shape[2]
+    with uncounted():
+        for b in BATCHES:
+            qd = torch.from_numpy(np.ascontiguousarray(qs[:b])).to(DEV)
+            qt = D.query_transform(qd, metric)
+            top_c = ivf._top_clusters(qd, state["centroids"], metric, NPROBE)
+            args = (qt["bits"], qt["cnt"], top_c, state["cluster_blocks"], state["blocks"],
+                    state["block_sq"], state["block_orig"], live, metric)
+            got, want = ivf.ivf_binary_blocks(*args), ivf.ivf_scan_blocks_plain(*args)
+            check(torch.equal(got, want), f"K16b {mode} B={b}: keys differ from the plain version")
+            stats.error("K16b ivf_binary_blocks", 0.0)
+            # bound: every distinct probed block's slot ids read once, the
+            # live flag of its real rows, the words and bit count of its live
+            # rows; the keys written; a popcount a word of every scored row
+            blk = state["cluster_blocks"][top_c.long()].reshape(b, -1)
+            distinct = torch.unique(blk[blk >= 0]).long()
+            orig = state["block_orig"].view(-1, ivf.BLOCK_SIZE)[distinct]
+            real = orig >= 0
+            n_live = int((real & live[orig.clamp_min(0).long()]).sum())
+            scored = int(torch.isfinite(got).sum())
+            stats.time("K16b ivf_binary_blocks", f"{mode} B={b} nprobe={NPROBE}",
+                       lambda: ivf.ivf_binary_blocks(*args),
+                       lambda: ivf.ivf_scan_blocks_plain(*args), None,
+                       bound_t(orig.numel() * 4 + int(real.sum()) + n_live * (w * 4 + 4)
+                               + got.numel() * 4, scored * w / SFU_OPS),
+                       reps=3 if b == 256 else 10)
+            del got, want
+    print(f"   K16b {mode}: equal to its plain version at B in {list(BATCHES)}", flush=True)
+
+
+def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool) -> None:
+    """K17's metric tier (beam 100, B in {1, 16, 256}) and K20's pair tables
+    (1,024 nodes of pass A's shape) equal to their plain versions to the
+    bit, and K19's metric mode (256 queries of the build's L = 64 over every
+    row) within the distance tolerance, on the built index. ``timed``: K19
+    on a TOPL_CHUNK-query chunk beside the library's top-L, K20 on 4,096
+    nodes, every one against its bound."""
+    idx, corpus = eng._index, eng.corpus()
+    metric = idx.metric
+    dev = idx._device(corpus)
+    space, adj, n = dev["space"], dev["layer0"], idx.built_rows
+    live = corpus.valid_mask()[:n]
+    d = space.rows.shape[1]
+    row_bytes = d * 4 + (12 if space.terms is not None else 0)
+    elem_ops = 1 if metric is Metric.HAVERSINE else d * ELEM_OPS.get(metric, (2, 0))[0]
+    code = graph._KIND_CODE[metric.value]
+    kw = dict(code=code, beam=GRAPH_NPROBE, max_steps=2 * GRAPH_NPROBE, expand=1)
+    with uncounted():
+        for b in BATCHES if timed else (16,):
+            qd = torch.from_numpy(np.ascontiguousarray(qs[:b])).to(DEV)
+            ops = graph.beam_operands("metric", qd, space, kind=metric.value)
+            walk = ("metric", ops["qop"], None, ops["rows"], ops["aux"], adj,
+                    idx._starts(qd, corpus, live), live)
+            got, want = graph.beam_walk(*walk, **kw), graph.beam_walk_plain(*walk, **kw)
+            for g, w, what in zip(got, want, ("keys", "ids", "scanned")):
+                check(torch.equal(g, w), f"K17 {mode} B={b}: {what} differ")
+            stats.error("K6g beam_search", 0.0)
+            if b == 16:
+                visits = int(got[2].sum())
+                expanded = int((got[0] > float("-inf")).sum())
+                stats.time("K6g beam_search", f"{mode} B={b} beam={GRAPH_NPROBE}",
+                           lambda: graph.beam_walk(*walk, **kw),
+                           lambda: graph.beam_walk_plain(*walk, **kw), None,
+                           bound_t(visits * (row_bytes + 1) + expanded * adj.shape[1] * 4
+                                   + b * GRAPH_NPROBE * 8, visits * elem_ops / F32_OPS), reps=3)
+
+        l = 64
+        for chunk in (256, TOPL_CHUNK) if timed else (256,):
+            q_ids = torch.arange(chunk, dtype=torch.int32, device=DEV)
+            args = (space[:chunk], q_ids, space, None, None, n, l, graph.TOPL_METRIC)
+            gk, gi = graph.topl_scan(*args)
+            wk, wi = graph.topl_scan_plain(*args)
+            err = keys_error(metric, gk, wk, f"K19 {mode} chunk={chunk}")
+            rekeyed = scan.metric_keys_plain(space[:chunk].transform(), space.transform(), None,
+                                             metric, ids=gi.clamp_min(0))
+            keys_error(metric, torch.where(torch.isfinite(wk), rekeyed, wk), wk,
+                       f"K19 {mode} chunk={chunk}: ids beyond a near-tie")
+            stats.error("K6g topl_scan", err)
+            del gk, gi, wk, wi, rekeyed
+            if chunk == TOPL_CHUNK:
+                x32, qx = space.rows, space.rows[:chunk]
+
+                def library():
+                    for lo in range(0, n, 131072):
+                        torch.topk(-torch.cdist(qx, x32[lo : min(lo + 131072, n)], p=1), l, dim=1)
+
+                stats.time("K6g topl_scan", f"{mode} chunk={chunk} N={n} L={l}",
+                           lambda: graph.topl_scan(*args), lambda: graph.topl_scan_plain(*args),
+                           accepted(library) if metric is Metric.L1 else None,
+                           bound_t(n * row_bytes + chunk * l * 8,
+                                   chunk * n * elem_ops / F32_OPS), reps=1)
+        print(f"   K6g {mode}: K17's metric tier equal to its plain version, K19's metric mode "
+              f"within the distance tolerance", flush=True)
+
+        rng = np.random.default_rng(SEED + 3)
+        for nodes in (1024, 4096) if timed else (1024,):  # pass A: l exact + 8 random
+            q_ids = torch.arange(nodes, dtype=torch.int32, device=DEV)
+            _, near = graph.topl_scan(space[:nodes], q_ids, space, None, None, n, l,
+                                      graph.TOPL_METRIC)
+            extra = torch.from_numpy(rng.integers(0, n, size=(nodes, 8)).astype(np.int32)).to(DEV)
+            cands = torch.cat([near, extra], dim=1).contiguous()
+            pkw = dict(metric=metric, r=32, alpha=1.2)
+            got = graph.robust_prune(space, q_ids, cands, **pkw)
+            check(torch.equal(got, graph.robust_prune_plain(space, q_ids, cands, **pkw)),
+                  f"K20 {mode}: pruned lists differ")
+            gp, gq = graph.robust_prune(space, q_ids, cands, metric=metric, keys_only=True)
+            wp, wq = graph.robust_prune_plain(space, q_ids, cands, metric=metric, keys_only=True)
+            check(torch.equal(gp, wp) and torch.equal(gq, wq), f"K20 {mode}: keys mode differs")
+            stats.error("K6g robust_prune", 0.0)
+            if nodes == 4096:
+                m = cands.shape[1] + 1
+                rows = space.rows[torch.cat([cands, q_ids[:, None]], 1).long()]
+                stats.time("K6g robust_prune", f"{mode} nodes={nodes} L={m - 1} r=32",
+                           lambda: graph.robust_prune(space, q_ids, cands, **pkw),
+                           lambda: graph.robust_prune_plain(space, q_ids, cands, **pkw),
+                           accepted(lambda: torch.cdist(rows, rows, p=1))
+                           if metric is Metric.L1 else None,
+                           bound_t(nodes * (m * row_bytes + (m - 1) * 4 + 32 * 4),
+                                   nodes * m * (m + 1) / 2 * elem_ops / F32_OPS), reps=3)
+        print(f"   K6g {mode}: K20's pair tables equal to their plain version (both modes)",
+              flush=True)
+
+
+def index_metrics_path(db, sets: dict, prefix_coll, centers, rng, report, stats) -> None:
+    """The index-metrics phase: IVF-HAMMING and IVF-JACCARD on the 1M
+    fingerprints (n_clusters=1000, nprobe=32), HNSW-L1 on the 1.01M mixture
+    rows, HNSW-HAVERSINE on the 1M geo points, HNSW-CHEBYSHEV and
+    -CORRELATION on phase 8's 100,000-row mixture prefix, HNSW-HELLINGER,
+    -WASSERSTEIN and -JENSEN-SHANNON on the histograms' 100,000-row prefix
+    (nprobe=100 for every graph). Each mode: 100 single queries and a batch at
+    B = 16 and 256, unfiltered and ``bucket < 5``, against the float64 brute
+    force (graph >= 0.90 unfiltered, IVF >= 0.85; no repeated, filtered-out
+    or deleted id); HNSW-L1 and IVF-HAMMING take GRAPH_INSERT new rows and
+    answer again; the kernels against their plain versions."""
+    c_hist, x_hist, _, q_hist = sets["hist"]
+    hist_prefix, t_add = metric_collection(db, "hist_prefix", x_hist[:PREFIX])
+    report["index metrics hist prefix add+commit_s"] = t_add
+    data = {"bits": sets["bits"], "real": sets["real"], "geo": sets["geo"],
+            "real prefix": (prefix_coll, sets["real"][1][:PREFIX], None, sets["real"][3]),
+            "hist prefix": (hist_prefix, x_hist[:PREFIX], None, q_hist)}
+    for kind, modes in INDEX_METRIC_MODES.items():
+        c, rows, live_np, qs = data[kind]
+        rows_d = rows if torch.is_tensor(rows) else torch.from_numpy(rows).to(DEV)
+        q64 = torch.from_numpy(qs).to(DEV).double()
+        for mode in modes:
+            metric = Metric.from_index_mode(mode)
+            ivf_mode = mode.startswith("IVF")
+            t0 = time.perf_counter()
+            c.build_index(mode, **({"n_clusters": N_CLUSTERS} if ivf_mode else {}))
+            report[f"{mode} build_s"] = time.perf_counter() - t0
+            phases = getattr(c._engine._index, "last_build_phases", {})
+            print(f"   build_index({mode!r}) on {len(rows)} rows: "
+                  f"{report[f'{mode} build_s']:.2f} s {phases}", flush=True)
+            nprobe, floor = (NPROBE, None) if ivf_mode else (GRAPH_NPROBE, GRAPH_RECALL_FLOOR)
+            t0 = time.perf_counter()
+            c.search(qs[0], k=K, nprobe=nprobe)  # stages the blocks or the graph
+            print(f"   first search: {time.perf_counter() - t0:.2f} s", flush=True)
+            for inserted in ((False, True) if mode in INSERTED else (False,)):
+                if inserted:
+                    new = (fingerprints_like(rows_d, GRAPH_INSERT) if ivf_mode
+                           else torch.from_numpy(mixture_queries(rng, centers,
+                                                                 GRAPH_INSERT)).to(DEV))
+                    n0 = len(rows_d)
+                    t0 = time.perf_counter()
+                    c.add(vectors=new.cpu().numpy().astype(np.float32),
+                          fields=[{"bucket": i % 10} for i in range(n0, n0 + GRAPH_INSERT)])
+                    c.commit()  # links / posts the new rows in place
+                    sync()
+                    report[f"{mode} insert_{GRAPH_INSERT}_s"] = time.perf_counter() - t0
+                    check(c._engine._index.built_rows == n0 + GRAPH_INSERT,
+                          f"{mode}: the new rows were not indexed")
+                    print(f"   add + commit {GRAPH_INSERT} rows: "
+                          f"{report[f'{mode} insert_{GRAPH_INSERT}_s']:.2f} s", flush=True)
+                    rows_d = torch.cat([rows_d, new.to(rows_d.dtype)])
+                    if live_np is not None:
+                        live_np = np.concatenate([live_np, np.ones(GRAPH_INSERT, bool)])
+                n = len(rows_d)
+                ok = (torch.ones(n, dtype=torch.bool, device=DEV) if live_np is None
+                      else torch.from_numpy(live_np).to(DEV))
+                masks = {None: ok}
+                if not inserted:
+                    masks["bucket < 5"] = ok & (torch.arange(n, device=DEV) % 10 < 5)
+                out = {where: run_queries(c, qs[:100], [qs[100:116]], [qs[116:]], where,
+                                          nprobe=nprobe) for where in masks}
+                sync()
+                if not inserted:
+                    with uncounted():
+                        if ivf_mode:
+                            binary_ivf_phase(c, qs, stats, mode)
+                        else:
+                            metric_graph_phase(c._engine, mode, qs, stats, mode == "HNSW-L1")
+                gt = brute64(metric, q64, rows_d, masks, K)
+                probe = probed_kth(c._engine._index, qs, rows_d, masks) if ivf_mode else {}
+                for where, (views, lat, calls) in out.items():
+                    label = (f"{mode}{' inserted' if inserted else ''} "
+                             f"{'unfiltered' if where is None else where}")
+                    kth = gt[where][0][:, K - 1]
+                    for b, lo, hi in ((1, 0, 100), (16, 100, 116), (256, 116, N_MQ)):
+                        if ivf_mode:  # the exact answer over the probed clusters
+                            check_metric_views(metric, f"{label} B={b} (its probe's rows)",
+                                               views[b], q64[lo:hi], rows_d, masks[where],
+                                               probe[where][lo:hi], RECALL_FLOOR)
+                        report[f"{label} recall_b{b}"] = check_metric_views(
+                            metric, f"{label} B={b}", views[b], q64[lo:hi], rows_d,
+                            masks[where], kth[lo:hi], BINARY_IVF_FLOOR[mode] if ivf_mode
+                            else floor if where is None else 0.0)
+                        if b > 1:  # each call's seconds, GC seconds and cudaMallocs
+                            report[f"{label} qps_b{b}"] = len(views[b]) / sum(calls[b]["s"])
+                            report[f"{label} calls_b{b}"] = calls[b]
+                    report[f"{label} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+                    report[f"{label} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
+                del gt, out
+        del rows_d, q64
+        torch.cuda.empty_cache()
+
+
+def probed_kth(idx, qs: np.ndarray, rows: torch.Tensor, masks: dict) -> dict:
+    """For each mask, each query's 10th best float64 distance over the rows
+    posted to the clusters the reference's probe picks: the query's bits
+    against the centroids thresholded at 0.5, the f32 distance from exact
+    counts as the JAX package forms it, the top NPROBE with the lower index
+    first between ties. Written from the definitions, apart from the port."""
+    metric = idx.metric
+    cent = torch.from_numpy(idx.centroids_np > 0.5).to(DEV).double()
+    qb = torch.from_numpy(qs > 0.5).to(DEV).double()
+    inter = (qb @ cent.T).float()  # integers: exact
+    cq, cx = qb.sum(1).float()[:, None], cent.sum(1).float()[None]
+    if metric is Metric.HAMMING:
+        dc = cq + cx - 2.0 * inter
+    else:
+        uni = cq + cx - inter
+        dc = torch.where(uni == 0, 0.0, 1.0 - inter / torch.clamp_min(uni, 1.0))
+    top = torch.sort(dc, dim=1, stable=True).indices[:, :NPROBE]
+    member = torch.zeros(dc.shape, dtype=torch.bool, device=DEV).scatter_(1, top, True)
+    post = torch.from_numpy(idx.postings.astype(np.int64)).to(DEV)
+    cluster = torch.zeros(len(rows), dtype=torch.long, device=DEV)
+    cluster[post[:, 1]] = post[:, 0]
+    probed = member[:, cluster]  # (Q, N): the row lies in a probed cluster
+    q64 = torch.from_numpy(qs).to(DEV).double()
+    out = {}
+    for where, ok in masks.items():
+        best = None
+        for lo in range(0, len(rows), 1 << 16):
+            dd = dist64(metric, q64, rows[lo : lo + (1 << 16)].double())
+            dd = torch.where(probed[:, lo : lo + (1 << 16)] & ok[None, lo : lo + (1 << 16)], dd,
+                             float("inf"))
+            v = torch.topk(dd, min(K, dd.shape[1]), dim=1, largest=False).values
+            best = v if best is None else torch.topk(torch.cat([best, v], 1), K, dim=1,
+                                                     largest=False).values
+        out[where] = best[:, K - 1]
+    return out
+
+
+def fingerprints_like(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """n new ECFP-like rows: existing fingerprints with 2% of their bits
+    flipped (the same scaffold families), (n, D) uint8 on the card."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 4)
+    pick = torch.randint(0, rows.shape[0], (n,), generator=gen, device=DEV)
+    flip = torch.rand((n, rows.shape[1]), generator=gen, device=DEV) < 0.02
+    return rows[pick] ^ flip.to(rows.dtype)
 
 
 def main() -> int:
@@ -1603,11 +1922,17 @@ def main() -> int:
         with phase("9 metrics path"):
             sc.build_index("FLAT-L2")  # 2,000 rows: the exact plan, K1 under L2
             small_l2 = [sc.search(qv, k=K) for qv in small_q]
-            metrics_path(db, coll, x, extra, dead, centers, rng, report, stats)
+            sets = metrics_path(db, coll, x, extra, dead, centers, rng, report, stats)
         counts["metrics"] = read_counts()
+
+        set_counts({})
+        with phase("10 index metrics path"):
+            index_metrics_path(db, sets, db.get_collection("prefix", warm_up=False), centers, rng,
+                               report, stats)
+        counts["index_metrics"] = read_counts()
         client.close()
 
-    with phase("10 checks against numpy brute force"):
+    with phase("11 checks against numpy brute force"):
         all_rows = np.arange(N)
         for where, rows in ((None, all_rows), ("bucket = 3", np.nonzero(all_rows % 10 == 3)[0])):
             label = "unfiltered" if where is None else where
@@ -1676,7 +2001,7 @@ def main() -> int:
                 report[f"{label} p99_ms"] = float(np.percentile(lat, 99) * 1e3)
         check_graph(graph_out, x, extra, dead, ivf_q, report)
 
-    with phase("11 launch counts"):
+    with phase("12 launch counts"):
         by_path = {path: counts[path] for path in PATHS}
         for path, names in PATHS.items():
             print(f"   {path}: {by_path[path]}")
@@ -1701,14 +2026,23 @@ def main() -> int:
              "K19 topl_scan": f"L2 chunk=4096 N={N} L=64",
              "K20 robust_prune": "L2 nodes=4096 L=72 r=32",
              "K6a gemm_metric_scores": "correlation B=16", "K6b binary_scores": "tanimoto B=16",
-             "K6c elementwise_scores": "l1 B=16"}
+             "K6c elementwise_scores": "l1 B=16",
+             "K16b ivf_binary_blocks": f"IVF-HAMMING B=16 nprobe={NPROBE}",
+             "K6g beam_search": f"HNSW-L1 B=16 beam={GRAPH_NPROBE}",
+             "K6g topl_scan": f"HNSW-L1 chunk={TOPL_CHUNK} N={N + GRAPH_INSERT} L=64",
+             "K6g robust_prune": "HNSW-L1 nodes=4096 L=72 r=32"}
     kernels = []
-    for name, (_, src, rep) in KERNELS.items():
+    # the K6g rows: K17, K19 and K20 under the domain metrics, whose launches
+    # are their kernels' on the index-metrics path
+    rows = [(name, name, src, rep, list(by_path)) for name, (_, src, rep) in KERNELS.items()]
+    rows += [(name, kern, KERNELS[kern][1], rep, ["index_metrics"])
+             for name, (kern, rep) in K6G.items()]
+    for name, kern, src, rep, paths in rows:
         row = stats.rows[name][shown[name]]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(by_path[p][name] for p in by_path),
-            "launches_by_path": {p: by_path[p][name] for p in by_path},
+            "launches": sum(by_path[p][kern] for p in paths),
+            "launches_by_path": {p: by_path[p][kern] for p in paths},
             "max_abs_err": stats.err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shown[name]})

@@ -4,7 +4,11 @@
 // Replaces lynsedb_tpu/ops/graph.py _beam_core and its four guidance tiers
 // (_beam_search_jit: exact f32; _beam_search_bf16_jit: the centred bf16 copy
 // with K2's rank-1 terms; _beam_search_sq8_jit: SQ8 codes; _beam_search_pq_jit:
-// a per-query PQ table). On the TPU every step was a lockstep dispatch over the
+// a per-query PQ table). A fifth tier, the metric tier, is _beam_search_jit
+// under a domain metric (_keyed_pairwise, :99): it walks the lead rows of the
+// metric's transform (ops/distance.py; the transform is row-wise, so a row's
+// key is JAX's per-gathered-row key) and forms the exact distance with
+// metrics.cuh's formulas. On the TPU every step was a lockstep dispatch over the
 // batch with a (B, N) bool visited array; here each block runs its query's
 // while_loop to the end, so the host never waits on a step.
 //
@@ -28,10 +32,11 @@
 //     walk;
 //   * the starts enter as chunks merged the same way, -inf ones included, so
 //     the pool begins as the best min(S, beam) starts;
-//   * every dot product is a chain of separately rounded multiplies and adds,
-//     lane l of a warp taking elements l, l + 32, ... then a butterfly, so
-//     the plain version in ops/graph.py computes bit-identical keys.
-#include "common.cuh"
+//   * every dot product (and every sum or max of the metric tier) is a chain
+//     of separately rounded operations, lane l of a warp taking elements l,
+//     l + 32, ... then a butterfly, so the plain version in ops/graph.py
+//     computes bit-identical keys.
+#include "metrics.cuh"
 
 namespace {
 
@@ -40,20 +45,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
-  const float* q;       // (B, qw) per-query operand: q, bf16(q - mean), q * scale or the PQ table
+  // (B, qw) per-query operand: q, bf16(q - mean), q * scale or the PQ table;
+  // the metric tier's: the query's lead row (rw values), then its a, b, inv
+  const float* q;
   int qw;
   const float* qconst;  // (B,): |q|^2 (f32), q . mean (bf16), q . (lo + 128 scale) (SQ8)
   const void* rows;     // (N, rw): f32 / bf16 / int8 / uint8 PQ codes
   int rw;
-  const float* aux0;  // bf16: xm; SQ8: row_sq; PQ: alpha
-  const float* aux1;  // bf16: xc_sq; SQ8: rsqrt(row_sq); PQ: row_sq
-  const float* aux2;  // bf16: rsqrt(xsq_true); PQ: rsqrt(row_sq)
+  const float* aux0;  // bf16: xm; SQ8: row_sq; PQ: alpha; metric: a (or null)
+  const float* aux1;  // bf16: xc_sq; SQ8: rsqrt(row_sq); PQ: row_sq; metric: b
+  const float* aux2;  // bf16: rsqrt(xsq_true); PQ: rsqrt(row_sq); metric: inv (1 or 0)
   const int* graph;   // (N, R), -1 padded
   int n, r;
   const int* starts;  // (S,) shared or (B, S)
   int s, starts_stride;
   const uint8_t* valid;  // (>= N,)
-  int beam, max_steps, expand, metric, fresh;
+  int beam, max_steps, expand, fresh;
+  int metric;  // IP / L2 / cosine (0-2) in tiers 0-3, a domain metric's lt code in tier 4
   uint32_t* visited;  // (B, words), zeroed
   int words;
   float* out_keys;  // (B, beam)
@@ -74,12 +82,47 @@ __device__ __forceinline__ float row_value(const void* rows, int64_t i) {
   return static_cast<float>(static_cast<const int8_t*>(rows)[i]);
 }
 
+// The metric tier's key of node `id`: -distance under the domain metric M,
+// from the query's lead row qv[0, rw) and terms qv[rw, rw + 3) and the node's
+// lead row and terms. Called by a whole warp, the result on every lane.
+template <int M>
+__device__ float metric_key(const Args& a, const float* qv, int64_t id, int lane) {
+  const float* xr = static_cast<const float*>(a.rows) + id * a.rw;
+  if constexpr (M == lt::kHaversine) {
+    return -lt::haversine(qv[0], qv[1], __ldg(xr), __ldg(xr + 1));
+  } else {
+    const lt::RowTerm qt{qv[a.rw], qv[a.rw + 1], qv[a.rw + 2] != 0.f};
+    const lt::RowTerm xt = a.aux0 == nullptr ? lt::RowTerm{}
+                                             : lt::RowTerm{__ldg(a.aux0 + id), __ldg(a.aux1 + id),
+                                                           __ldg(a.aux2 + id) != 0.f};
+    if constexpr (M == lt::kCorrelation || M == lt::kHellinger) {
+      float ip = 0.f;
+      for (int d = lane; d < a.rw; d += 32) ip = __fadd_rn(ip, __fmul_rn(qv[d], __ldg(xr + d)));
+      return -lt::gemm_distance(M, lane_reduce(ip), qt, xt);
+    } else {
+      lt::Acc acc;
+      for (int d = lane; d < a.rw; d += 32) lt::accumulate<M>(acc, qv[d], __ldg(xr + d));
+      return -lt::elem_distance<M>(lt::warp_merge<M>(acc), qt, xt);
+    }
+  }
+}
+
 // The oriented key of node `id` for this block's query; called by a whole warp,
 // the result on every lane. NaN becomes -inf.
 template <int TIER>
 __device__ float node_key(const Args& a, const float* qv, float qc, int64_t id, int lane) {
   float key;
-  if constexpr (TIER == 3) {
+  if constexpr (TIER == 4) {
+    switch (a.metric) {
+      case lt::kCorrelation: key = metric_key<lt::kCorrelation>(a, qv, id, lane); break;
+      case lt::kHellinger: key = metric_key<lt::kHellinger>(a, qv, id, lane); break;
+      case lt::kL1: key = metric_key<lt::kL1>(a, qv, id, lane); break;
+      case lt::kChebyshev: key = metric_key<lt::kChebyshev>(a, qv, id, lane); break;
+      case lt::kWasserstein: key = metric_key<lt::kWasserstein>(a, qv, id, lane); break;
+      case lt::kJensenShannon: key = metric_key<lt::kJensenShannon>(a, qv, id, lane); break;
+      default: key = metric_key<lt::kHaversine>(a, qv, id, lane); break;
+    }
+  } else if constexpr (TIER == 3) {
     const uint8_t* code = static_cast<const uint8_t*>(a.rows) + id * a.rw;
     float acc = 0.f;
     for (int m = lane; m < a.rw; m += 32) acc = __fadd_rn(acc, qv[m * 256 + code[m]]);
@@ -354,8 +397,14 @@ extern "C" int lt_beam_search(int tier, const float* q, int qw, const float* qco
                               int b, int beam, int max_steps, int expand, int metric, int fresh,
                               uint32_t* visited, int words, float* out_keys, int* out_ids,
                               int* scanned, int smem, cudaStream_t stream) {
+  // the metric tier serves the graph indexes' domain metrics (not Canberra or
+  // Bray-Curtis: the reference keeps those exact-only)
+  const bool domain = metric == lt::kCorrelation || metric == lt::kHellinger ||
+                      metric == lt::kL1 || metric == lt::kChebyshev ||
+                      metric == lt::kWasserstein || metric == lt::kJensenShannon ||
+                      (metric == lt::kHaversine && rw == 2);
   if (b < 1 || n < 1 || r < 1 || s < 1 || beam < 1 || expand < 1 || fresh < expand * r ||
-      qw < 1 || rw < 1 || words < (n + 31) / 32)
+      qw < 1 || rw < 1 || words < (n + 31) / 32 || (tier == 4 && (qw != rw + 3 || !domain)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -388,6 +437,7 @@ extern "C" int lt_beam_search(int tier, const float* q, int qw, const float* qco
     case 1: return launch<1>(a, b, smem, stream);
     case 2: return launch<2>(a, b, smem, stream);
     case 3: return launch<3>(a, b, smem, stream);
+    case 4: return launch<4>(a, b, smem, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,16 +1,10 @@
 // K6b: the binary family (Hamming, Jaccard, Tanimoto, Dice) over bit-packed
 // rows: the intersection of a query and a row is the popcount of their ANDed
-// words, and the distance follows from it and the two rows' bit counts in f32,
-// with the JAX package's operations in its order, so the distances are equal to
-// the bit to the plain version's and to JAX's:
-//   Hamming         cq + cx - 2 inter
-//   Jaccard         union = cq + cx - inter; 0 if union == 0,
-//   (and Tanimoto)  else 1 - inter / max(union, 1)
-//   Dice            total = cq + cx; 0 if total == 0,
-//                   else 1 - 2 inter / max(total, 1)
-// Every count is an integer below 2^24, so each f32 operation is exact but the
-// one division, which rounds the same on both sides. The key is the negated
-// distance (every binary metric is ascending), -inf for a masked row.
+// words, and the distance follows from it and the two rows' bit counts in f32
+// (lt::binary_distance in common.cuh, the JAX package's operations in its
+// order), so the distances are equal to the bit to the plain version's and to
+// JAX's. The key is the negated distance (every binary metric is ascending),
+// -inf for a masked row.
 //
 // Replaces lynsedb_tpu/ops/distance.py _binary_parts (:177) and _pw_hamming /
 // _pw_jaccard / _pw_dice (:182-197), a bf16 product of the {0, 1} rows, inside
@@ -30,20 +24,10 @@
 
 namespace {
 
-enum BinaryMetric : int { kHamming = 0, kJaccard = 1, kDice = 2 };
+using lt::binary_distance;
 
 constexpr int kRows = 128;  // rows a block, one a thread
 constexpr int kChunk = 32;  // words staged at a time
-
-__device__ __forceinline__ float binary_distance(int metric, float inter, float cq, float cx) {
-  if (metric == kHamming) return __fsub_rn(__fadd_rn(cq, cx), __fmul_rn(2.f, inter));
-  if (metric == kJaccard) {
-    const float uni = __fsub_rn(__fadd_rn(cq, cx), inter);
-    return uni == 0.f ? 0.f : __fsub_rn(1.f, __fdiv_rn(inter, fmaxf(uni, 1.f)));
-  }
-  const float total = __fadd_rn(cq, cx);
-  return total == 0.f ? 0.f : __fsub_rn(1.f, __fdiv_rn(__fmul_rn(2.f, inter), fmaxf(total, 1.f)));
-}
 
 template <int TQ>
 __global__ void __launch_bounds__(kRows)
@@ -125,7 +109,8 @@ extern "C" int lt_binary_scores(const uint32_t* q, const uint32_t* x, const floa
                                 const float* xcnt, const uint8_t* valid, const int* ids, int B,
                                 int N, int W, int C, int metric, float* keys,
                                 cudaStream_t stream) {
-  if (B < 1 || W < 1 || metric < kHamming || metric > kDice) return (int)cudaErrorInvalidValue;
+  if (B < 1 || W < 1 || metric < lt::kHamming || metric > lt::kDice)
+    return (int)cudaErrorInvalidValue;
   if (ids != nullptr) {
     if (C < 1 || B > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((C + kRows - 1) / kRows), (unsigned)B);

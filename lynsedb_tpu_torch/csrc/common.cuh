@@ -1,5 +1,6 @@
-// Shared pieces of the kernels: the metric codes and keys, the selection
-// order, an in-shared-memory bitonic sort and a tiled f32 score product.
+// Shared pieces of the kernels: the metric codes and keys, the binary
+// distances, the selection order, an in-shared-memory bitonic sort and a
+// tiled f32 score product. The other metrics' formulas are in metrics.cuh.
 //
 // Every entry point of the library is a plain C function that launches on the
 // caller's stream, allocates nothing and returns the cudaError_t of its launch
@@ -16,7 +17,35 @@
 
 namespace lt {
 
-enum Metric : int { kIP = 0, kL2 = 1, kCosine = 2, kCorrelation = 3, kHellinger = 4 };
+// The metric codes of the kernels that take a metric (ops/scan.py _GEMM_CODE
+// and _ELEM_CODE): the GEMM family, then the elementwise family.
+enum Metric : int {
+  kIP = 0, kL2 = 1, kCosine = 2, kCorrelation = 3, kHellinger = 4, kL1 = 5, kChebyshev = 6,
+  kCanberra = 7, kBrayCurtis = 8, kWasserstein = 9, kJensenShannon = 10, kHaversine = 11
+};
+
+// The binary family's codes (ops/scan.py _BINARY_CODE; Tanimoto is Jaccard).
+enum BinaryMetric : int { kHamming = 0, kJaccard = 1, kDice = 2 };
+
+// A binary distance from the popcount of the two rows' AND and their bit
+// counts, with the JAX package's f32 operations in its order:
+//   Hamming         cq + cx - 2 inter
+//   Jaccard         union = cq + cx - inter; 0 if union == 0,
+//   (and Tanimoto)  else 1 - inter / max(union, 1)
+//   Dice            total = cq + cx; 0 if total == 0,
+//                   else 1 - 2 inter / max(total, 1)
+// Every count is an integer below 2^24, so each operation is exact but the one
+// division, which rounds the same on both sides: the distances equal JAX's and
+// the plain version's to the bit (K6b, K16b).
+__device__ __forceinline__ float binary_distance(int metric, float inter, float cq, float cx) {
+  if (metric == kHamming) return __fsub_rn(__fadd_rn(cq, cx), __fmul_rn(2.f, inter));
+  if (metric == kJaccard) {
+    const float uni = __fsub_rn(__fadd_rn(cq, cx), inter);
+    return uni == 0.f ? 0.f : __fsub_rn(1.f, __fdiv_rn(inter, fmaxf(uni, 1.f)));
+  }
+  const float total = __fadd_rn(cq, cx);
+  return total == 0.f ? 0.f : __fsub_rn(1.f, __fdiv_rn(__fmul_rn(2.f, inter), fmaxf(total, 1.f)));
+}
 
 // The selection order of the whole port: the bigger key first, and between
 // equal keys the lower index first (lax.top_k's order in the JAX package).

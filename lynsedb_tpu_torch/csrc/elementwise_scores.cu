@@ -9,19 +9,10 @@
 // Replaces lynsedb_tpu/ops/distance.py _pw_l1 (:199) to _pw_jensen_shannon
 // (:254) inside scan.py flat_topk (:190) and flat_scores (:243); scan.py
 // bf16_flat_topk (:681, the bf16 mode); scan.py rescore_rows (:744, the gather
-// mode). Per element, with the JAX package's policies:
-//   L1           sum |a - b|               Chebyshev  max |a - b|
-//   Canberra     sum (|a| + |b| == 0 ? 0 : |a - b| / max(|a| + |b|, 1e-45))
-//   Bray-Curtis  num = sum |a - b|, den = sum |a + b|;
-//                den == 0 ? (num == 0 ? 0 : inf) : num / max(den, 1e-45)
-//   Wasserstein  sum |cdf_a - cdf_b|, then the zero-mass policy (0 / inf)
-//   Jensen-Shannon  mix = sum (m > 0 ? m log m : 0), m = p_a + p_b;
-//                sqrt(max(ln 2 + (ent_a + ent_b - mix) / 2, 0)), then the
-//                zero-mass policy (0 / sqrt(ln 2))
-//   Haversine    (lon, lat) degrees, IUGG radius; +inf for an invalid row
-// and +inf where either probability row is invalid. IEEE division, logf,
-// sinf, cosf, asinf and sqrtf, and no flush to zero: Canberra's 1e-45 floor is
-// a denormal, which flushed to 0 would turn a finite term into 0/0.
+// mode). The formulas, with the JAX package's policies (zero-mass, invalid
+// and out-of-range rows; IEEE division, logf, sinf, cosf, asinf and sqrtf, no
+// flush to zero: Canberra's 1e-45 floor is a denormal), are metrics.cuh's,
+// shared with the graph kernels.
 //
 // Bound: operations at B >= 16 (2-3 f32 operations an element for the L1
 // family and Wasserstein, with a division for Canberra and a logarithm for
@@ -32,60 +23,15 @@
 // with a per-metric accumulator in place of the FMA; the epilogue applies the
 // metric's policy, orients and masks. The gather mode gives each (query, slot)
 // a warp whose lanes split the dimensions and reduce by shuffles.
-#include <type_traits>
-
-#include "common.cuh"
+#include "metrics.cuh"
 
 namespace {
 
-enum ElemMetric : int {
-  kL1 = 0, kChebyshev = 1, kCanberra = 2, kBrayCurtis = 3, kWasserstein = 4, kJensenShannon = 5,
-  kHaversine = 6
-};
+using lt::Acc;
 
-// Two running values a (query, row) pair: the sum or max, and Bray-Curtis's
-// denominator.
-struct Acc {
-  float a = 0.f, b = 0.f;
-};
-
-template <int M>
-__device__ __forceinline__ void accumulate(Acc& acc, float u, float v) {
-  const float diff = fabsf(u - v);
-  if constexpr (M == kL1 || M == kWasserstein) {
-    acc.a += diff;
-  } else if constexpr (M == kChebyshev) {
-    acc.a = (diff > acc.a || diff != diff) ? diff : acc.a;  // keeps a NaN
-  } else if constexpr (M == kCanberra) {
-    const float den = fabsf(u) + fabsf(v);
-    acc.a += den == 0.f ? 0.f : __fdiv_rn(diff, lt::max_keep_nan(den, 1e-45f));
-  } else if constexpr (M == kBrayCurtis) {
-    acc.a += diff;
-    acc.b += fabsf(u + v);
-  } else if constexpr (M == kJensenShannon) {
-    const float m = u + v;
-    acc.a += m > 0.f ? __fmul_rn(m, logf(m)) : 0.f;
-  }
-}
-
-// Merges a warp's lanes' partial accumulators (the gather mode).
-template <int M>
-__device__ __forceinline__ Acc warp_merge(Acc acc) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float a = __shfl_xor_sync(0xffffffffu, acc.a, o);
-    const float b = __shfl_xor_sync(0xffffffffu, acc.b, o);
-    if constexpr (M == kChebyshev) {
-      acc.a = (a > acc.a || a != a) ? a : acc.a;
-    } else {
-      acc.a += a;
-      acc.b += b;
-    }
-  }
-  return acc;
-}
-
-// Per-row terms of the probability metrics (null for the others).
+// Per-row terms of the probability metrics (null for the others): a row's
+// lt::RowTerm is (mass, 0, inv) for Wasserstein, (ent, mass, inv) for
+// Jensen-Shannon.
 struct RowTerms {
   const float* q_mass;
   const float* q_ent;
@@ -95,33 +41,19 @@ struct RowTerms {
   const uint8_t* x_inv;
 
   template <int M>
+  __device__ __forceinline__ static lt::RowTerm row(const float* mass, const float* ent,
+                                                    const uint8_t* inv, int64_t i) {
+    if constexpr (M == lt::kWasserstein) return lt::RowTerm{mass[i], 0.f, inv[i] != 0};
+    if constexpr (M == lt::kJensenShannon) return lt::RowTerm{ent[i], mass[i], inv[i] != 0};
+    return lt::RowTerm{};
+  }
+
+  template <int M>
   __device__ __forceinline__ float distance(int b, int64_t n, Acc acc) const {
-    if constexpr (M == kBrayCurtis) {
-      return acc.b == 0.f ? (acc.a == 0.f ? 0.f : INFINITY)
-                          : __fdiv_rn(acc.a, lt::max_keep_nan(acc.b, 1e-45f));
-    } else if constexpr (M == kWasserstein || M == kJensenShannon) {
-      float d = acc.a;
-      if constexpr (M == kJensenShannon) {
-        const float ent = __fsub_rn(__fadd_rn(q_ent[b], x_ent[n]), acc.a);
-        const float div = __fadd_rn(0.69314718f, __fmul_rn(0.5f, ent));
-        d = sqrtf(lt::max_keep_nan(div, 0.f));
-      }
-      d = lt::mass_policy(q_mass[b], x_mass[n], M == kWasserstein ? INFINITY : 0.83255461f, d);
-      return (q_inv[b] || x_inv[n]) ? INFINITY : d;
-    } else {
-      return acc.a;
-    }
+    return lt::elem_distance<M>(acc, row<M>(q_mass, q_ent, q_inv, b),
+                                row<M>(x_mass, x_ent, x_inv, n));
   }
 };
-
-template <typename T>
-__device__ __forceinline__ float load_row(const T* x, int64_t i, const float* mean, int d) {
-  if constexpr (std::is_same<T, float>::value) {
-    return __ldg(x + i);
-  } else {
-    return __bfloat162float(x[i]) + mean[d];  // the centred copy, mean added back in f32
-  }
-}
 
 template <int M, typename T, int TQ>
 __global__ void __launch_bounds__(lt::kTileThreads)
@@ -135,31 +67,7 @@ __global__ void __launch_bounds__(lt::kTileThreads)
   const int q0 = blockIdx.y * TQ;
   const int64_t n0 = (int64_t)blockIdx.x * lt::kTile;
   Acc acc[RQ][4];
-  for (int k0 = 0; k0 < D; k0 += lt::kTileK) {
-    for (int e = threadIdx.x; e < lt::kTile * lt::kTileK; e += lt::kTileThreads) {
-      const int r = e / lt::kTileK, c = e % lt::kTileK, d = k0 + c;
-      if (r < TQ) {
-        const int qi = q0 + r;
-        qs[c][r] = (qi < B && d < D) ? __ldg(q + (int64_t)qi * D + d) : 0.f;
-      }
-      const int64_t ni = n0 + r;
-      xs[c][r] = (ni < N && d < D) ? load_row(x, ni * D + d, mean, d) : 0.f;
-    }
-    __syncthreads();
-    const int kk_end = min(lt::kTileK, D - k0);  // padded dimensions add nothing
-    for (int kk = 0; kk < kk_end; ++kk) {
-      float a[RQ], v[4];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = qs[kk][ty * RQ + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = xs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) accumulate<M>(acc[i][j], a[i], v[j]);
-    }
-    __syncthreads();
-  }
+  lt::elem_tile_accumulate<M, TQ>(q, x, mean, B, N, D, q0, n0, qs, xs, acc);
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int b = q0 + ty * RQ + i;
@@ -193,27 +101,11 @@ __global__ void __launch_bounds__(kGatherThreads)
     if (n >= 0) {  // the same for the whole warp
       const float* xr = x + (int64_t)n * D;
       Acc acc;
-      for (int d = lane; d < D; d += 32) accumulate<M>(acc, qrow[d], __ldg(xr + d));
-      key = lt::to_key(terms.distance<M>(b, n, warp_merge<M>(acc)), true, true);
+      for (int d = lane; d < D; d += 32) lt::accumulate<M>(acc, qrow[d], __ldg(xr + d));
+      key = lt::to_key(terms.distance<M>(b, n, lt::warp_merge<M>(acc)), true, true);
     }
     if (lane == 0) keys[(int64_t)b * C + c] = key;
   }
-}
-
-// Haversine over (lon, lat) rows in degrees, in the JAX package's order of
-// f32 operations; +inf where either row is non-finite or |lat| > 90.
-__device__ __forceinline__ float haversine(float qlon, float qlat, float xlon, float xlat) {
-  const bool bad = !isfinite(qlon) || !isfinite(qlat) || !isfinite(xlon) || !isfinite(xlat) ||
-                   fabsf(qlat) > 90.f || fabsf(xlat) > 90.f;
-  if (bad) return INFINITY;
-  const float deg2rad = 0.017453292519943295f, r = 6371008.8f;
-  const float lon1 = __fmul_rn(qlon, deg2rad), lat1 = __fmul_rn(qlat, deg2rad);
-  const float lon2 = __fmul_rn(xlon, deg2rad), lat2 = __fmul_rn(xlat, deg2rad);
-  const float sin_lat = sinf(__fmul_rn(__fsub_rn(lat2, lat1), 0.5f));
-  const float sin_lon = sinf(__fmul_rn(__fsub_rn(lon2, lon1), 0.5f));
-  const float cc = __fmul_rn(__fmul_rn(__fmul_rn(cosf(lat1), cosf(lat2)), sin_lon), sin_lon);
-  const float h = lt::clip_keep_nan(__fadd_rn(__fmul_rn(sin_lat, sin_lat), cc), 0.f, 1.f);
-  return __fmul_rn(__fmul_rn(2.f, r), asinf(sqrtf(h)));
 }
 
 // A thread a (query, row) in tile mode (the row's validity masks it) or a
@@ -231,7 +123,7 @@ __global__ void __launch_bounds__(256)
   if (n >= 0) {
     const float2 xr = __ldg(reinterpret_cast<const float2*>(x) + n);
     const float2 qr = reinterpret_cast<const float2*>(q)[b];
-    key = lt::to_key(haversine(qr.x, qr.y, xr.x, xr.y), true, ids ? true : valid[n] != 0);
+    key = lt::to_key(lt::haversine(qr.x, qr.y, xr.x, xr.y), true, ids ? true : valid[n] != 0);
   }
   keys[(int64_t)b * width + j] = key;
 }
@@ -284,24 +176,27 @@ extern "C" int lt_elementwise_scores(const float* q, const void* x, int x_bf16, 
                                      const float* x_ent, const uint8_t* x_inv,
                                      const uint8_t* valid, const int* ids, int B, int N, int D,
                                      int C, int metric, float* keys, cudaStream_t stream) {
-  if (B < 1 || D < 0 || (ids == nullptr ? N < 1 : C < 1) || B > 65535 ||
-      (x_bf16 && metric > kBrayCurtis))
+  if (B < 1 || D < 0 || (ids == nullptr ? N < 1 : C < 1) || B > 65535 || metric < lt::kL1 ||
+      (x_bf16 && metric > lt::kBrayCurtis))
     return (int)cudaErrorInvalidValue;
   const RowTerms terms{q_mass, q_ent, q_inv, x_mass, x_ent, x_inv};
   const bool bf = x_bf16 != 0;
   switch (metric) {
-    case kL1: return launch<kL1>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
-    case kChebyshev:
-      return launch<kChebyshev>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
-    case kCanberra:
-      return launch<kCanberra>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
-    case kBrayCurtis:
-      return launch<kBrayCurtis>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
-    case kWasserstein:
-      return launch<kWasserstein>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
-    case kJensenShannon:
-      return launch<kJensenShannon>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
-    case kHaversine: {
+    case lt::kL1:
+      return launch<lt::kL1>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
+    case lt::kChebyshev:
+      return launch<lt::kChebyshev>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
+    case lt::kCanberra:
+      return launch<lt::kCanberra>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
+    case lt::kBrayCurtis:
+      return launch<lt::kBrayCurtis>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys, stream);
+    case lt::kWasserstein:
+      return launch<lt::kWasserstein>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys,
+                                      stream);
+    case lt::kJensenShannon:
+      return launch<lt::kJensenShannon>(q, x, bf, mean, B, N, D, C, terms, valid, ids, keys,
+                                        stream);
+    case lt::kHaversine: {
       if (D != 2) return (int)cudaErrorInvalidValue;
       const int64_t width = ids ? C : N;
       const dim3 grid((unsigned)((width + 255) / 256), (unsigned)B);

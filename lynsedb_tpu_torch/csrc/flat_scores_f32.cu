@@ -19,7 +19,7 @@
 // the metric from the dot product and the per-row terms and writes the
 // oriented key, -inf for masked rows and NaN, so K5 can select without another
 // pass. The gather mode gives each (query, slot) a warp, as K11 does.
-#include "common.cuh"
+#include "metrics.cuh"
 
 namespace {
 
@@ -29,13 +29,8 @@ namespace {
 //   IP           dot                     (a, b unused)
 //   L2           max(a_q + a_x - 2 dot, 0)            a = |x|^2
 //   cosine       1 - dot / sqrt(a_q a_x), 1.0 below 1e-30
-//   correlation  1 - clip(dot / max(sqrt(a_q a_x), 1e-30), -1, 1)
-//                a = sum of the centred row's squares, b = the row mean; a
-//                row with a <= 1e-12 is constant: 0 against an equal constant
-//                row, else 1
-//   Hellinger    sqrt(1 - clip(dot / max(sqrt(a_q a_x), 1e-30), 0, 1))
-//                a = mass; the zero-mass policy (0 or 1); +inf if either row
-//                is invalid (a negative or non-finite entry)
+//   correlation, Hellinger: lt::gemm_distance (metrics.cuh), a and b the
+//                transform's per-row terms, inv Hellinger's invalid rows
 struct MetricTerms {
   const float* qa;
   const float* qb;
@@ -45,20 +40,16 @@ struct MetricTerms {
   const uint8_t* xinv;
   int metric;
 
+  __device__ __forceinline__ static lt::RowTerm row(const float* a, const float* b,
+                                                    const uint8_t* inv, int64_t i) {
+    return lt::RowTerm{a[i], b ? b[i] : 0.f, inv ? inv[i] != 0 : false};
+  }
+
   __device__ __forceinline__ float score(int b, int64_t n, float dot) const {
     if (metric == lt::kIP) return dot;
     if (metric == lt::kL2) return lt::clamp_nonneg(qa[b] + xa[n] - 2.f * dot);
     if (metric == lt::kCosine) return lt::cosine_distance(dot, sqrtf(qa[b] * xa[n]));
-    const float aq = qa[b], ax = xa[n];
-    const float ratio = __fdiv_rn(dot, lt::max_keep_nan(__fsqrt_rn(__fmul_rn(aq, ax)), 1e-30f));
-    if (metric == lt::kCorrelation) {
-      const bool cq = aq <= 1e-12f, cx = ax <= 1e-12f;
-      if (cq || cx) return (cq && cx && qb[b] == xb[n]) ? 0.f : 1.f;
-      return __fsub_rn(1.f, lt::clip_keep_nan(ratio, -1.f, 1.f));
-    }
-    if (qinv[b] || xinv[n]) return INFINITY;  // Hellinger
-    const float bc = lt::clip_keep_nan(ratio, 0.f, 1.f);
-    return lt::mass_policy(aq, ax, 1.f, __fsqrt_rn(__fsub_rn(1.f, bc)));
+    return lt::gemm_distance(metric, dot, row(qa, qb, qinv, b), row(xa, xb, xinv, n));
   }
 };
 

@@ -6,10 +6,9 @@ Canberra/Bray-Curtis exact-only; IndexBuildOptions :510-648 — unknown keys
 rejected, inapplicable keys filtered per family; engine aux quantized modes
 FLAT-*-PQ/RABITQ/POLARVEC engine.rs:4576-4595).
 
-Index families (FLAT serves all 16 metrics, every other family IP/L2/cosine;
-HNSW under a domain metric raises NotImplementedError naming ROADMAP K6g, the
-graph's generic-metric keys, and IVF under Hamming or Jaccard naming ROADMAP
-K16b, the binary form of the block scan):
+Index families (FLAT serves all 16 metrics; IVF also Hamming and Jaccard; HNSW
+also the domain metrics but Canberra and Bray-Curtis; SPANN and DiskANN
+IP/L2/cosine):
   FLAT    — no index object; the engine scans the device corpus directly.
   IVF     — k-means partitions, probe top-nprobe partitions on device.
   SPANN   — IVF with boundary replicas.
@@ -216,22 +215,9 @@ def _index_dir(coll) -> Path:
 _AUX_QUANTIZERS = ("sq8", "pq", "rabitq", "polarvec")
 
 
-def _check_ported(mode: ResolvedMode) -> None:
-    item = None
-    if mode.family == "IVF" and mode.metric.is_binary:
-        item = "K16b"  # hamming / jaccard IVF needs a binary form of the block scan
-    if mode.family == "HNSW" and mode.metric not in _ANN_METRICS:
-        item = "K6g"  # HNSW's domain metrics need the graph's generic-metric keys
-    if item is not None:
-        raise NotImplementedError(
-            f"index mode {mode.canonical} is not ported to the CUDA engine yet (ROADMAP {item})"
-        )
-
-
 def build_index(coll, index_mode: str, options: dict) -> None:
     mode = resolve_index_mode(index_mode, coll.dim)
     opts = IndexBuildOptions.from_kwargs(options).filtered_for(mode.family)
-    _check_ported(mode)
 
     # clear any previous index artifacts
     import shutil
@@ -283,7 +269,6 @@ def load_index(coll):
         return None, None
     meta = json.loads(meta_path.read_text())
     mode = resolve_index_mode(meta["index_mode"], coll.dim)
-    _check_ported(mode)
     opts = IndexBuildOptions(**meta.get("options", {}))
     if mode.family == "FLAT" and mode.quantizer in _AUX_QUANTIZERS:
         from .quantized import load_aux_index

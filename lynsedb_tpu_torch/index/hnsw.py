@@ -8,8 +8,13 @@ are geometric subsamples wired by exact kNN (K19 with L = m). A search
 takes its entry points from one exact scan of the finest upper layer (K18 =
 K1 + K5; for IP also a sampled entry scan and the top-norm rows), walks
 layer 0 with K17 guided by the resident centred-bf16 copy, and rescores the
-pool exactly from the host mirror. Rows added after the build are linked
-into layer 0 in place at the next commit.
+pool exactly from the host mirror. Under a domain metric (HNSW-L1,
+-CHEBYSHEV, -CORRELATION, -HELLINGER, -WASSERSTEIN, -JENSEN-SHANNON,
+-HAVERSINE) every stage reads the metric's transform: K19's metric mode and
+K20's pair tables build, the entry scan is K6a or K6c + K5, and K17's metric
+tier walks the corpus's staged transform with exact keys, which are the
+distances returned (the JAX package's f32 tier: no rescore). Rows added
+after the build are linked into layer 0 in place at the next commit.
 
 The files are the JAX package's (``index/hnsw.npz``, ``index/hnsw_meta.json``),
 so each package opens the other's index.
@@ -29,12 +34,15 @@ from ..metrics import Metric
 from ..ops import distance as D
 from ..ops.graph import (
     METRIC_KIND,
+    MetricRows,
     beam_batch_cap,
+    beam_search,
     beam_search_bf16,
     build_vamana,
     entry_sample,
     entry_scan,
     exact_knn_graph,
+    fetch_keys_pool_scanned,
     fetch_pool_scanned,
     finalize_ranked,
     insert_points,
@@ -173,11 +181,15 @@ class HNSWIndex:
     # ── search ───────────────────────────────────────────────────────────
 
     def _device(self, corpus):
-        """Layer 0 on the card, and the finest upper layer's ids and corpus
-        transform (its rows from the host mirror) for the entry scan."""
+        """Layer 0 on the card, the finest upper layer's ids and corpus
+        transform (its rows from the host mirror) for the entry scan, and
+        under a domain metric the MetricRows of the corpus's staged
+        transform that the walk reads."""
         if self._dev is None:
             self._dev = {"layer0": torch.from_numpy(np.ascontiguousarray(self.layer0_np))
                          .to(self.device)}
+            if self.metric not in METRIC_KIND:
+                self._dev["space"] = MetricRows.of(corpus.transform(self.metric), self.metric)
             if self.upper:
                 nodes = self.upper[-1]["nodes"]
                 self._dev["upper_ids"] = torch.from_numpy(nodes.astype(np.int32)).to(self.device)
@@ -229,15 +241,23 @@ class HNSWIndex:
             ef = ef * 5 // 4  # +25% for raw MIPS (as DiskANN's IP oversample)
         q2 = np.ascontiguousarray(np.atleast_2d(q), dtype=np.float32)
         live = corpus.valid_mask(handle)[: self.built_rows]
-        aux = corpus.bf16_aux()
 
         def dispatch(qd: torch.Tensor, q_np: np.ndarray):
-            """The bf16-guided walk of layer 0 over a (<= cap)-query part, then
-            the exact host rescore of the pool: (ids, dists, scanned)."""
+            """The walk of layer 0 over a (<= cap)-query part: (ids, dists,
+            scanned). IP, L2, cosine: bf16-guided, then the exact host
+            rescore of the pool; a domain metric: exact keys over the
+            metric's transform, the best k of the pool."""
+            starts = self._starts(qd, corpus, live)
+            if "space" in dev:
+                keys, ids, scanned = beam_search(qd, dev["space"], dev["layer0"], starts, live,
+                                                 metric=metric, beam=ef, max_steps=ef * 2, k=k)
+                keys, ids, n_sc = fetch_keys_pool_scanned(keys, ids, scanned)
+                return ids, -keys, n_sc  # every domain metric is ascending
+            aux = corpus.bf16_aux()
             _, pool, scanned = beam_search_bf16(
                 qd, corpus.data16, aux["mean"], aux["xm"], aux["xc_sq"], aux["xsq_true"],
-                dev["layer0"], self._starts(qd, corpus, live), live,
-                metric_kind=METRIC_KIND[metric], beam=ef, max_steps=ef * 2)
+                dev["layer0"], starts, live, metric_kind=METRIC_KIND[metric], beam=ef,
+                max_steps=ef * 2)
             ids, n_sc = fetch_pool_scanned(pool, scanned)
             return ids, corpus.rescore(q_np, ids, metric), n_sc
 

@@ -9,6 +9,12 @@ csrc/ivf_scan_blocks.cu) and takes the top ``fetch`` keys (K5). Rows added
 after the build sit in an exactly scanned tail (the corpus's flat search)
 until the next commit posts them to their nearest centroids.
 
+IVF-HAMMING and IVF-JACCARD train k-means (L2) on the rows thresholded at 0.5
+as f32 {0, 1} rows, probe the centroids thresholded the same way (K6b
+``binary_scores``, then K5) and scan blocks of bit-packed rows with their bit
+counts (:func:`ivf_binary_blocks`, K16b); new rows post to their nearest float
+centroid by L2, as the JAX package does.
+
 The files are the JAX package's (``index/ivf.npz``, ``index/ivf_meta.json``)
 byte for byte, so each package opens the other's index.
 """
@@ -25,7 +31,7 @@ from ..metrics import Metric
 from ..ops import _cuda, scan
 from ..ops import distance as D
 from ..ops.kmeans import train_kmeans
-from ..ops.scan import _handle, _kernel_metric, _to_key, flat_scores_f32
+from ..ops.scan import _handle, _kernel_metric, _to_key
 from ..ops.topk import topk_select, unorient
 from ..storage.vector_store import write_atomic
 
@@ -42,22 +48,25 @@ TOP_R_CHUNK = 65536
 
 def ivf_scan_blocks_plain(q, qsq, top_c, cluster_blocks, blocks, block_sq, block_orig, live,
                           metric: Metric) -> torch.Tensor:
-    """Plain version of :func:`ivf_scan_blocks`, one query at a time (the
-    JAX kernel's lax.map)."""
-    b, d = q.shape
-    bs = blocks.shape[1]
+    """Plain version of :func:`ivf_scan_blocks` and, under a binary metric,
+    of :func:`ivf_binary_blocks` (``q`` and ``blocks`` bit-packed words,
+    ``qsq`` and ``block_sq`` their bit counts), one query at a time (the JAX
+    kernel's lax.map)."""
+    b = q.shape[0]
+    bs, w = blocks.shape[1:]
     slot_blk = cluster_blocks[top_c.long()].reshape(b, -1)
+    lead, term = ("bits", "cnt") if metric.is_binary else ("x", "sq")
     out = []
     for i in range(b):
         safe = slot_blk[i].clamp_min(0).long()
         orig = torch.where((slot_blk[i] >= 0)[:, None], block_orig.view(-1, bs)[safe], -1)
         orig = orig.reshape(-1)
         valid = (orig >= 0) & live[orig.clamp_min(0).long()]
-        ct = {"x": blocks[safe].reshape(-1, d)}
-        qt = {"x": q[i : i + 1]}
+        ct = {lead: blocks[safe].reshape(-1, w)}
+        qt = {lead: q[i : i + 1]}
         if metric is not Metric.IP:
-            ct["sq"] = block_sq.view(-1, bs)[safe].reshape(-1)
-            qt["sq"] = qsq[i : i + 1]
+            ct[term] = block_sq.view(-1, bs)[safe].reshape(-1)
+            qt[term] = qsq[i : i + 1]
         out.append(_to_key(D.pairwise(qt, ct, metric), metric.ascending, valid))
     return torch.cat(out)
 
@@ -103,13 +112,48 @@ def ivf_scan_blocks(q: torch.Tensor, qsq: Optional[torch.Tensor], top_c: torch.T
 ivf_scan_blocks.launches = 0
 
 
+def ivf_binary_blocks(q: torch.Tensor, qcnt: torch.Tensor, top_c: torch.Tensor,
+                      cluster_blocks: torch.Tensor, blocks: torch.Tensor, block_cnt: torch.Tensor,
+                      block_orig: torch.Tensor, live: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """K16b: :func:`ivf_scan_blocks` under Hamming or Jaccard, over blocks of
+    bit-packed rows: ``q`` (B, W) int32 words of the thresholded queries,
+    ``qcnt`` (B,) their bit counts, ``blocks`` (n_blocks, BLOCK_SIZE, W)
+    int32 words and ``block_cnt`` (n_blocks * BLOCK_SIZE,) bit counts. Keys
+    as ivf_scan_blocks', equal to the bit to the plain version's."""
+    if q.device.type == "cpu":
+        return ivf_scan_blocks_plain(q, qcnt, top_c, cluster_blocks, blocks, block_cnt,
+                                     block_orig, live, metric)
+    if metric not in (Metric.HAMMING, Metric.JACCARD):
+        raise ValueError(f"ivf_binary_blocks serves Hamming and Jaccard, not {metric.value}")
+    _cuda.require_cuda("ivf_binary_blocks", q, qcnt, top_c, cluster_blocks, blocks, block_cnt,
+                       block_orig, live)
+    b, w = q.shape
+    nprobe = top_c.shape[1]
+    max_bpc = cluster_blocks.shape[1]
+    if (q.dtype != torch.int32 or blocks.dtype != torch.int32
+            or blocks.shape[1:] != (BLOCK_SIZE, w) or qcnt.shape != (b,)
+            or top_c.dtype != torch.int32 or cluster_blocks.dtype != torch.int32
+            or block_orig.dtype != torch.int32 or live.dtype != torch.bool):
+        raise ValueError("ivf_binary_blocks: unexpected dtypes or shapes")
+    keys = torch.empty((b, nprobe * max_bpc * BLOCK_SIZE), dtype=torch.float32, device=q.device)
+    _cuda.call("lt_ivf_binary_blocks", q.data_ptr(), qcnt.data_ptr(), top_c.data_ptr(), b, nprobe,
+               cluster_blocks.data_ptr(), max_bpc, blocks.data_ptr(), block_cnt.data_ptr(),
+               block_orig.data_ptr(), live.data_ptr(), w, scan._BINARY_CODE[metric],
+               keys.data_ptr(), _cuda.stream_of(q))
+    ivf_binary_blocks.launches += 1
+    return keys
+
+
+ivf_binary_blocks.launches = 0
+
+
 def _top_clusters(q: torch.Tensor, ct: dict, metric: Metric, r: int) -> torch.Tensor:
-    """(B, r) int32: each row's r best centroids (K1 scores, K5 selects; the
-    lower index wins ties, as lax.top_k does)."""
+    """(B, r) int32: each row's r best centroids (the metric's distance
+    kernel over the centroids' transform: K1, or K6b for the binary metrics;
+    K5 selects, the lower index winning ties, as lax.top_k does)."""
     qt = D.query_transform(q, metric)
-    valid = torch.ones(ct["x"].shape[0], dtype=torch.bool, device=q.device)
-    keys = flat_scores_f32(qt["x"], ct["x"], qt.get("sq"), ct.get("sq"), valid, metric)
-    return topk_select(keys, r)[1]
+    valid = torch.ones(next(iter(ct.values())).shape[0], dtype=torch.bool, device=q.device)
+    return topk_select(scan.metric_keys(qt, ct, valid, metric), r)[1]
 
 
 class IVFIndex:
@@ -144,6 +188,8 @@ class IVFIndex:
         n_clusters = max(1, min(n_clusters, n))
         normalize = mode.metric is Metric.COSINE
         assign_ip = mode.metric is Metric.IP
+        if mode.metric.is_binary:  # k-means over the thresholded {0, 1} rows
+            data = (data > 0.5).astype(np.float32)
         if mode.family == "SPANN":
             replicas = opts.replica_count or DEFAULT_REPLICAS
         elif assign_ip:
@@ -240,10 +286,12 @@ class IVFIndex:
         return block_orig, cluster_blocks
 
     def device_bytes(self, n_blocks: int, dim: int) -> int:
-        """Device memory of the block copy (rows, norms, ids) and of one
-        search's scratch (the key matrix within SCORE_BUDGET and K5's two
-        buffers beside it)."""
-        return n_blocks * BLOCK_SIZE * (dim * 4 + 8) + scan.SCORE_BUDGET * (4 + 2 * 8)
+        """Device memory of the block copy (rows, or their packed words under
+        a binary metric; norms or bit counts; ids) and of one search's
+        scratch (the key matrix within SCORE_BUDGET and K5's two buffers
+        beside it)."""
+        row = D.words_for(dim) * 4 if self.metric.is_binary else dim * 4
+        return n_blocks * BLOCK_SIZE * (row + 8) + scan.SCORE_BUDGET * (4 + 2 * 8)
 
     def _check_fits(self, n_blocks: int, dim: int) -> None:
         if self.device.type != "cuda":
@@ -262,22 +310,29 @@ class IVFIndex:
         corpus = coll.corpus()  # ensures device rows are current
         block_orig, cluster_blocks = self._layout()
         self._check_fits(block_orig.shape[0], corpus.dim)
-        # gather the rows on the device in block order; padding rows are zero
         flat = torch.from_numpy(block_orig.reshape(-1)).to(self.device)
-        blocks = corpus._data[flat.clamp_min(0).long()]
-        blocks.mul_((flat >= 0)[:, None])
-        dev = {
-            "blocks": blocks.view(-1, BLOCK_SIZE, corpus.dim),
-            "block_orig": flat,
-            "cluster_blocks": torch.from_numpy(cluster_blocks).to(self.device),
-            "centroids": D.corpus_transform(torch.from_numpy(self.centroids_np).to(self.device),
-                                            self.metric),
-        }
-        # the rows' corpus_transform terms, once, as D.pairwise reads them
-        dev["block_sq"] = None if self.metric is Metric.IP else torch.cat([
-            D.corpus_transform(blocks[lo : lo + scan.STAGE_ROWS], self.metric)["sq"]
-            for lo in range(0, blocks.shape[0], scan.STAGE_ROWS)
-        ])
+        pad = (flat >= 0)[:, None]
+        centroids = torch.from_numpy(self.centroids_np).to(self.device)
+        dev = {"block_orig": flat,
+               "cluster_blocks": torch.from_numpy(cluster_blocks).to(self.device),
+               "centroids": D.corpus_transform(centroids, self.metric)}
+        if self.metric.is_binary:
+            # the rows' packed words and bit counts in block order, from the
+            # corpus's staged transform; padding rows are zero
+            ct = corpus.transform(self.metric)
+            dev["blocks"] = (ct["bits"][flat.clamp_min(0).long()] * pad).view(
+                -1, BLOCK_SIZE, ct["bits"].shape[1])
+            dev["block_sq"] = ct["cnt"][flat.clamp_min(0).long()] * pad[:, 0]
+        else:
+            # gather the rows on the device in block order; padding rows are zero
+            blocks = corpus._data[flat.clamp_min(0).long()]
+            blocks.mul_(pad)
+            dev["blocks"] = blocks.view(-1, BLOCK_SIZE, corpus.dim)
+            # the rows' corpus_transform terms, once, as D.pairwise reads them
+            dev["block_sq"] = None if self.metric is Metric.IP else torch.cat([
+                D.corpus_transform(blocks[lo : lo + scan.STAGE_ROWS], self.metric)["sq"]
+                for lo in range(0, blocks.shape[0], scan.STAGE_ROWS)
+            ])
         self._dev = dev
         return dev
 
@@ -288,9 +343,14 @@ class IVFIndex:
         on the host, -inf/+inf and any id where nothing live was found."""
         metric = self.metric
         top_c = _top_clusters(qd, dev["centroids"], metric, nprobe)
-        qsq = None if metric is Metric.IP else (qd * qd).sum(-1)
-        keys = ivf_scan_blocks(qd, qsq, top_c, dev["cluster_blocks"], dev["blocks"],
-                               dev["block_sq"], dev["block_orig"], live, metric)
+        scan_args = (top_c, dev["cluster_blocks"], dev["blocks"], dev["block_sq"],
+                     dev["block_orig"], live, metric)
+        if metric.is_binary:  # the queries thresholded at 0.5 and bit-packed
+            qt = D.query_transform(qd, metric)
+            keys = ivf_binary_blocks(qt["bits"], qt["cnt"], *scan_args)
+        else:
+            qsq = None if metric is Metric.IP else (qd * qd).sum(-1)
+            keys = ivf_scan_blocks(qd, qsq, *scan_args)
         top, col = topk_select(keys, min(fetch, keys.shape[1]))
         del keys
         # each column -> its slot's block -> the row's original id
@@ -394,7 +454,9 @@ class IVFIndex:
             return
         corpus = coll.corpus()
         new_rows = corpus.host_rows(np.arange(self.built_rows, n))
-        if self.metric is Metric.COSINE:
+        if self.metric.is_binary:  # posted by L2 to the float centroids
+            new_rows = (new_rows > 0.5).astype(np.float32)
+        elif self.metric is Metric.COSINE:
             norms = np.linalg.norm(new_rows, axis=1, keepdims=True)
             new_rows = new_rows / np.maximum(norms, 1e-30)
         r = self.replica_count if self.replica_count > 1 else 1

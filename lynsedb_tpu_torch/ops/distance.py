@@ -164,25 +164,13 @@ def _pw_cosine(qt, ct):
 
 
 def _pw_correlation(qt, ct):
-    cov = qt["xc"] @ ct["xc"].T
-    var_q, var_x = qt["var"][:, None], ct["var"][None, :]
-    denom = torch.sqrt(var_q * var_x)
-    const_pair = (var_q <= 1e-12) | (var_x <= 1e-12)
-    # constant-row policy: two equal constant rows -> 0, otherwise 1
-    same = (var_q <= 1e-12) & (var_x <= 1e-12) & (qt["mean"][:, None] == ct["mean"][None, :])
-    r = torch.clamp(cov / torch.clamp_min(denom, 1e-30), -1.0, 1.0)
-    return torch.where(const_pair, torch.where(same, 0.0, 1.0), 1.0 - r)
+    m = Metric.CORRELATION
+    return finish(m, qt["xc"] @ ct["xc"].T, terms(qt, m, 1), terms(ct, m, 0))
 
 
 def _pw_hellinger(qt, ct):
-    bc_raw = qt["s"] @ ct["s"].T
-    mass_q, mass_x = qt["mass"][:, None], ct["mass"][None, :]
-    denom = torch.sqrt(mass_q * mass_x)
-    bc = torch.clamp(bc_raw / torch.clamp_min(denom, 1e-30), 0.0, 1.0)
-    d = torch.sqrt(1.0 - bc)
-    zero_q, zero_x = mass_q == 0.0, mass_x == 0.0
-    d = torch.where(zero_q | zero_x, torch.where(zero_q & zero_x, 0.0, 1.0), d)
-    return torch.where(qt["invalid"][:, None] | ct["invalid"][None, :], INF, d)
+    m = Metric.HELLINGER
+    return finish(m, qt["s"] @ ct["s"].T, terms(qt, m, 1), terms(ct, m, 0))
 
 
 def _binary_parts(qt, ct):
@@ -236,40 +224,92 @@ def _pw_bray_curtis(qt, ct):
                        num / torch.clamp_min(den, 1e-45))
 
 
-def _pw_haversine(qt, ct):
-    # [longitude_deg, latitude_deg] rows, IUGG mean Earth radius in meters;
-    # invalid rows (non-finite or |lat| > 90) -> +inf
+def haversine(lon1, lat1, lon2, lat2) -> torch.Tensor:
+    """Haversine distances in meters between (lon, lat) points in degrees
+    (broadcast tensors), IUGG mean Earth radius; +inf where a point has a
+    non-finite coordinate or |lat| > 90."""
     r = 6_371_008.8
     deg2rad = math.pi / 180.0
-    q, x = qt["x"], ct["x"]
-    lon1, lat1 = q[:, 0:1] * deg2rad, q[:, 1:2] * deg2rad
-    lon2, lat2 = x[None, :, 0] * deg2rad, x[None, :, 1] * deg2rad
-    sin_lat = torch.sin((lat2 - lat1) * 0.5)
-    sin_lon = torch.sin((lon2 - lon1) * 0.5)
-    h = torch.clamp(sin_lat * sin_lat + torch.cos(lat1) * torch.cos(lat2) * sin_lon * sin_lon,
-                    0.0, 1.0)
+    l1, p1, l2, p2 = lon1 * deg2rad, lat1 * deg2rad, lon2 * deg2rad, lat2 * deg2rad
+    sin_lat = torch.sin((p2 - p1) * 0.5)
+    sin_lon = torch.sin((l2 - l1) * 0.5)
+    h = torch.clamp(sin_lat * sin_lat + torch.cos(p1) * torch.cos(p2) * sin_lon * sin_lon, 0.0, 1.0)
     d = 2.0 * r * torch.asin(torch.sqrt(h))
-    bad_q = (~torch.isfinite(q)).any(dim=-1) | (q[:, 1].abs() > 90.0)
-    bad_x = (~torch.isfinite(x)).any(dim=-1) | (x[:, 1].abs() > 90.0)
-    return torch.where(bad_q[:, None] | bad_x[None, :], INF, d)
+    bad = (~torch.isfinite(lon1) | ~torch.isfinite(lat1) | (lat1.abs() > 90.0)
+           | ~torch.isfinite(lon2) | ~torch.isfinite(lat2) | (lat2.abs() > 90.0))
+    return torch.where(bad, INF, d)
 
 
-def _mass_policy(d, qt, ct, zero_value):
-    zero_q, zero_x = qt["mass"][:, None] == 0.0, ct["mass"][None, :] == 0.0
-    d = torch.where(zero_q | zero_x, torch.where(zero_q & zero_x, 0.0, zero_value), d)
-    return torch.where(qt["invalid"][:, None] | ct["invalid"][None, :], INF, d)
+def _pw_haversine(qt, ct):
+    q, x = qt["x"], ct["x"]
+    return haversine(q[:, 0:1], q[:, 1:2], x[None, :, 0], x[None, :, 1])
 
 
 def _pw_wasserstein(qt, ct):
-    return _mass_policy(_absdiff(qt, ct, "cdf").sum(dim=-1), qt, ct, INF)
+    m = Metric.WASSERSTEIN
+    return finish(m, _absdiff(qt, ct, "cdf").sum(dim=-1), terms(qt, m, 1), terms(ct, m, 0))
 
 
 def _pw_jensen_shannon(qt, ct):
     m = qt["p"][:, None, :] + ct["p"][None, :, :]
     pos = m > 0.0
     mix = torch.where(pos, m * torch.log(torch.where(pos, m, 1.0)), 0.0).sum(dim=-1)
-    div = _LN2 + 0.5 * (qt["ent"][:, None] + ct["ent"][None, :] - mix)
-    return _mass_policy(torch.sqrt(torch.clamp_min(div, 0.0)), qt, ct, _SQRT_LN2)
+    js = Metric.JENSEN_SHANNON
+    return finish(js, mix, terms(qt, js, 1), terms(ct, js, 0))
+
+
+# ── the shared epilogues ─────────────────────────────────────────────────
+
+# The lead leaf of a metric's transform (the rows its accumulation reads) and
+# its per-row terms (a, b, invalid), as the kernels read them
+# (csrc/metrics.cuh): a pair's distance is ``finish`` of one accumulated value
+# over the two rows' lead values (a dot product, a sum or a max) and the two
+# rows' terms. The metrics not listed lead with "x" and have no terms.
+LEAD = {Metric.CORRELATION: "xc", Metric.HELLINGER: "s", Metric.WASSERSTEIN: "cdf",
+        Metric.JENSEN_SHANNON: "p"}
+TERMS = {Metric.CORRELATION: ("var", "mean", None), Metric.HELLINGER: ("mass", None, "invalid"),
+         Metric.WASSERSTEIN: ("mass", None, "invalid"),
+         Metric.JENSEN_SHANNON: ("ent", "mass", "invalid")}
+
+
+def terms(t: dict, metric: Metric, axis: int | None = None) -> tuple:
+    """A transform's per-row terms (a, b, invalid) of ``metric`` (None where
+    it has none), unsqueezed at ``axis`` when given."""
+    out = tuple(None if name is None else t[name] for name in TERMS.get(metric, (None,) * 3))
+    return out if axis is None else tuple(None if v is None else v.unsqueeze(axis) for v in out)
+
+
+def _mass_policy(d, mass_q, inv_q, mass_x, inv_x, zero_value):
+    zero_q, zero_x = mass_q == 0.0, mass_x == 0.0
+    d = torch.where(zero_q | zero_x, torch.where(zero_q & zero_x, 0.0, zero_value), d)
+    return torch.where(inv_q | inv_x, INF, d)
+
+
+def finish(metric: Metric, acc: torch.Tensor, q: tuple, x: tuple) -> torch.Tensor:
+    """The distance of ``metric`` from a pair's accumulated value ``acc`` (the
+    dot product of the lead rows for correlation and Hellinger; the sum or
+    max of the elementwise terms otherwise) and the two rows' terms ``q`` and
+    ``x`` (a, b, invalid), broadcast against ``acc``: the plain form of the
+    kernels' epilogues, with the JAX package's policies for constant,
+    zero-mass and invalid rows."""
+    (qa, qb, qi), (xa, xb, xi) = q, x
+    if metric is Metric.CORRELATION:  # a the centred sum of squares, b the mean
+        denom = torch.sqrt(qa * xa)
+        const_pair = (qa <= 1e-12) | (xa <= 1e-12)
+        # constant-row policy: two equal constant rows -> 0, otherwise 1
+        same = (qa <= 1e-12) & (xa <= 1e-12) & (qb == xb)
+        r = torch.clamp(acc / torch.clamp_min(denom, 1e-30), -1.0, 1.0)
+        return torch.where(const_pair, torch.where(same, 0.0, 1.0), 1.0 - r)
+    if metric is Metric.HELLINGER:  # a the mass
+        denom = torch.sqrt(qa * xa)
+        bc = torch.clamp(acc / torch.clamp_min(denom, 1e-30), 0.0, 1.0)
+        return _mass_policy(torch.sqrt(1.0 - bc), qa, qi, xa, xi, 1.0)
+    if metric is Metric.WASSERSTEIN:  # a the mass
+        return _mass_policy(acc, qa, qi, xa, xi, INF)
+    if metric is Metric.JENSEN_SHANNON:  # a the entropy sum, b the mass
+        div = _LN2 + 0.5 * (qa + xa - acc)
+        return _mass_policy(torch.sqrt(torch.clamp_min(div, 0.0)), qb, qi, xb, xi, _SQRT_LN2)
+    return acc
 
 
 _PAIRWISE = {

@@ -17,16 +17,26 @@ device work, each beside its plain PyTorch version:
     candidate rows, forms the point and pair keys in f32 and runs the alpha
     prune; a second mode writes only the keys for the host prune.
 
-K18, the entry scan over a fixed node sample, is K1 ``flat_scores_f32`` and
-K5 ``topk_select``. Keys are oriented: bigger is better, whatever the metric.
+K18, the entry scan over a fixed node sample, is the metric's distance kernel
+(K1 for IP, L2 and cosine; K6a or K6c under a domain metric) and K5
+``topk_select``. Keys are oriented: bigger is better, whatever the metric.
+
+Under the HNSW family's domain metrics (correlation, Hellinger, L1,
+Chebyshev, Wasserstein, Jensen-Shannon, Haversine; the JAX package's
+``_keyed_pairwise``) the three kernels read a :class:`MetricRows`: the lead
+rows of the metric's corpus transform and their per-row terms, with the
+formulas of csrc/metrics.cuh (K17's metric tier, K19's metric mode, K20's
+pair tables). The transform is row-wise, so a key formed from a corpus
+transform's rows is the key of the JAX package's per-gathered-row transform.
 The search glue both graph indexes share (batch cap, entry sample, exact
 tail, final ranking) closes the module.
 
-Bitwise contract of K17 and K20 with their plain versions: every dot product
-is a chain of separately rounded f32 multiplies and adds in a fixed order (a
-lane-strided warp sum for K17, a sequential sum over the dimensions for K20),
-and the plain versions compute the same chains with elementwise torch ops, so
-kernel and plain agree exactly on every key, and so on every walk and prune.
+Bitwise contract of K17 and K20 with their plain versions: every dot product,
+sum or max is a chain of separately rounded f32 operations in a fixed order (a
+lane-strided warp reduction for K17, a sequential one over the dimensions for
+K20), and the plain versions compute the same chains with elementwise torch
+ops, so kernel and plain agree exactly on every key, and so on every walk and
+prune.
 """
 
 from __future__ import annotations
@@ -40,12 +50,19 @@ import torch
 from ..metrics import Metric
 from . import _cuda
 from . import distance as D
-from .scan import _kernel_metric, flat_scores_f32
+from .scan import _ELEM_CODE, _GEMM_CODE, metric_keys, metric_keys_plain
 from .topk import topk_select
 
 NEG_INF = float("-inf")
-_KIND_CODE = {"ip": 0, "l2": 1, "cos": 2}
-_TIERS = {"f32": 0, "bf16": 1, "sq8": 2, "pq": 3}
+# The metrics the HNSW family serves beside IP, L2 and cosine (the reference
+# keeps Canberra and Bray-Curtis exact-only, src/index/mod.rs:426-497).
+DOMAIN_METRICS = (Metric.CORRELATION, Metric.HELLINGER, Metric.L1, Metric.CHEBYSHEV,
+                  Metric.WASSERSTEIN, Metric.JENSEN_SHANNON, Metric.HAVERSINE)
+_CODES = {**_GEMM_CODE, **_ELEM_CODE}
+# guidance kind -> K17's metric code: IP, L2, cosine, then the domain metrics
+# (the metric tier; csrc/common.cuh lt::Metric)
+_KIND_CODE = {"ip": 0, "l2": 1, "cos": 2, **{m.value: _CODES[m] for m in DOMAIN_METRICS}}
+_TIERS = {"f32": 0, "bf16": 1, "sq8": 2, "pq": 3, "metric": 4}
 # the block's shared memory (H100: 227 KB); a larger pool raises
 SMEM_LIMIT = 232_448
 # fresh-candidate slots a K17 block scores per merge (also its start chunk)
@@ -55,8 +72,78 @@ _FRESH_MIN = 256
 TOPL_STRIPE = 8192
 TOPL_MAX_L = 256
 # K19 epilogues: -(|q|^2 + |x|^2 - 2 q.x) unclamped (_topl_scan's L2), the
-# dot product, and the oriented pairwise keys of L2 (clamped) and cosine
-TOPL_L2_RAW, TOPL_DOT, TOPL_L2, TOPL_COS = 0, 1, 2, 3
+# dot product, the oriented pairwise keys of L2 (clamped) and cosine, and
+# -distance under a domain metric over MetricRows
+TOPL_L2_RAW, TOPL_DOT, TOPL_L2, TOPL_COS, TOPL_METRIC = 0, 1, 2, 3, 4
+
+
+def graph_metric_code(name: str, metric: Metric) -> int:
+    """The metric code of a graph kernel (K17, K19, K20), which serves IP,
+    L2, cosine and the HNSW family's domain metrics."""
+    if metric not in _METRIC_KIND and metric not in DOMAIN_METRICS:
+        raise ValueError(f"{name} serves IP, L2, cosine and the graph indexes' domain metrics "
+                         f"({', '.join(m.value for m in DOMAIN_METRICS)}), not {metric.value}")
+    return _CODES[metric]
+
+
+class MetricRows:
+    """What the graph kernels read under a domain metric: the lead rows of a
+    corpus transform (N, W) f32 (ops/distance.py LEAD) and their per-row
+    terms (3, N) f32 — a, b and the invalid flag as 1.0 or 0.0 — or None for
+    L1, Chebyshev and Haversine, which have none. Indexing takes rows (and
+    their terms) as a tensor would."""
+
+    def __init__(self, metric: Metric, rows: torch.Tensor, terms: Optional[torch.Tensor]):
+        self.metric, self.rows, self.terms = metric, rows, terms
+
+    @classmethod
+    def of(cls, t: dict, metric: Metric) -> "MetricRows":
+        rows = t[D.LEAD.get(metric, "x")].to(torch.float32).contiguous()
+        a, b, inv = D.terms(t, metric)
+        if a is None:
+            return cls(metric, rows, None)
+        zero = torch.zeros_like(a, dtype=torch.float32)
+        parts = [a, zero if b is None else b, zero if inv is None else inv]
+        return cls(metric, rows, torch.stack([v.to(torch.float32) for v in parts]).contiguous())
+
+    def __len__(self) -> int:
+        return self.rows.shape[0]
+
+    def __getitem__(self, idx) -> "MetricRows":
+        return MetricRows(self.metric, self.rows[idx].contiguous(),
+                          None if self.terms is None else self.terms[:, idx].contiguous())
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+    def side(self, axis: Optional[int] = None) -> tuple:
+        """(a, b, invalid) for D.finish, unsqueezed at ``axis`` when given."""
+        if self.terms is None:
+            return (None, None, None)
+        out = (self.terms[0], self.terms[1], self.terms[2] != 0.0)
+        return out if axis is None else tuple(v.unsqueeze(axis) for v in out)
+
+    def transform(self) -> dict:
+        """The transform dict these rows came from (the plain versions score
+        it with ops/distance.py)."""
+        t = {D.LEAD.get(self.metric, "x"): self.rows}
+        names = D.TERMS.get(self.metric, ())
+        for name, v in zip(names, self.side()):
+            if name is not None:
+                t[name] = v
+        return t
+
+
+def graph_space(x, metric: Metric):
+    """The rows the graph kernels read under ``metric``: f32 rows under IP,
+    L2 and cosine; a :class:`MetricRows` under a domain metric (raw rows are
+    transformed, MetricRows pass through)."""
+    if metric in _METRIC_KIND:
+        return x.to(torch.float32).contiguous()
+    if isinstance(x, MetricRows):
+        return x
+    return MetricRows.of(D.corpus_transform(x.to(torch.float32), metric), metric)
 
 
 def _resolve_expand(expand: int | None, beam: int) -> int:
@@ -139,9 +226,45 @@ def _pairwise_key(ip, sa, sb, code: int) -> torch.Tensor:
     return -torch.where(denom < 1e-30, 1.0, 1.0 - ip / torch.clamp_min(denom, 1e-30))
 
 
+_CODE_METRIC = {code: m for m, code in _CODES.items()}
+
+
+def _elem_terms(metric: Metric, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One dimension's term of a summed elementwise metric (L1, Wasserstein,
+    Jensen-Shannon), as csrc/metrics.cuh accumulate forms it."""
+    if metric is Metric.JENSEN_SHANNON:
+        m = u + v
+        pos = m > 0.0
+        return torch.where(pos, m * torch.log(torch.where(pos, m, 1.0)), 0.0)
+    return (u - v).abs()
+
+
+def _metric_dists_plain(code: int, qop, rows, aux, ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of K17's metric tier (csrc/beam_search.cu metric_key):
+    the distances (B, C) of the nodes ``ids`` under a domain metric, the
+    query's lead row and terms packed in ``qop`` (B, W + 3), the nodes' lead
+    ``rows`` and their terms ``aux``, each sum in the warp's lane order."""
+    metric = _CODE_METRIC[code]
+    w = rows.shape[1]
+    q, x = qop[:, None, :w], rows[ids]  # (B, 1, W), (B, C, W)
+    if metric is Metric.HAVERSINE:
+        return D.haversine(q[..., 0], q[..., 1], x[..., 0], x[..., 1])
+    qs = (qop[:, w, None], qop[:, w + 1, None], qop[:, w + 2, None] != 0.0)
+    xs = (aux[0][ids], aux[1][ids], aux[2][ids] != 0.0) if aux else (None,) * 3
+    if metric in (Metric.CORRELATION, Metric.HELLINGER):
+        acc = _lane_sum(q * x)
+    elif metric is Metric.CHEBYSHEV:
+        acc = (q - x).abs().amax(-1)
+    else:
+        acc = _lane_sum(_elem_terms(metric, q, x))
+    return D.finish(metric, acc, qs, xs)
+
+
 def _tier_keys_plain(tier: int, code: int, qop, qconst, rows, aux, ids: torch.Tensor):
     """Plain version of K17's node scoring: (B, C) node ids -> oriented keys
     (per-query constants dropped, as the JAX tiers drop them)."""
+    if tier == 4:  # a domain metric: every metric is ascending
+        return _nan_to_neg_inf(-_metric_dists_plain(code, qop, rows, aux, ids))
     if tier == 3:  # PQ: gather-sum of the query's (M, 256) table
         m = rows.shape[1]
         codes = rows[ids].long()  # (B, C, M)
@@ -258,10 +381,11 @@ def beam_walk(tier: str, qop: torch.Tensor, qconst: Optional[torch.Tensor], rows
     padded) from ``starts`` ((S,) shared or (B, S) per query, int32), under
     the live mask ``valid`` (N,) bool. ``tier`` picks how a node is scored
     from the per-query operand ``qop`` (B, W) f32, ``qconst`` (B,) and the
-    rows ``rows`` with their per-row ``aux`` arrays (see the public
-    wrappers). Returns (keys (B, beam) f32, ids (B, beam) int32, scanned (B,)
-    int32): the pool best first, ids -1 where it ran dry, and the number of
-    nodes each walk visited."""
+    rows ``rows`` with their per-row ``aux`` arrays (see the public wrappers
+    and beam_operands; ``code`` is the metric's, _KIND_CODE). Returns (keys
+    (B, beam) f32, ids (B, beam) int32, scanned (B,) int32): the pool best
+    first, ids -1 where it ran dry, and the number of nodes each walk
+    visited."""
     if qop.device.type == "cpu":
         return beam_walk_plain(tier, qop, qconst, rows, aux, graph, starts, valid, code=code,
                                beam=beam, max_steps=max_steps, expand=expand)
@@ -279,16 +403,19 @@ def beam_walk(tier: str, qop: torch.Tensor, qconst: Optional[torch.Tensor], rows
         raise ValueError("beam_walk: valid (>= N,) and qop (B, W) float32 expected")
     if starts.dim() == 2 and starts.shape[0] != b:
         raise ValueError("beam_walk: per-query starts must be (B, S)")
-    width = {0: rows.shape[1], 1: rows.shape[1], 2: rows.shape[1], 3: rows.shape[1] * 256}[t]
+    width = {0: rows.shape[1], 1: rows.shape[1], 2: rows.shape[1], 3: rows.shape[1] * 256,
+             4: rows.shape[1] + 3}[t]
     if qop.shape[1] != width:
         raise ValueError(f"beam_walk: qop width {qop.shape[1]} != {width}")
-    want_dtype = {0: torch.float32, 1: torch.bfloat16, 2: torch.int8, 3: torch.uint8}[t]
+    want_dtype = {0: torch.float32, 1: torch.bfloat16, 2: torch.int8, 3: torch.uint8,
+                  4: torch.float32}[t]
     if rows.dtype != want_dtype:
         raise ValueError(f"beam_walk: {tier} rows must be {want_dtype}, got {rows.dtype}")
     aux = tuple(aux) + (None,) * (3 - len(aux))
     # the per-row arrays each tier's keys read (csrc/beam_search.cu node_key)
     needs = {0: (), 1: (0, 1, 2) if code == 2 else (0, 1), 2: (0, 1) if code == 2 else (0,),
-             3: (0, 1, 2) if code == 2 else (0, 1)}[t]
+             3: (0, 1, 2) if code == 2 else (0, 1),
+             4: (0, 1, 2) if _CODE_METRIC[code] in D.TERMS else ()}[t]
     if any(aux[i] is None or aux[i].shape != (aux[i].shape[0],) or aux[i].shape[0] < n
            or aux[i].dtype != torch.float32 for i in needs) or rows.shape[0] < n:
         raise ValueError(f"beam_walk: the {tier} tier needs rows and f32 aux arrays covering "
@@ -332,10 +459,21 @@ def beam_operands(tier: str, q: torch.Tensor, *args, kind: str) -> dict:
       * "sq8" (codes, lo, scale, row_sq): q.x_hat = (q * scale).c +
         q.(lo + 128 scale), so the operand is q * scale;
       * "pq" (codes, codebooks, alpha, row_sq): the (B, M, 256) table of
-        partial inner products, each row's sum scaled by its ``alpha``.
+        partial inner products, each row's sum scaled by its ``alpha``;
+      * "metric" (MetricRows of the corpus, ``kind`` a domain metric's
+        name): the query's lead row with its three terms appended (``q``
+        raw rows, transformed here, or MetricRows), the corpus's lead rows
+        and terms.
 
     The cosine keys' 1 / sqrt(max(norm, 1e-30)) is an aux array too, so the
     kernel and its plain version read the same bits."""
+    if tier == "metric":
+        (space,) = args
+        qm = graph_space(q, Metric(kind))
+        qterms = (torch.zeros((len(qm), 3), dtype=torch.float32, device=qm.device)
+                  if qm.terms is None else qm.terms.T)
+        return {"qop": torch.cat([qm.rows, qterms], 1).contiguous(), "qconst": None,
+                "rows": space.rows, "aux": () if space.terms is None else tuple(space.terms)}
     q = q.to(torch.float32)
     cos = kind == "cos"
     if tier == "f32":
@@ -372,13 +510,18 @@ _METRIC_KIND = {Metric.IP: "ip", Metric.L2: "l2", Metric.COSINE: "cos"}
 
 def beam_search(q, corpus, graph, starts, valid, *, metric: Metric, beam: int,
                 max_steps: int, k: int, expand: int | None = None):
-    """Beam search over EXACT f32 rows ``corpus`` (the in-place inserts, and
-    a forced streaming tier of a non-layered index). Returns (keys (B, k),
-    ids (B, k) int32, scanned (B,)): oriented keys best first, ids -1 where
-    the pool ran dry."""
-    _kernel_metric("beam_search", metric)
-    keys, ids, scanned = _walk("f32", q, (corpus,), graph, starts, valid, _METRIC_KIND[metric],
-                               beam, max_steps, expand)
+    """Beam search over EXACT keys: the f32 rows ``corpus`` under IP, L2 and
+    cosine (the in-place inserts), the metric tier under a domain metric
+    (``corpus`` its MetricRows or raw rows; the HNSW search and inserts).
+    Returns (keys (B, k), ids (B, k) int32, scanned (B,)): oriented keys best
+    first, ids -1 where the pool ran dry."""
+    graph_metric_code("beam_search", metric)
+    if metric in _METRIC_KIND:
+        tier, kind = "f32", _METRIC_KIND[metric]
+    else:
+        tier, kind = "metric", metric.value
+    keys, ids, scanned = _walk(tier, q, (graph_space(corpus, metric),), graph, starts, valid,
+                               kind, beam, max_steps, expand)
     k_eff = min(k, beam)
     return keys[:, :k_eff], ids[:, :k_eff], scanned
 
@@ -411,17 +554,18 @@ def beam_search_pq(q, codes, codebooks, alpha, row_sq, graph, starts, valid, *,
                  beam, max_steps, expand)
 
 
-# ── K18: the entry scan (K1 + K5) ────────────────────────────────────────
+# ── K18: the entry scan (K1 or K6, then K5) ──────────────────────────────
 
 
 def entry_scan(q: torch.Tensor, sample_ct: dict, sample_ids: torch.Tensor, valid: torch.Tensor,
                *, metric: Metric, s: int) -> torch.Tensor:
-    """Per-query graph entry points: K1 scores the fixed node sample (its
-    corpus transform ``sample_ct``, ids ``sample_ids`` int32) and K5 keeps
-    each query's top ``s``. Returns (B, s) int32 node ids."""
+    """Per-query graph entry points: the metric's distance kernel (K1 for
+    IP, L2 and cosine, K6a or K6c under a domain metric) scores the fixed
+    node sample (its corpus transform ``sample_ct``, ids ``sample_ids``
+    int32) and K5 keeps each query's top ``s``. Returns (B, s) int32 node
+    ids."""
     qt = D.query_transform(q.to(torch.float32), metric)
-    keys = flat_scores_f32(qt["x"], sample_ct["x"], qt.get("sq"), sample_ct.get("sq"),
-                           valid[sample_ids.long()], metric)
+    keys = metric_keys(qt, sample_ct, valid[sample_ids.long()], metric)
     _, idx = topk_select(keys, min(s, sample_ids.shape[0]))
     return sample_ids[idx.long()].to(torch.int32)
 
@@ -470,14 +614,22 @@ def robust_prune_batch(
     return out
 
 
-def _gram_seq(rows: torch.Tensor) -> torch.Tensor:
-    """(BS, M, D) rows -> (BS, M, M) dot products, each a sequential sum over
-    the dimensions of separately rounded products (K20's order)."""
+def _table_seq(rows: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """(BS, M, D) rows -> (BS, M, M) pair table in K20's order, each entry a
+    sequential chain over the dimensions of separately rounded operations:
+    dot products (IP, L2, cosine; correlation and Hellinger over their lead
+    rows), or the sum or max of an elementwise metric's terms."""
     bs, m, d = rows.shape
     g = torch.zeros((bs, m, m), dtype=torch.float32, device=rows.device)
     for j in range(d):
         col = rows[:, :, j]
-        g = g + col[:, :, None] * col[:, None, :]
+        u, v = col[:, :, None], col[:, None, :]
+        if metric is Metric.CHEBYSHEV:
+            g = torch.maximum(g, (u - v).abs())
+        elif metric in (Metric.L1, Metric.WASSERSTEIN, Metric.JENSEN_SHANNON):
+            g = g + _elem_terms(metric, u, v)
+        else:
+            g = g + u * v
     return g
 
 
@@ -512,22 +664,33 @@ def _ln_alpha(alpha: float) -> float:
 
 def _prune_keys_plain(x, node_ids, cand_ids, code: int):
     """Plain version of K20's keys: (point (BS, L) or None, pair (BS, L, L))
-    from the rows of max(id, 0), the node row last in the Gram."""
+    from the rows of max(id, 0) (``x`` rows, or MetricRows under a domain
+    metric), the node row last in the table, key(i, j) with row i on the
+    query side."""
     cand = cand_ids.long().clamp_min(0)
     l = cand.shape[1]
     idx = cand if node_ids is None else torch.cat([cand, node_ids.long().clamp_min(0)[:, None]], 1)
-    g = _gram_seq(x[idx].to(torch.float32))
-    sq = torch.diagonal(g, dim1=1, dim2=2)
-    pair = _pairwise_key(g[:, :l, :l], sq[:, :l, None], sq[:, None, :l], code)
-    if node_ids is None:
-        return None, pair
-    return _pairwise_key(g[:, l, :l], sq[:, l:], sq[:, :l], code), pair
+    if isinstance(x, MetricRows):
+        t = x[idx]  # (BS, M, W) rows, (3, BS, M) terms
+        rows = t.rows
+        if x.metric is Metric.HAVERSINE:
+            d = D.haversine(rows[:, :, None, 0], rows[:, :, None, 1], rows[:, None, :, 0],
+                            rows[:, None, :, 1])
+        else:
+            d = D.finish(x.metric, _table_seq(rows, x.metric), t.side(2), t.side(1))
+        keys = -d
+    else:
+        g = _table_seq(x[idx].to(torch.float32), _CODE_METRIC[code])
+        sq = torch.diagonal(g, dim1=1, dim2=2)
+        keys = _pairwise_key(g, sq[:, :, None], sq[:, None, :], code)
+    return (None if node_ids is None else keys[:, l, :l]), keys[:, :l, :l]
 
 
 def robust_prune_plain(x, node_ids, cand_ids, *, metric: Metric, r: int = 0, alpha: float = 1.0,
                        descending: bool = False, keys_only: bool = False):
     """Plain version of :func:`robust_prune`, on the inputs' device."""
-    point, pair = _prune_keys_plain(x, node_ids, cand_ids, _kernel_metric("robust_prune", metric))
+    code = graph_metric_code("robust_prune", metric)
+    point, pair = _prune_keys_plain(graph_space(x, metric), node_ids, cand_ids, code)
     if keys_only:
         return point, pair
     cand = cand_ids.long()
@@ -536,11 +699,13 @@ def robust_prune_plain(x, node_ids, cand_ids, *, metric: Metric, r: int = 0, alp
     return _robust_prune_dev_plain(point, pair, torch.where(bad, -1, cand), alpha, r, descending)
 
 
-def robust_prune(x: torch.Tensor, node_ids: Optional[torch.Tensor], cand_ids: torch.Tensor, *,
+def robust_prune(x, node_ids: Optional[torch.Tensor], cand_ids: torch.Tensor, *,
                  metric: Metric, r: int = 0, alpha: float = 1.0, descending: bool = False,
                  keys_only: bool = False):
     """K20 over a chunk of nodes ``node_ids`` (BS,) int32 with candidates
-    ``cand_ids`` (BS, L) int32 (-1 padded) in the rows ``x`` (N, D) f32.
+    ``cand_ids`` (BS, L) int32 (-1 padded) in the rows ``x``: (N, D) f32
+    under IP, L2 and cosine; under a domain metric its MetricRows (or raw
+    rows, transformed here).
 
     Default mode (the JAX package's _prune_chunk_kernel): point keys of each
     node against its candidates (-inf for -1 and self), pair keys among the
@@ -550,10 +715,12 @@ def robust_prune(x: torch.Tensor, node_ids: Optional[torch.Tensor], cand_ids: to
     given): returns (point (BS, L) or None, pair (BS, L, L)) f32 for the
     host prune; rows of -1 candidates are row 0's, as the JAX gather gives.
     """
-    code = _kernel_metric("robust_prune", metric)
+    code = graph_metric_code("robust_prune", metric)
+    x = graph_space(x, metric)
     if x.device.type == "cpu":
         return robust_prune_plain(x, node_ids, cand_ids, metric=metric, r=r, alpha=alpha,
                                   descending=descending, keys_only=keys_only)
+    x, terms = (x.rows, x.terms) if isinstance(x, MetricRows) else (x, None)
     bs, l = cand_ids.shape
     n, d = x.shape
     if x.dtype != torch.float32 or cand_ids.dtype != torch.int32 or (
@@ -561,7 +728,7 @@ def robust_prune(x: torch.Tensor, node_ids: Optional[torch.Tensor], cand_ids: to
         raise ValueError("robust_prune: x (N, D) f32, node_ids (BS,) and cand_ids (BS, L) int32")
     if not keys_only and (node_ids is None or not 1 <= r):
         raise ValueError("robust_prune: the prune needs node ids and r >= 1")
-    _cuda.require_cuda("robust_prune", x, node_ids, cand_ids)
+    _cuda.require_cuda("robust_prune", x, terms, node_ids, cand_ids)
     out = point = pair = None
     if keys_only:
         pair = torch.empty((bs, l, l), dtype=torch.float32, device=x.device)
@@ -571,9 +738,9 @@ def robust_prune(x: torch.Tensor, node_ids: Optional[torch.Tensor], cand_ids: to
         out = torch.empty((bs, max(r, 1)), dtype=torch.int32, device=x.device)
     if bs:
         _cuda.call(
-            "lt_robust_prune", x.data_ptr(), n, d, _cuda.ptr(node_ids), cand_ids.data_ptr(), bs,
-            l, code, r, float(np.float32(alpha)), _ln_alpha(alpha), int(descending),
-            int(keys_only), _cuda.ptr(out), _cuda.ptr(point), _cuda.ptr(pair),
+            "lt_robust_prune", x.data_ptr(), n, d, _cuda.ptr(terms), _cuda.ptr(node_ids),
+            cand_ids.data_ptr(), bs, l, code, r, float(np.float32(alpha)), _ln_alpha(alpha),
+            int(descending), int(keys_only), _cuda.ptr(out), _cuda.ptr(point), _cuda.ptr(pair),
             _cuda.stream_of(x),
         )
         robust_prune.launches += 1
@@ -583,7 +750,7 @@ def robust_prune(x: torch.Tensor, node_ids: Optional[torch.Tensor], cand_ids: to
 robust_prune.launches = 0
 
 
-def candidate_pair_keys(x: torch.Tensor, cand_ids: torch.Tensor, metric: Metric) -> torch.Tensor:
+def candidate_pair_keys(x, cand_ids: torch.Tensor, metric: Metric) -> torch.Tensor:
     """(BS, L, L) similarity keys among each point's candidates (rows of
     max(id, 0)), for the host prune."""
     return robust_prune(x, None, cand_ids, metric=metric, keys_only=True)[1]
@@ -594,22 +761,29 @@ def candidate_pair_keys(x: torch.Tensor, cand_ids: torch.Tensor, metric: Metric)
 
 def topl_scan_plain(q, q_ids, x, qsq, xsq, n_real: int, l: int, mode: int,
                     block: int = 131072):
-    """Plain version of :func:`topl_scan`: a blocked product with a carried
-    top-L merge (the lower row id first between equal keys)."""
-    b = q.shape[0]
-    keys = torch.full((b, 0), NEG_INF, dtype=torch.float32, device=q.device)
-    ids = torch.zeros((b, 0), dtype=torch.long, device=q.device)
-    for lo in range(0, x.shape[0], block):
+    """Plain version of :func:`topl_scan`: a blocked product (or, in the
+    metric mode, the metric's plain distances over the transform, as the
+    FLAT scan's plain version forms them) with a carried top-L merge (the
+    lower row id first between equal keys)."""
+    b = len(q)
+    dev = q.device
+    keys = torch.full((b, 0), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.zeros((b, 0), dtype=torch.long, device=dev)
+    for lo in range(0, len(x), block):
         blk = x[lo : lo + block]
-        ip = q @ blk.T
-        if mode == TOPL_DOT:
-            kb = ip
-        elif mode == TOPL_COS:
-            kb = _pairwise_key(ip, qsq[:, None], xsq[None, lo : lo + block], 2)
+        if mode == TOPL_METRIC:
+            ok = torch.ones(len(blk), dtype=torch.bool, device=dev)
+            kb = metric_keys_plain(q.transform(), blk.transform(), ok, q.metric)
         else:
-            d2 = (qsq[:, None] + xsq[None, lo : lo + block]) - 2.0 * ip
-            kb = -d2 if mode == TOPL_L2_RAW else -torch.clamp_min(d2, 0.0)
-        bids = torch.arange(lo, lo + blk.shape[0], device=q.device)
+            ip = q @ blk.T
+            if mode == TOPL_DOT:
+                kb = ip
+            elif mode == TOPL_COS:
+                kb = _pairwise_key(ip, qsq[:, None], xsq[None, lo : lo + block], 2)
+            else:
+                d2 = (qsq[:, None] + xsq[None, lo : lo + block]) - 2.0 * ip
+                kb = -d2 if mode == TOPL_L2_RAW else -torch.clamp_min(d2, 0.0)
+        bids = torch.arange(lo, lo + len(blk), device=dev)
         kb = torch.where((bids[None, :] == q_ids.long()[:, None]) | (bids[None, :] >= n_real),
                          NEG_INF, _nan_to_neg_inf(kb))
         keys, pos = _stable_top(torch.cat([keys, kb], 1), l)
@@ -617,32 +791,40 @@ def topl_scan_plain(q, q_ids, x, qsq, xsq, n_real: int, l: int, mode: int,
     return keys, ids.to(torch.int32)
 
 
-def topl_scan(q: torch.Tensor, q_ids: torch.Tensor, x: torch.Tensor, qsq: Optional[torch.Tensor],
+def topl_scan(q, q_ids: torch.Tensor, x, qsq: Optional[torch.Tensor],
               xsq: Optional[torch.Tensor], n_real: int, l: int, mode: int):
-    """K19: the exact top ``l`` rows of ``x`` (N, D) f32 for each query of
-    ``q`` (B, D) f32, the query's own row ``q_ids`` (B,) int32 and rows >=
-    ``n_real`` masked; keys by ``mode`` (TOPL_*; ``qsq``/``xsq`` squared
-    norms for the L2 and cosine modes). Returns (keys (B, l) f32, ids (B, l)
-    int32), best first, the lower id first between equal keys."""
+    """K19: the exact top ``l`` rows of ``x`` for each query of ``q``, the
+    query's own row ``q_ids`` (B,) int32 and rows >= ``n_real`` masked; keys
+    by ``mode`` (TOPL_*). Modes 0-3: ``q`` (B, D) and ``x`` (N, D) f32,
+    ``qsq``/``xsq`` squared norms for the L2 and cosine modes. TOPL_METRIC:
+    ``q`` and ``x`` MetricRows of one domain metric, keys -distance. Returns
+    (keys (B, l) f32, ids (B, l) int32), best first, the lower id first
+    between equal keys."""
     if q.device.type == "cpu":
         return topl_scan_plain(q, q_ids, x, qsq, xsq, n_real, l, mode)
+    qterms = xterms = None
+    code = 0
+    if mode == TOPL_METRIC:
+        code = graph_metric_code("topl_scan", q.metric)
+        q, qterms, x, xterms = q.rows, q.terms, x.rows, x.terms
     b, d = q.shape
     n = x.shape[0]
     if not 1 <= l <= min(TOPL_MAX_L, n) or x.shape[1] != d:
         raise ValueError(f"topl_scan: need 1 <= l <= min({TOPL_MAX_L}, N) and matching D")
     if q.dtype != torch.float32 or x.dtype != torch.float32 or q_ids.dtype != torch.int32:
         raise ValueError("topl_scan: q, x float32 and q_ids int32 expected")
-    if mode != TOPL_DOT and (qsq is None or xsq is None):
+    if mode in (TOPL_L2_RAW, TOPL_L2, TOPL_COS) and (qsq is None or xsq is None):
         raise ValueError("topl_scan: the L2 and cosine modes need qsq and xsq")
-    if mode == TOPL_DOT:
+    if mode in (TOPL_DOT, TOPL_METRIC):
         qsq = xsq = None
-    _cuda.require_cuda("topl_scan", q, q_ids, x, qsq, xsq)
+    _cuda.require_cuda("topl_scan", q, q_ids, x, qsq, xsq, qterms, xterms)
     stripes = (n + TOPL_STRIPE - 1) // TOPL_STRIPE
     part_keys = torch.empty((b, stripes * l), dtype=torch.float32, device=q.device)
     part_ids = torch.empty((b, stripes * l), dtype=torch.int32, device=q.device)
     _cuda.call("lt_topl_scan", q.data_ptr(), q_ids.data_ptr(), x.data_ptr(), _cuda.ptr(qsq),
-               _cuda.ptr(xsq), b, n, d, n_real, l, TOPL_STRIPE, mode, part_keys.data_ptr(),
-               part_ids.data_ptr(), _cuda.stream_of(q))
+               _cuda.ptr(xsq), _cuda.ptr(qterms), _cuda.ptr(xterms), b, n, d, n_real, l,
+               TOPL_STRIPE, mode, code, part_keys.data_ptr(), part_ids.data_ptr(),
+               _cuda.stream_of(q))
     topl_scan.launches += 1
     return topk_select(part_keys, l, ids=part_ids)
 
@@ -654,24 +836,21 @@ def _norm_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows / torch.clamp_min(torch.linalg.norm(rows, dim=1, keepdim=True), 1e-30)
 
 
-def knn_candidates(corpus_rows: torch.Tensor, metric: Metric, *, l: int,
-                   chunk: int = 4096) -> np.ndarray:
+def knn_candidates(corpus_rows, metric: Metric, *, l: int, chunk: int = 4096) -> np.ndarray:
     """Exact top-``l`` neighbours (construction space) of every row through
-    K19, a query chunk per launch. Returns (N, l) int32, -1 padded."""
-    rows = corpus_rows.to(torch.float32).contiguous()
-    n = rows.shape[0]
+    K19, a query chunk per launch: ``corpus_rows`` (N, D) rows, or under a
+    domain metric its MetricRows. Returns (N, l) int32, -1 padded."""
+    rows = graph_space(corpus_rows, metric)
+    n = len(rows)
     l_eff = min(l, n - 1)
+    xsq = None
     if metric is Metric.L2:
         mode = TOPL_L2_RAW
+        xsq = (rows * rows).sum(-1)
     elif metric is Metric.COSINE:
         mode, rows = TOPL_DOT, _norm_rows(rows).contiguous()
-    elif metric is Metric.IP:
-        mode = TOPL_DOT
     else:
-        raise NotImplementedError(
-            f"graph construction under {metric.value} is not ported yet (ROADMAP K6g: "
-            "the JAX package's _topl_generic)")
-    xsq = (rows * rows).sum(-1) if mode == TOPL_L2_RAW else None
+        mode = TOPL_DOT if metric is Metric.IP else TOPL_METRIC
     out = np.full((n, l), -1, dtype=np.int32)
     if l_eff <= 0:
         return out
@@ -685,21 +864,19 @@ def knn_candidates(corpus_rows: torch.Tensor, metric: Metric, *, l: int,
     return out
 
 
-def exact_knn_graph(rows: torch.Tensor, metric: Metric, r: int, chunk: int = 4096) -> np.ndarray:
+def exact_knn_graph(rows, metric: Metric, r: int, chunk: int = 4096) -> np.ndarray:
     """Exact kNN graph (self excluded) of ``rows`` under ``metric``'s
     pairwise keys, for the HNSW upper layers: K19 with L = min(r, n - 1).
     Returns (n, r) int32, -1 padded."""
-    rows = rows.to(torch.float32).contiguous()
-    n = rows.shape[0]
+    rows = graph_space(rows, metric)
+    n = len(rows)
     take = min(r, n - 1)
     out = np.full((n, r), -1, dtype=np.int32)
     if take <= 0:
         return out
-    mode = {Metric.IP: TOPL_DOT, Metric.L2: TOPL_L2, Metric.COSINE: TOPL_COS}.get(metric)
-    if mode is None:
-        raise NotImplementedError(
-            f"HNSW under {metric.value} is not ported yet (ROADMAP K6g)")
-    sq = None if mode == TOPL_DOT else (rows * rows).sum(-1)
+    mode = {Metric.IP: TOPL_DOT, Metric.L2: TOPL_L2, Metric.COSINE: TOPL_COS}.get(metric,
+                                                                                 TOPL_METRIC)
+    sq = None if mode in (TOPL_DOT, TOPL_METRIC) else (rows * rows).sum(-1)
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
         q_ids = torch.arange(lo, hi, dtype=torch.int32, device=rows.device)
@@ -744,13 +921,14 @@ def _mask_dup_cands(cands: np.ndarray) -> None:
     cands[dup] = -1
 
 
-def _construction_space(metric: Metric, rows: torch.Tensor):
+def _construction_space(metric: Metric, rows):
     """Graph construction geometry: inner product builds in L2 over
     row-normalised rows (the alpha prune needs a triangle inequality to keep
-    long-range edges); the other metrics build in their own space."""
+    long-range edges); the other metrics build in their own space (a domain
+    metric over its MetricRows, graph_space)."""
     if metric is Metric.IP:
         return Metric.L2, _norm_rows(rows.to(torch.float32))
-    return metric, rows
+    return metric, graph_space(rows, metric)
 
 
 def _clock(phases: Optional[dict], name: str, t0: float) -> float:
@@ -764,7 +942,7 @@ def _clock(phases: Optional[dict], name: str, t0: float) -> float:
     return now
 
 
-def build_vamana(corpus_rows: torch.Tensor, metric: Metric, *, r: int = 16, l_build: int = 64,
+def build_vamana(corpus_rows, metric: Metric, *, r: int = 16, l_build: int = 64,
                  alpha: float = 1.2, seed: int = 42, chunk: int = 4096,
                  phases: Optional[dict] = None) -> np.ndarray:
     """Vamana-quality construction with no insert-order dependency chain:
@@ -779,8 +957,7 @@ def build_vamana(corpus_rows: torch.Tensor, metric: Metric, *, r: int = 16, l_bu
     the seconds of each stage."""
     t0 = time.perf_counter()
     metric, rows = _construction_space(metric, corpus_rows)
-    rows = rows.to(torch.float32).contiguous()
-    n = int(rows.shape[0])
+    n = len(rows)
     dev = rows.device
     rng = np.random.default_rng(seed)
     if n <= r + 1:
@@ -825,7 +1002,7 @@ def build_vamana(corpus_rows: torch.Tensor, metric: Metric, *, r: int = 16, l_bu
 # ── in-place updates ─────────────────────────────────────────────────────
 
 
-def _host_keys(rows: torch.Tensor, node_ids: np.ndarray, cands: np.ndarray, metric: Metric):
+def _host_keys(rows, node_ids: np.ndarray, cands: np.ndarray, metric: Metric):
     """K20's keys mode for the host prune: (point (m, L), pair (m, L, L))."""
     dev = rows.device
     point, pair = robust_prune(
@@ -836,12 +1013,13 @@ def _host_keys(rows: torch.Tensor, node_ids: np.ndarray, cands: np.ndarray, metr
 
 
 def _link_points_batch(graph: np.ndarray, graph_dev: torch.Tensor, ids: np.ndarray,
-                       corpus_rows: torch.Tensor, starts: torch.Tensor, valid: torch.Tensor, *,
+                       corpus_rows, starts: torch.Tensor, valid: torch.Tensor, *,
                        metric: Metric, r: int, l_build: int, alpha: float) -> torch.Tensor:
-    """Link one batch of points into the graph: the f32 beam (expand 1)
-    finds candidates, K20 forms their pair keys and the host prune picks the
-    points' own lists; reverse edges go into the chosen neighbours, whose
-    lists re-prune on overflow (reference: diskann.rs:1084 / :1496).
+    """Link one batch of points into the graph: the exact beam (expand 1;
+    ``corpus_rows`` in construction space, graph_space) finds candidates,
+    K20 forms their pair keys and the host prune picks the points' own
+    lists; reverse edges go into the chosen neighbours, whose lists re-prune
+    on overflow (reference: diskann.rs:1084 / :1496).
     ``graph_dev`` is the device adjacency; only mutated rows are written
     back. Returns ``graph_dev``."""
     dev = corpus_rows.device
@@ -906,16 +1084,15 @@ def _link_points_batch(graph: np.ndarray, graph_dev: torch.Tensor, ids: np.ndarr
     return graph_dev
 
 
-def insert_points(graph: np.ndarray, new_ids: np.ndarray, corpus_rows: torch.Tensor,
+def insert_points(graph: np.ndarray, new_ids: np.ndarray, corpus_rows,
                   starts: torch.Tensor, live_mask: np.ndarray, *, metric: Metric, r: int,
                   l_build: int, alpha: float, batch: int = 1024) -> np.ndarray:
     """In-place insert (IP-DiskANN, reference diskann.rs:1496): grow the
     adjacency to cover ``corpus_rows`` and link the new points a batch at a
     time. Returns the (possibly reallocated) graph."""
     metric, corpus_rows = _construction_space(metric, corpus_rows)
-    corpus_rows = corpus_rows.to(torch.float32).contiguous()
     dev = corpus_rows.device
-    n_total = int(corpus_rows.shape[0])
+    n_total = len(corpus_rows)
     if n_total > graph.shape[0]:
         grown = np.full((n_total, graph.shape[1]), -1, dtype=np.int32)
         grown[: graph.shape[0]] = graph
@@ -950,7 +1127,7 @@ def _repair_candidates(graph: np.ndarray, dm: np.ndarray, chunk: np.ndarray,
     return merged
 
 
-def repair_deleted_edges(graph: np.ndarray, deleted_mask: np.ndarray, corpus_rows: torch.Tensor,
+def repair_deleted_edges(graph: np.ndarray, deleted_mask: np.ndarray, corpus_rows,
                          *, metric: Metric, r: int, alpha: float, batch: int = 1024) -> int:
     """Delete repair (IP-DiskANN, reference diskann.rs:1337 + Alg-6
     consolidation :502-560): every live node with an edge into a deleted node
@@ -958,7 +1135,6 @@ def repair_deleted_edges(graph: np.ndarray, deleted_mask: np.ndarray, corpus_row
     out-neighbourhoods (K20's keys, the host prune). Deleted nodes' lists
     are cleared. Returns the number of nodes repaired."""
     metric, corpus_rows = _construction_space(metric, corpus_rows)
-    corpus_rows = corpus_rows.to(torch.float32).contiguous()
     n = graph.shape[0]
     dm = np.zeros(n, dtype=bool)
     dm[: min(len(deleted_mask), n)] = deleted_mask[: min(len(deleted_mask), n)]
@@ -978,7 +1154,7 @@ def repair_deleted_edges(graph: np.ndarray, deleted_mask: np.ndarray, corpus_row
     return len(affected)
 
 
-def reconnect_orphans(graph: np.ndarray, live_mask: np.ndarray, corpus_rows: torch.Tensor,
+def reconnect_orphans(graph: np.ndarray, live_mask: np.ndarray, corpus_rows,
                       starts: torch.Tensor, *, metric: Metric, r: int, l_build: int,
                       alpha: float) -> int:
     """Re-link live nodes with zero in-degree (restored-from-tombstone rows
@@ -997,7 +1173,7 @@ def reconnect_orphans(graph: np.ndarray, live_mask: np.ndarray, corpus_rows: tor
     return len(orphans)
 
 
-def _reprune_nodes(graph: np.ndarray, overflow: dict[int, list[int]], corpus_rows: torch.Tensor,
+def _reprune_nodes(graph: np.ndarray, overflow: dict[int, list[int]], corpus_rows,
                    metric: Metric, alpha: float, r: int, batch: int = 1024) -> None:
     """Batched alpha re-prune of nodes whose adjacency overflowed with
     reverse edges: candidates = current neighbours + pending requests."""

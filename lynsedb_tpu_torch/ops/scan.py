@@ -80,11 +80,14 @@ PLAIN_ELEMENTS = 1 << 25
 # Largest shortlist K3 sorts in shared memory; a larger one goes through K5.
 RESCORE_SORT_MAX = 1024
 
+# The kernels' metric codes (csrc/common.cuh lt::Metric, lt::BinaryMetric).
 _METRIC_CODE = {Metric.IP: 0, Metric.L2: 1, Metric.COSINE: 2}
 _GEMM_CODE = {**_METRIC_CODE, Metric.CORRELATION: 3, Metric.HELLINGER: 4}
 _BINARY_CODE = {Metric.HAMMING: 0, Metric.JACCARD: 1, Metric.TANIMOTO: 1, Metric.DICE: 2}
-_ELEM_CODE = {Metric.L1: 0, Metric.CHEBYSHEV: 1, Metric.CANBERRA: 2, Metric.BRAY_CURTIS: 3,
-              Metric.WASSERSTEIN: 4, Metric.JENSEN_SHANNON: 5, Metric.HAVERSINE: 6}
+_ELEM_CODE = {Metric.L1: 5, Metric.CHEBYSHEV: 6, Metric.CANBERRA: 7, Metric.BRAY_CURTIS: 8,
+              Metric.WASSERSTEIN: 9, Metric.JENSEN_SHANNON: 10, Metric.HAVERSINE: 11}
+# the metrics K6c's bf16 mode serves (the rows themselves, not a transform)
+_BF16_ELEM = (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS)
 
 
 def resolve_device(device) -> torch.device:
@@ -311,7 +314,7 @@ def elementwise_scores(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric
     n = x.shape[0]
     _check_ids("elementwise_scores", ids, b)
     bf16 = mean is not None
-    if bf16 and (ids is not None or _ELEM_CODE[metric] > 3 or x.dtype != torch.bfloat16
+    if bf16 and (ids is not None or metric not in _BF16_ELEM or x.dtype != torch.bfloat16
                  or mean.shape != (d,)):
         raise ValueError("elementwise_scores: the bf16 mode takes L1, Chebyshev, Canberra or "
                          "Bray-Curtis over (N, D) bfloat16 rows and a (D,) mean, in tile mode")

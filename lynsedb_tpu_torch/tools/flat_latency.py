@@ -4,7 +4,8 @@ mode.
 
     python3 lynsedb_tpu_torch/tools/flat_latency.py [--corpus isotropic mixture]
                                                     [--index FLAT-IP FLAT-IP-SQ8 ...]
-                                                    [--nprobe N] [--package-root DIR]
+                                                    [--nprobe N] [--insert N]
+                                                    [--package-root DIR]
 
 Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
@@ -14,7 +15,9 @@ searches, then 4 batch searches at B=16 and 4 at B=256 (k=10, ``--nprobe``,
 the client's default 10 unless given; host clock around each call). The corpora are seeded numpy: ``isotropic`` is gaussian rows,
 ``mixture`` chip_smoke.py's mixture of 2,000 gaussian clusters; both
 duplicate 1,000 rows. Then 20 more single searches run under torch.profiler
-to read the device time of one search, in all and by kernel.
+to read the device time of one search, in all and by kernel. ``--insert N``
+then adds N more rows of the corpus's kind, commits them (an index links or
+posts them in place), reports the commit's seconds and times the mode again.
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (for example an
 older commit unpacked with ``git archive``), so one script times two trees on
@@ -88,8 +91,34 @@ def device_ms_per_search(torch, coll, queries, nprobe: int) -> tuple[float | Non
     return (total if total > 0 else None), top
 
 
-def run(lynse, torch, kind: str, modes: list, nprobe: int, root: str, clock: GcClock):
-    """Yields one result per index mode on one corpus."""
+def timed(torch, coll, singles, b16, b256, extra, nprobe: int, clock: GcClock) -> dict:
+    """p50 / p99 of the single searches, q/s of the batches, the garbage
+    collector's seconds, the device time of one search (torch.profiler)."""
+    clock.read()
+    lat = []
+    for qv in singles:
+        t0 = time.perf_counter()
+        coll.search(qv, k=K, nprobe=nprobe)
+        lat.append(time.perf_counter() - t0)
+    out = {"p50_ms": float(np.percentile(lat, 50) * 1e3),
+           "p99_ms": float(np.percentile(lat, 99) * 1e3), "single_gc_s": clock.read()}
+    for b, blocks in ((16, b16), (256, b256)):
+        secs = []
+        for blk in blocks:
+            t0 = time.perf_counter()
+            coll.batch_search(blk, k=K, nprobe=nprobe)
+            secs.append(time.perf_counter() - t0)
+        out[f"qps_b{b}"] = b * len(blocks) / sum(secs)
+        out[f"call_s_b{b}"] = secs
+        out[f"gc_s_b{b}"] = clock.read()
+    out["device_ms_single"], out["device_ms_by_kernel"] = device_ms_per_search(
+        torch, coll, extra, nprobe)
+    return out
+
+
+def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, root: str,
+        clock: GcClock):
+    """Yields one result per index mode on one corpus (two with ``insert``)."""
     rng = np.random.default_rng(SEED)
     x = make_corpus(kind, rng)
     singles = rng.normal(size=(100, DIM)).astype(np.float32)
@@ -109,26 +138,16 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, root: str, clock: GcC
             coll.build_index(mode)
             out["build_s"] = time.perf_counter() - t0
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the index
-        clock.read()
-        lat = []
-        for qv in singles:
+        yield {**out, **timed(torch, coll, singles, b16, b256, extra, nprobe, clock)}
+        if insert:
+            rows = make_corpus(kind, np.random.default_rng(SEED + 1))[:insert]
             t0 = time.perf_counter()
-            coll.search(qv, k=K, nprobe=nprobe)
-            lat.append(time.perf_counter() - t0)
-        out.update({"p50_ms": float(np.percentile(lat, 50) * 1e3),
-                    "p99_ms": float(np.percentile(lat, 99) * 1e3), "single_gc_s": clock.read()})
-        for b, blocks in ((16, b16), (256, b256)):
-            secs = []
-            for blk in blocks:
-                t0 = time.perf_counter()
-                coll.batch_search(blk, k=K, nprobe=nprobe)
-                secs.append(time.perf_counter() - t0)
-            out[f"qps_b{b}"] = b * len(blocks) / sum(secs)
-            out[f"call_s_b{b}"] = secs
-            out[f"gc_s_b{b}"] = clock.read()
-        out["device_ms_single"], out["device_ms_by_kernel"] = device_ms_per_search(
-            torch, coll, extra, nprobe)
-        yield out
+            coll.add(vectors=rows, fields=[{"bucket": i % 10} for i in range(insert)])
+            coll.commit()
+            torch.cuda.synchronize()
+            out.update({"inserted": insert, "insert_s": time.perf_counter() - t0})
+            coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the grown index
+            yield {**out, **timed(torch, coll, singles, b16, b256, extra, nprobe, clock)}
     client.close()
 
 
@@ -140,6 +159,8 @@ def main() -> int:
                     help="index modes, e.g. FLAT-IP FLAT-IP-SQ8 FLAT-IP-PQ HNSW-L2")
     ap.add_argument("--nprobe", type=int, default=10,
                     help="the searches' nprobe (IVF probes; HNSW / DiskANN beam width)")
+    ap.add_argument("--insert", type=int, default=0,
+                    help="rows added and committed after a mode's timings, then timed again")
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
@@ -153,7 +174,8 @@ def main() -> int:
     clock = GcClock()
     for kind in args.corpus:
         with tempfile.TemporaryDirectory(prefix="lynse_flat_") as root:
-            for out in run(lynse, torch, kind, args.index, args.nprobe, root, clock):
+            for out in run(lynse, torch, kind, args.index, args.nprobe, args.insert, root,
+                           clock):
                 out["package"] = str(Path(lynse.__file__).resolve().parent)
                 print(json.dumps(out), flush=True)
     return 0

@@ -774,3 +774,169 @@ def test_gather_route_cuda_matches_cpu(dev, metric):
     assert np.all(mask[gi]) and not np.any(gi % 17 == 0)
     np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-4)
     _assert_ids_match(gi, wi, wd, 1e-5 * np.abs(wd).max(axis=1) + 1e-4)
+
+
+# ── K16b and K6g: the binary IVF scan, the graph kernels' domain metrics ──
+
+GRAPH_DOMAIN = list(graph_ops.DOMAIN_METRICS)
+
+
+def _domain_space(metric: Metric, dev, seed: int, n: int, d: int = _GRAPH_DIM):
+    """Rows of a domain metric with their corner rows, on the card, and the
+    MetricRows the graph kernels read."""
+    x = _metric_rows(metric, np.random.default_rng(seed), n, d)
+    xd = torch.from_numpy(x).to(dev)
+    return x, xd, graph_ops.graph_space(xd, metric)
+
+
+@pytest.mark.parametrize("expand", [1, 2])
+@pytest.mark.parametrize("metric", GRAPH_DOMAIN, ids=[m.value for m in GRAPH_DOMAIN])
+def test_beam_search_metric_tier_matches_plain(dev, metric, expand):
+    """K17's metric tier equal to its plain version to the bit (the same
+    lane-ordered sums, the same epilogue operations), on a graph built on the
+    card under the same metric."""
+    x, xd, space = _domain_space(metric, dev, 21, 3000)
+    rng = np.random.default_rng(22)
+    graph = torch.from_numpy(graph_ops.build_vamana(space, metric, r=16, l_build=32)).to(dev)
+    valid = torch.from_numpy(rng.random(len(x)) >= 0.1).to(dev)
+    q = xd[torch.from_numpy(rng.integers(0, len(x), 6)).to(dev)] * 1.01
+    per_query = torch.from_numpy(rng.integers(0, len(x), size=(6, 5), dtype=np.int32)).to(dev)
+    shared = torch.from_numpy(rng.choice(len(x), 600, replace=False).astype(np.int32)).to(dev)
+    for starts in (per_query, shared):
+        got, want = _walk_both("metric", metric.value, q, (space,), graph, starts, valid, 48,
+                               expand)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (metric, expand)
+        ids = got[1].cpu().numpy()
+        assert valid.cpu().numpy()[ids[ids >= 0]].all()
+
+
+@pytest.mark.parametrize("l", [16, 64])
+@pytest.mark.parametrize("metric", GRAPH_DOMAIN, ids=[m.value for m in GRAPH_DOMAIN])
+def test_topl_scan_metric_matches_plain(dev, metric, l):
+    """K19's metric mode against its plain version: the same -inf slots,
+    keys within the family's tolerance, ids swapped only between near-equal
+    keys, self-matches and rows past n_real masked."""
+    n = 12_000
+    x, xd, space = _domain_space(metric, dev, l, n, 48)
+    for lo, hi in ((0, 1024), (1024, 1024 + 37), (n - 300, n)):  # ragged chunks
+        q_ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        args = (space[lo:hi], q_ids, space, None, None, n - 7, l, graph_ops.TOPL_METRIC)
+        gk, gi = graph_ops.topl_scan(*args)
+        wk, wi = graph_ops.topl_scan_plain(*args)
+        torch.cuda.synchronize()
+        _assert_keys_close(metric, gk, wk)
+        ids, fin = gi.cpu().numpy(), torch.isfinite(wk)
+        assert not ((ids == np.arange(lo, hi)[:, None]) & fin.cpu().numpy()).any()
+        assert (ids < n - 7).all()  # an invalid row's -inf slots fill in id order
+        qt = space[lo:hi].transform()
+        ct = space.transform()
+        rekeyed = scan.metric_keys_plain(qt, ct, None, metric, ids=gi.clamp_min(0))
+        _assert_keys_close(metric, torch.where(fin, rekeyed, wk), wk)
+
+
+@pytest.mark.parametrize("metric", GRAPH_DOMAIN, ids=[m.value for m in GRAPH_DOMAIN])
+def test_robust_prune_metric_matches_plain(dev, metric):
+    """K20's pair tables under a domain metric equal to the plain version's
+    to the bit: the prune and both keys modes."""
+    n, l, r = 5000, 72, 32
+    x, xd, space = _domain_space(metric, dev, 3, n)
+    rng = np.random.default_rng(4)
+    nodes = torch.from_numpy(rng.choice(n, 700, replace=False).astype(np.int32)).to(dev)
+    cands = rng.integers(0, n, size=(700, l)).astype(np.int32)
+    cands[rng.random(cands.shape) < 0.1] = -1
+    cands[:, 5] = nodes.cpu().numpy()  # self candidates are dropped
+    cands = torch.from_numpy(cands).to(dev)
+    got = graph_ops.robust_prune(space, nodes, cands, metric=metric, r=r, alpha=1.2)
+    want = graph_ops.robust_prune_plain(space, nodes, cands, metric=metric, r=r, alpha=1.2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got >= 0).sum() > 700
+    for node_ids in (nodes, None):
+        gp, gq = graph_ops.robust_prune(space, node_ids, cands, metric=metric, keys_only=True)
+        wp, wq = graph_ops.robust_prune_plain(space, node_ids, cands, metric=metric,
+                                              keys_only=True)
+        assert torch.equal(gq, wq)
+        assert (gp is None) == (wp is None) and (gp is None or torch.equal(gp, wp))
+
+
+@pytest.mark.parametrize("bits", [100, 1024])
+@pytest.mark.parametrize("mode", ["IVF-HAMMING", "IVF-JACCARD"])
+def test_binary_ivf_index_cuda_matches_cpu(dev, tmp_path, mode, bits):
+    """An IVF-HAMMING / -JACCARD index built on the card: K16b equal to its
+    plain version to the bit, and the answers on the card those of the plain
+    versions on the CPU over a copy of the index files, before and after the
+    same rows are added and committed in both."""
+    rng = np.random.default_rng(bits)
+    protos = rng.random((40, bits)) < 0.2
+    rows = protos[rng.integers(0, 40, 6300)] ^ (rng.random((6300, bits)) < 0.03)
+    x, extra, q = (rows[:6000].astype(np.float32), rows[6000:6291].astype(np.float32),
+                   rows[6291:].astype(np.float32))
+    answers = []
+    for device, root in ((dev, tmp_path / "card"), ("cpu", tmp_path / "host")):
+        if answers:
+            shutil.copytree(tmp_path / "built", root)
+        client = lynsedb_tpu_torch.VectorDBClient(root, device=device)
+        db = client.get_database("d") if answers else client.create_database("d")
+        coll = db.require_collection("c", dim=bits)
+        if not answers:
+            coll.add(vectors=x, fields=[{"b": i % 2} for i in range(6000)])
+            coll.commit()
+            coll.build_index(mode, n_clusters=24)
+            shutil.copytree(root, tmp_path / "built")
+        out = [coll.batch_search(q, k=10, nprobe=p, where=w)
+               for p in (1, 6) for w in (None, "b = 0")]
+        eng = coll._engine
+        if device == dev:
+            idx, state = eng._index, eng._index._device_state(eng)
+            qd = torch.from_numpy(q).to(dev)
+            qt = D.query_transform(qd, idx.metric)
+            top_c = ivf._top_clusters(qd, state["centroids"], idx.metric, 6)
+            args = (qt["bits"], qt["cnt"], top_c, state["cluster_blocks"], state["blocks"],
+                    state["block_sq"], state["block_orig"],
+                    eng.corpus().valid_mask(np.arange(6000) % 3 == 0), idx.metric)
+            got, want = ivf.ivf_binary_blocks(*args), ivf.ivf_scan_blocks_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        coll.add(vectors=extra, fields=[{"b": i % 2} for i in range(6000, 6291)])
+        coll.commit()  # on_commit posts the rows by L2 to the float centroids
+        answers.append(out + [coll.batch_search(q, k=10, nprobe=6)])
+        client.close()
+    for got, want in zip(*answers):  # ids may differ only among equal distances
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.distances, w.distances)
+
+
+@pytest.mark.parametrize("mode", ["HNSW-L1", "HNSW-JENSEN-SHANNON", "HNSW-HAVERSINE"])
+def test_domain_hnsw_index_cuda_matches_cpu(dev, tmp_path, mode):
+    """The same collection indexed, searched, grown and searched again on the
+    card and on the CPU: nearly the same graph (K19's sums run in another
+    order than the plain version's, so a near-tie may flip an edge) and the
+    same answers in nearly every query."""
+    metric = Metric.from_index_mode(mode)
+    d = 2 if metric is Metric.HAVERSINE else 32
+    rng = np.random.default_rng(9)
+    x = _metric_rows(metric, rng, 4200, d)
+    q = _metric_rows(metric, np.random.default_rng(10), 20, d)[5:]
+    answers, graphs = [], []
+    for i, device in enumerate((dev, "cpu")):
+        client = lynsedb_tpu_torch.VectorDBClient(tmp_path / f"root{i}", device=device)
+        try:
+            coll = client.create_database("d").require_collection("c", dim=d)
+            coll.add(vectors=x[:4000], fields=[{"b": i % 2} for i in range(4000)])
+            coll.commit()
+            coll.build_index(mode)
+            res = [coll.batch_search(q, k=10, where=where, nprobe=64) for where in (None, "b = 1")]
+            coll.add(vectors=x[4000:], fields=[{"b": i % 2} for i in range(4000, 4200)])
+            coll.commit()  # the in-place insert: the metric tier and K20's keys
+            res.append(coll.batch_search(q, k=10, nprobe=64))
+            graphs.append(coll._engine._index.layer0_np)
+            answers.append([(np.asarray(r.ids), np.asarray(r.distances)) for rs in res for r in rs])
+        finally:
+            client.close()
+    assert (graphs[0] == graphs[1]).all(axis=1).mean() >= 0.97
+    same = np.mean([np.array_equal(g[0], w[0]) for g, w in zip(*answers)])
+    assert same >= 0.9
+    for (gi, gd), (wi, wd) in zip(*answers):
+        if np.array_equal(gi, wi):
+            np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-4)

@@ -399,8 +399,17 @@ def test_repair_candidates_match_the_loop():
 
 
 def test_domain_metric_raises_k6():
+    """knn_candidates and exact_knn_graph serve a domain metric (they raised
+    before K19's metric mode, K6g, was ported): under L1 the same ids as the
+    JAX package's _topl_generic and _knn_block, but at a near-tie."""
     _, x = _data(16, n=100)
-    with pytest.raises(NotImplementedError, match="K6"):
-        G.knn_candidates(_t(x), Metric.L1, l=8)
-    with pytest.raises(NotImplementedError, match="K6"):
-        G.exact_knn_graph(_t(x), Metric.L1, 8)
+    got = [G.knn_candidates(_t(x), Metric.L1, l=8, chunk=64),
+           G.exact_knn_graph(_t(x), Metric.L1, 8, chunk=64)]
+    want = [JG.knn_candidates(jnp.asarray(x), JMetric.L1, l=8, chunk=64, block=1024),
+            JG.exact_knn_graph(jnp.asarray(x), JMetric.L1, 8, block=64)]
+    x64 = x.astype(np.float64)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (100, 8)
+        d_g = np.abs(x64[np.maximum(g, 0)] - x64[:, None]).sum(-1)
+        d_w = np.abs(x64[np.maximum(w, 0)] - x64[:, None]).sum(-1)
+        assert (np.abs(d_g - d_w)[g != w] <= 1e-5 * d_w[g != w] + 1e-6).all()

@@ -291,11 +291,21 @@ def test_search_subbatches_past_beam_cap(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["HNSW-L1", "HNSW-CHEBYSHEV"])
 def test_hnsw_domain_metrics_raise_k6(tmp_path, mode):
+    """HNSW under a domain metric builds and serves on the port (it raised
+    before the graph's domain-metric keys, K6g, were ported): every row
+    finds itself first, at distance 0, and the best ten are a float64 brute
+    force's within rtol 1e-5."""
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(300, 8)).astype(np.float32)
     client = _client(lynsedb_tpu_torch, tmp_path / "t")
     try:
-        coll = client.create_database("d").require_collection("c", dim=4)
-        coll.add(vectors=np.eye(4, dtype=np.float32))
-        with pytest.raises(NotImplementedError, match="K6"):
-            coll.build_index(mode)
+        coll = client.create_database("d").require_collection("c", dim=8)
+        coll.add(vectors=x)
+        coll.build_index(mode, m=6)
+        p = 1 if mode == "HNSW-L1" else np.inf
+        for r, view in enumerate(coll.batch_search(x[:5], k=K, nprobe=80)):
+            assert view.ids[0] == r and view.distances[0] == 0.0
+            want = np.sort(np.linalg.norm(x.astype(np.float64) - x[r], ord=p, axis=1))[:K]
+            np.testing.assert_allclose(view.distances, want, rtol=1e-5, atol=1e-6)
     finally:
         client.close()

@@ -26,6 +26,7 @@ import lynsedb_tpu_torch
 from lynsedb_tpu.index.ivf import _ivf_search_kernel
 from lynsedb_tpu.ops.scan import unpack_search_step
 from lynsedb_tpu_torch.configs.config import config as torch_config
+from np_reference import FNS
 from test_torch_scan import assert_same_ids, one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -257,6 +258,15 @@ def test_ivf_incremental_insert_no_rebuild(tmp_path):
 
 @pytest.mark.parametrize("mode", ["IVF-HAMMING", "IVF-JACCARD"])
 def test_binary_ivf_raises(port_coll, mode):
-    coll, _, _ = port_coll
-    with pytest.raises(NotImplementedError, match="K16b"):
-        coll.build_index(mode)
+    """The binary IVF modes build and serve on the port (they raised before
+    the bit-packed block scan, K16b, was ported): the blocks hold packed
+    words, and probing every cluster answers as a float64 brute force over
+    the rows thresholded at 0.5 (Hamming exact, Jaccard 1e-6)."""
+    coll, data, _ = port_coll
+    coll.build_index(mode, n_clusters=32)
+    fn = FNS[mode.split("-")[1].lower()]
+    for r, view in enumerate(coll.batch_search(data[:4], k=K, nprobe=32)):
+        want = np.sort([fn(data[r], row) for row in data])[:K]
+        assert len(set(np.asarray(view.ids).tolist())) == K
+        np.testing.assert_allclose(view.distances, want, rtol=0, atol=1e-6)
+    assert coll._engine._index._dev["blocks"].dtype == torch.int32
