@@ -80,6 +80,29 @@ Phases (each prints its seconds):
      IVF-HAMMING, committed and searched again. K16b ivf_binary_blocks and
      the domain-metric forms of K17, K19 and K20 (K6g) against their plain
      versions at the path's shapes, with times, bounds and library calls.
+ 10b. streaming path: the card's pinned H2D rate (a 1 GiB copy); the 1M
+     mixture in a fresh FLAT-IP collection (1,000 rows deleted), its budget
+     (ops/scan.DEVICE_BYTES) set from the port's byte counts so the corpus
+     takes the host-rescore tier, then the streaming tier (at least four
+     blocks a pass): FLAT-IP with 100 single queries and B=16 and 256 under
+     no filter, "bucket = 3" (the compact host scan when streaming) and
+     "bucket < 5" (per-block masks), search_stream of 1,000 queries and
+     search_range(max_results=1000); FLAT-L2 and FLAT-L1 with 20 singles
+     and the batches; FLAT-TANIMOTO-BINARY on phase 9's fingerprints with 5
+     singles. Each answer against a float64 brute force (recall@10 >=
+     0.999, distances within the family's tolerance, no filtered-out or
+     deleted row) and against the resident tier's ids (ties aside). K8 (a
+     pass of every block) against its plain version on the card under IP
+     (bf16 blocks through K2), L1 (bf16 blocks through K6c) and Tanimoto
+     (f32 blocks through K6b); search_stream of 1,000 resident queries, a
+     submit a window. HNSW-L2 and DISKANN-IP on a 100,000-row
+     collection forced to stream: HNSW's exact fallback (>= 0.999) and a
+     deferred 10,000-row commit; DiskANN's lazy code fit, its SQ8 or PQ
+     walk (>= 0.90) and a 10,000-row commit linked in place (every new row
+     with in-edges, no backlog). A 20M x 128 DeviceCorpus forced to stream
+     at a 2 GiB budget: each pass's blocks, host fill rate, H2D and scan ms
+     a block (CUDA events), the compute stream's busy share, the link
+     bound, B=16 and 256 latency.
  11. checks: recall@10 and distances against a chunked numpy brute force
      (FLAT >= 0.999, IVF >= 0.85, SQ8 >= 0.95, PQ / RaBitQ / PolarVec >= 0.70,
      HNSW / DiskANN >= 0.90 unfiltered in every tier, the half filter
@@ -184,6 +207,9 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
                                "lynsedb_tpu/ops/distance.py:199"),
     "K16b ivf_binary_blocks": (ivf.ivf_binary_blocks, "lynsedb_tpu_torch/csrc/ivf_scan_blocks.cu",
                                "lynsedb_tpu/index/ivf.py:43"),
+    # K8 chains the kernels above (K2 or K6, then K5) in ops/scan.py
+    "K8 stream_block": (scan.stream_block, "lynsedb_tpu_torch/ops/scan.py",
+                        "lynsedb_tpu/ops/scan.py:610"),
 }
 # the kernels each path must launch
 PATHS = {
@@ -201,6 +227,10 @@ PATHS = {
                 "K6c elementwise_scores"),
     "index_metrics": ("K5 topk_select", "K6b binary_scores", "K16b ivf_binary_blocks",
                       "K17 beam_search", "K19 topl_scan", "K20 robust_prune"),
+    "streaming": ("K1 flat_scores_f32", "K2 bf16_centered_scores", "K5 topk_select",
+                  "K6b binary_scores", "K6c elementwise_scores", "K8 stream_block",
+                  "K11 bf16_gather_scores", "K17 beam_search",
+                  "K20 robust_prune"),
 }
 
 
@@ -1792,6 +1822,467 @@ def fingerprints_like(rows: torch.Tensor, n: int) -> torch.Tensor:
     return rows[pick] ^ flip.to(rows.dtype)
 
 
+# ── the streaming path: the host-rescore and streaming tiers ─────────────
+
+STREAM_MODES = ("FLAT-IP", "FLAT-L2", "FLAT-L1")
+STREAM_WHERES = (None, "bucket = 3", "bucket < 5")
+STREAM_REPEAT_Q = 20  # single queries of the repeated modes (L2, L1, Tanimoto)
+STREAM_DELETED = 1000  # rows deleted from the streaming collection
+STREAM_N_Q = 1000  # search_stream's queries
+SCALE_N, SCALE_BUDGET = 20_000_000, 2 << 30  # the scale point: 20M x 128 at a 2 GiB budget
+GRAPH_STREAM_N = 100_000  # the graph collection forced to stream
+
+
+def tier_budget(corpus: DeviceCorpus, tier: str) -> int:
+    """The device budget that puts ``corpus`` in ``tier``, from the port's
+    own byte counts: the host-rescore tier's bytes, or (streaming) the bytes
+    of the bf16 rows a pass pumps, so each of its two buffers holds at most
+    a quarter of the corpus (at least four blocks a pass)."""
+    if tier == "resident":
+        return 0
+    cap = corpus._cap_for(corpus.n)
+    if tier == "host_rescore":
+        return corpus.host_rescore_bytes(cap)
+    return cap * (2 * corpus.dim + 13)
+
+
+def force_tier(c, tier: str) -> None:
+    """Restage a collection's corpus under the budget of ``tier``; its
+    search cache is cleared, so every answer comes from that tier."""
+    corpus = c._engine.corpus()
+    budget = tier_budget(corpus, tier)
+    if not (tier == corpus.tier == "resident" and scan.DEVICE_BYTES == budget == 0):
+        scan.DEVICE_BYTES = budget
+        corpus.restage()
+    c._engine._search_cache.clear()
+    check(corpus.tier == tier, f"a budget of {scan.DEVICE_BYTES} staged {corpus.tier}, not {tier}")
+    check(corpus.would_stream() == (tier == "streaming"), "would_stream disagrees with staging")
+
+
+def key64(metric: Metric, q64: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """float64 (Q, C) keys, smaller = better: -q.x (IP), |q - x|^2 (L2), else
+    the metric's distance (dist64)."""
+    if metric is Metric.IP:
+        return -(q64 @ rows.T)
+    if metric is Metric.L2:
+        return (q64 * q64).sum(1)[:, None] + (rows * rows).sum(1)[None] - 2.0 * (q64 @ rows.T)
+    return dist64(metric, q64, rows)
+
+
+def key_tol(metric: Metric, key: torch.Tensor, q64: torch.Tensor, xsq_max: float):
+    """A returned f32 distance's tolerance as a key: the f32 expansion's
+    rounding (IP, L2: 1e-5 of |q|^2 + max |x|^2), else dist_tol."""
+    if metric in (Metric.IP, Metric.L2):
+        return 1e-5 * key.abs() + 1e-5 * ((q64 * q64).sum(1)[:, None] + xsq_max)
+    return dist_tol(metric, key)
+
+
+def brute_keys(metric: Metric, q64: torch.Tensor, rows: torch.Tensor, masks: dict):
+    """The K smallest float64 keys (Q, K) under each mask."""
+    best = {name: None for name in masks}
+    step = 1 << 16
+    for lo in range(0, rows.shape[0], step):
+        kk = key64(metric, q64, rows[lo : lo + step].double())
+        for name, ok in masks.items():
+            part = torch.where(ok[lo : lo + step][None], kk, float("inf"))
+            v = torch.topk(part, min(K, part.shape[1]), dim=1, largest=False).values
+            best[name] = v if best[name] is None else torch.topk(
+                torch.cat([best[name], v], 1), K, dim=1, largest=False).values
+    return best
+
+
+def check_stream_views(metric, label, views, q64, rows, ok, kth, ref_views, xsq_max) -> float:
+    """K rows each, none repeated, none filtered out or deleted, each
+    distance its row's float64 one within the tolerance; recall@10 >= the
+    FLAT floor (a row counts at most the 10th true key plus the tolerance);
+    and the resident tier's ids except between rows that tie."""
+    hits = 0
+    for r, (view, ref) in enumerate(zip(views, ref_views)):
+        ids = np.asarray(view.ids, dtype=np.int64)
+        check(len(ids) == K and len(set(ids.tolist())) == K, f"{label}: query {r} ids {ids}")
+        ids_d = torch.from_numpy(ids).to(DEV)
+        check(bool(ok[ids_d].all()), f"{label}: a filtered-out or deleted row returned")
+        qr = q64[r : r + 1]
+        kk = key64(metric, qr, rows[ids_d].double())[0]
+        got = torch.from_numpy(np.asarray(view.distances, dtype=np.float64)).to(DEV)
+        got = -got if metric is Metric.IP else got
+        tol = key_tol(metric, kk[None], qr, xsq_max)[0]
+        check(bool(((got - kk).abs() <= tol).all()), f"{label}: query {r} distances off float64")
+        t = kth[r : r + 1]
+        hits += int((kk <= t + key_tol(metric, t[None], qr, xsq_max)[0]).sum())
+        diff = set(ids.tolist()) ^ set(np.asarray(ref.ids, dtype=np.int64).tolist())
+        if diff:  # rows that differ from the resident tier's tie with its last row
+            d = key64(metric, qr, rows[torch.tensor(sorted(diff), device=DEV)].double())[0]
+            last = key64(metric, qr, rows[int(np.asarray(ref.ids)[-1])][None].double())[0]
+            check(bool(((d - last).abs() <= key_tol(metric, last[None], qr, xsq_max)[0]).all()),
+                  f"{label}: query {r} differs from the resident tier beyond a tie")
+    recall = hits / (K * len(views))
+    print(f"   {label}: recall@10 {recall:.4f} over {len(views)} queries", flush=True)
+    check(recall >= RECALL_FLOOR, f"{label}: recall@10 {recall} < {RECALL_FLOOR}")
+    return recall
+
+
+def stream_queries(c, qs, n_single, where):
+    """``n_single`` single searches and one batch at B = 16 and at B = 256:
+    (views in query order, single latencies in s, batch seconds)."""
+    lat, views = [], []
+    for qv in qs[:n_single]:
+        t0 = time.perf_counter()
+        views.append(c.search(qv, k=K, where=where))
+        lat.append(time.perf_counter() - t0)
+    secs = {}
+    for b, lo in ((16, 100), (256, 116)):
+        t0 = time.perf_counter()
+        views += c.batch_search(qs[lo : lo + b], k=K, where=where)
+        secs[b] = time.perf_counter() - t0
+    return views, np.array(lat), secs
+
+
+def stream_mode_checks(c, mode, rows_d, ok, qs, n_single, tiers, report, stream_q=None):
+    """One FLAT mode on a collection in each forced tier: its queries under
+    every filter (and search_stream of ``stream_q``, search_range for IP)
+    checked against the float64 brute force and the resident tier's
+    answers."""
+    metric = Metric.from_index_mode(mode)
+    corpus = c._engine.corpus()
+    n = rows_d.shape[0]
+    ar = torch.arange(n, device=DEV)
+    masks = {None: ok, "bucket = 3": ok & (ar % 10 == 3), "bucket < 5": ok & (ar % 10 < 5)}
+    sel = np.r_[0:n_single, 100:N_MQ]
+    q64 = torch.from_numpy(qs[sel]).to(DEV).double()
+    kth = {w: v[:, K - 1] for w, v in brute_keys(metric, q64, rows_d, masks).items()}
+    xsq_max = float((rows_d.double() ** 2).sum(1).max())
+    with uncounted():
+        force_tier(c, "resident")
+        ref = {w: stream_queries(c, qs, n_single, w)[0] for w in masks}
+        if stream_q is not None:
+            ref_stream = c.search_stream(stream_q, k=K)
+    for tier in tiers:
+        force_tier(c, tier)
+        for where in masks:
+            label = f"{mode} {tier} {'unfiltered' if where is None else where}"
+            views, lat, secs = stream_queries(c, qs, n_single, where)
+            report[f"stream {label} recall"] = check_stream_views(
+                metric, label, views, q64, rows_d, masks[where], kth[where], ref[where],
+                xsq_max)
+            report[f"stream {label} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+            report[f"stream {label} b16_s"], report[f"stream {label} b256_s"] = secs[16], secs[256]
+        if stream_q is not None:
+            t0 = time.perf_counter()
+            got = c.search_stream(stream_q, k=K)
+            report[f"stream {mode} {tier} search_stream_{len(stream_q)}_s"] = (
+                time.perf_counter() - t0)
+            s64 = torch.from_numpy(stream_q).to(DEV).double()
+            skth = brute_keys(metric, s64, rows_d, {None: ok})[None][:, K - 1]
+            report[f"stream {mode} {tier} search_stream recall"] = check_stream_views(
+                metric, f"{mode} {tier} search_stream", got, s64, rows_d, ok, skth, ref_stream,
+                xsq_max)
+        if metric is Metric.IP:  # search_range(max_results=1000)
+            for r in range(2):
+                v = c.search(qs[r], k=BIG_K)
+                t = float(np.asarray(v.distances)[BIG_K // 2])
+                got = np.asarray(c.search_range(qs[r], t, max_results=BIG_K).ids, dtype=np.int64)
+                kk = -key64(metric, q64[r : r + 1], rows_d[torch.from_numpy(got).to(DEV)]
+                            .double())[0]
+                check(bool((kk >= t - 1e-4).all()) and len(got) >= BIG_K // 2 - 5,
+                      f"{mode} {tier} search_range: query {r}")
+            print(f"   {mode} {tier} search_range(max_results={BIG_K}): every row in range",
+                  flush=True)
+
+
+def pinned_h2d_rate(nbytes: int = 1 << 30) -> float:
+    """The card's pinned host-to-device rate, bytes/s: a plain non-blocking
+    copy of a 1 GiB pinned tensor (CUDA events)."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), reps=5)
+    del src, dst
+    return nbytes / (ms * 1e-3)
+
+
+def pass_trace(corpus: DeviceCorpus, fn) -> dict:
+    """Run one search with the pump's trace on: blocks, per block the fill
+    seconds and bytes, the H2D and scan ms (events), the pass's span from
+    the first H2D to the last scan, and the compute stream's busy share."""
+    corpus.stream_trace = []
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    wall = time.perf_counter() - t0
+    tr, corpus.stream_trace = corpus.stream_trace, None
+    h2d = [e["events"][0].elapsed_time(e["events"][1]) for e in tr]
+    scan_ms = [e["events"][2].elapsed_time(e["events"][3]) for e in tr]
+    span = tr[0]["events"][0].elapsed_time(tr[-1]["events"][3])
+    fill = sum(e["fill_s"] for e in tr)
+    nbytes = sum(e["bytes"] for e in tr)
+    return {"blocks": len(tr), "rows_per_block": tr[0]["rows"], "pass_ms": span,
+            "wall_s": wall, "bytes": nbytes, "fill_gbps": nbytes / fill / 1e9,
+            "h2d_ms_per_block": float(np.mean(h2d)), "scan_ms_per_block": float(np.mean(scan_ms)),
+            "busy_share": sum(scan_ms) / span, "copy_share": sum(h2d) / span}
+
+
+def k8_check(corpus: DeviceCorpus, qs: np.ndarray, stats: Stats, label: str, h2d_bps: float,
+             timed: bool, metric: Metric = Metric.IP) -> None:
+    """K8: a pass of every block on the card against the plain pass on the
+    card over the same blocks: the same ids except between near-ties, keys
+    within K2's tolerance (IP), or within rtol 1e-5 + 1e-4 under the other
+    metrics: the L1 family through K6c's bf16 mode, the rest through their
+    exact kernel over the pumped f32 rows."""
+    qd = torch.from_numpy(qs).to(DEV)
+    kind = "bf16" if metric in scan._BF16_PASS else "f32"
+    c = corpus._shortlist_size(K, corpus.n) if kind == "bf16" else K
+    with uncounted():
+        keys, ids = corpus._stream_pass(qd, metric, kind, c, None)
+        pk, pi = corpus._stream_pass(qd, metric, kind, c, None, step=scan.stream_block_plain)
+        sync()
+    ok = pk > float("-inf")
+    check(torch.equal(ok, keys > float("-inf")), f"K8 {label}: empty slots differ")
+    if metric is Metric.IP:
+        mean = torch.from_numpy(corpus._mean_np).to(DEV)
+        x_norm = float(np.sqrt(corpus._sq_host[: corpus.n].max()))
+        tol = (1e-5 * (qd - mean).norm(dim=1) * x_norm + 1e-5)[:, None].expand_as(pk)
+    else:
+        tol = 1e-5 * pk.abs() + 1e-4
+    err = (keys - pk).abs()[ok]
+    check(bool((err <= tol[ok]).all()), f"K8 {label}: keys off the plain pass")
+    for r, j in zip(*torch.nonzero((ids != pi) & ok, as_tuple=True)):
+        m = torch.nonzero(pi[r] == ids[r, j]).flatten()
+        check(len(m) > 0 and abs(float(pk[r, m[0]] - pk[r, j])) <= float(tol[r, j]),
+              f"K8 {label}: ids differ beyond a near-tie")
+    stats.error("K8 stream_block", err.max())
+    print(f"   K8 {label}: the pass equals the plain pass on the card", flush=True)
+    if timed:
+        # bound: the pumped rows (bf16, three aux floats, the mask byte)
+        # over the card's measured pinned H2D rate, or the bf16 products
+        n, d = corpus.n, corpus.dim
+        t_link, t_ops = n * (2 * d + 13) / h2d_bps, 2 * len(qs) * n * d / BF16_FLOPS
+        stats.time("K8 stream_block", label,
+                   lambda: corpus._stream_pass(qd, Metric.IP, "bf16", c, None),
+                   lambda: corpus._stream_pass(qd, Metric.IP, "bf16", c, None,
+                                               step=scan.stream_block_plain),
+                   None, (max(t_link, t_ops) * 1e3, "bytes" if t_link >= t_ops else "operations"),
+                   reps=3)
+
+
+def windows_timing(c, qs: np.ndarray, report) -> None:
+    """search_stream of 1,000 queries on the resident FLAT-IP corpus, a
+    submit a window of 64 (K2 -> K5 -> K3), three runs after a warm one,
+    beside the same chain's plain versions on the card and its bound: each
+    window reads the bf16 copy, its aux rows and the mask once."""
+    corpus, w = c._engine.corpus(), 64
+
+    def timed(fn) -> list:
+        fn()
+        sync()
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append(time.perf_counter() - t0)
+        return ts
+
+    n, d, cap = corpus.n, corpus.dim, corpus.capacity
+    ck = corpus._shortlist_size(K, n)
+    aux, valid, x32 = corpus.bf16_aux(), corpus.valid_mask(), corpus._data
+    qd = torch.from_numpy(qs).to(DEV)
+
+    def plain():
+        for s in range(0, len(qs), w):
+            keys = scan.bf16_centered_scores_plain(qd[s : s + w], corpus._dev16, aux, valid,
+                                                   Metric.IP)
+            top, idx = topk.topk_select_plain(keys, ck)
+            scan.rescore_topk_plain(qd[s : s + w], x32, top, idx, K, Metric.IP)
+
+    ts = timed(lambda: c.search_stream(qs, k=K, window=w))
+    plain_ts = timed(plain)
+    windows = -(-len(qs) // w)
+    bound_s = max(windows * (n * (2 * d + 12) + cap) / HBM_BPS, 2 * len(qs) * n * d / BF16_FLOPS)
+    report[f"search_stream_{len(qs)} resident"] = {"s": ts, "plain_s": plain_ts,
+                                                   "bound_s": bound_s, "windows": windows}
+    print(f"   search_stream({len(qs)}) resident, a submit a window of {w}: {min(ts):.4f} s, "
+          f"the plain chain {min(plain_ts):.4f} s, bound {bound_s:.6f} s", flush=True)
+
+
+def graph_stream_path(db, x, centers, rng, report) -> None:  # noqa: C901
+    """HNSW-L2 and DISKANN-IP on a 100,000-row mixture collection forced to
+    stream: HNSW by the exact fallback, a 10,000-row commit deferred;
+    DiskANN's lazy PQ and SQ8 fit, its SQ8 or PQ walk, and a 10,000-row
+    commit linked by _on_commit_streaming."""
+    rows = x[:GRAPH_STREAM_N]
+    qs = mixture_queries(rng, centers, 100)
+    extra = mixture_queries(rng, centers, GRAPH_INSERT)
+    out = {}
+    for mode in ("HNSW-L2", "DISKANN-IP"):
+        g = db.require_collection(f"stream_{mode.lower()}", dim=DIM)
+        g.add(vectors=rows)
+        g.commit()
+        g.build_index(mode)
+        corpus = g._engine.corpus()
+        force_tier(g, "streaming")
+        idx = g._engine._index
+        t0 = time.perf_counter()
+        out[mode] = [g.search(qv, k=K, nprobe=GRAPH_NPROBE) for qv in qs]
+        report[f"stream {mode} 100 singles_s"] = time.perf_counter() - t0
+        if mode == "DISKANN-IP":
+            check(idx.layered, "DISKANN-IP: no codes fitted on the streaming corpus")
+            report["stream DISKANN-IP tier"] = idx._tier(corpus)
+            check(report["stream DISKANN-IP tier"] in ("sq8", "pq"), "DISKANN-IP tier")
+        t0 = time.perf_counter()
+        g.add(vectors=extra)
+        g.commit()
+        sync()
+        report[f"stream {mode} commit_{GRAPH_INSERT}_s"] = time.perf_counter() - t0
+        n_all = GRAPH_STREAM_N + GRAPH_INSERT
+        if mode == "HNSW-L2":
+            check(idx.built_rows == GRAPH_STREAM_N, "HNSW-L2: the streaming commit linked rows")
+        else:
+            check(idx.built_rows == n_all, "DISKANN-IP: the new rows were not linked")
+            check(len(idx._unlinked_ids) == 0, "DISKANN-IP: an unlinked backlog remains")
+            linked = np.isin(np.arange(GRAPH_STREAM_N, n_all), idx.graph_np[idx.graph_np >= 0])
+            check(bool(linked.all()), "DISKANN-IP: a new row has no in-edge")
+            out["DISKANN-IP new rows"] = [g.search(qv, k=K, nprobe=GRAPH_NPROBE)
+                                          for qv in extra[:100]]
+        out[f"{mode} grown"] = [g.search(qv, k=K, nprobe=GRAPH_NPROBE) for qv in qs]
+        print(f"   {mode} streaming: tier {corpus.tier}, commit of {GRAPH_INSERT} rows "
+              f"{report[f'stream {mode} commit_{GRAPH_INSERT}_s']:.2f} s", flush=True)
+        scan.DEVICE_BYTES = 0
+    allx = np.concatenate([rows, extra])
+    xsq = (allx.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    for mode, metric, floor in (("HNSW-L2", Metric.L2, RECALL_FLOOR),
+                                ("DISKANN-IP", Metric.IP, GRAPH_RECALL_FLOOR)):
+        for key, data in ((mode, rows), (f"{mode} grown", allx)):
+            gt = exact_topk(data, np.arange(len(data)), qs, K, metric, xsq[: len(data)])[1]
+            report[f"stream {key} recall"] = check_results(
+                data, qs, out[key], gt, f"{key} streaming", metric, floor)
+    # the linked rows are found: queries at the new rows, whose exact top 10
+    # is mostly new rows
+    gt = exact_topk(allx, np.arange(len(allx)), extra[:100], K)[1]
+    report["stream DISKANN-IP new rows recall"] = check_results(
+        allx, extra[:100], out["DISKANN-IP new rows"], gt, "DISKANN-IP linked rows streaming",
+        Metric.IP, GRAPH_RECALL_FLOOR)
+    report["stream DISKANN-IP new rows in the exact top 10"] = float(
+        np.mean(gt >= GRAPH_STREAM_N))
+
+
+def scale_point(rng, report, h2d_bps: float) -> None:
+    """A 20M x 128 DeviceCorpus of the mixture forced to stream at a 2 GiB
+    budget: the host fill rate, K8's time per block and per pass against
+    its link bound, the compute stream's busy share, B = 16 and 256
+    latency."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 7)
+    centers = torch.randn((N_CENTERS, DIM), generator=gen, device=DEV)
+    x = np.empty((SCALE_N, DIM), dtype=np.float32)
+    for lo in range(0, SCALE_N, 1 << 21):
+        m = min(1 << 21, SCALE_N - lo)
+        pick = torch.randint(0, N_CENTERS, (m,), generator=gen, device=DEV)
+        x[lo : lo + m] = (centers[pick] + SPREAD * torch.randn((m, DIM), generator=gen,
+                                                                device=DEV)).cpu().numpy()
+    qs = (centers[torch.randint(0, N_CENTERS, (256,), generator=gen, device=DEV)]
+          + SPREAD * torch.randn((256, DIM), generator=gen, device=DEV)).cpu().numpy()
+    scan.DEVICE_BYTES = SCALE_BUDGET
+    t0 = time.perf_counter()
+    corpus = DeviceCorpus(DIM, device=DEV)
+    corpus.append(x)
+    del x
+    corpus.finalize()
+    report["scale stage_s"] = time.perf_counter() - t0
+    check(corpus.streaming, "the 20M corpus did not stream at a 2 GiB budget")
+    for b in (16, 256):
+        corpus.search(qs[:b], K, Metric.IP)  # warm
+        tr = pass_trace(corpus, lambda: corpus.search(qs[:b], K, Metric.IP))
+        lat = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            d, i = corpus.search(qs[:b], K, Metric.IP)
+            lat.append(time.perf_counter() - t0)
+        check(d.shape == (b, K) and bool(np.isfinite(d).all()), f"scale B={b}: results")
+        tr["latency_s"] = lat
+        tr["link_bound_ms"] = tr["bytes"] / h2d_bps * 1e3
+        report[f"scale 20M B={b}"] = tr
+        print(f"   20M x {DIM} streaming B={b}: {tr}", flush=True)
+    # the answers of a slice against numpy's exact top 10 over every row
+    want = exact_topk(corpus._host[: corpus.n], np.arange(corpus.n), qs[:4], K)[1]
+    got = corpus.search(qs[:4], K, Metric.IP)[1]
+    hits = sum(len(set(got[r].tolist()) & set(want[r].tolist())) for r in range(4))
+    report["scale recall@10 (4 queries)"] = hits / (4 * K)
+    check(hits / (4 * K) >= RECALL_FLOOR, f"scale: recall {hits / (4 * K)}")
+    scan.DEVICE_BYTES = 0
+    del corpus
+
+
+def streaming_path(db, x, centers, rng, sets, report, stats) -> None:
+    """The streaming phase: the 1M mixture in a fresh FLAT-IP collection
+    (1,000 rows deleted) forced into the host-rescore tier and then the
+    streaming tier, under FLAT-IP (100 singles, B = 16 and 256, three
+    filters, search_stream of 1,000, search_range), FLAT-L2 and FLAT-L1
+    (20 singles and the batches); FLAT-TANIMOTO-BINARY on phase 9's
+    fingerprints (5 singles and the batches); K8 against its plain version
+    under IP, L1 and Tanimoto; the graph collections forced to stream; the 20M scale
+    point."""
+    h2d_bps = pinned_h2d_rate()
+    report["pinned H2D GB/s"] = h2d_bps / 1e9
+    print(f"   pinned H2D: {h2d_bps / 1e9:.2f} GB/s", flush=True)
+    c = db.require_collection("stream", dim=DIM)
+    t0 = time.perf_counter()
+    c.add(vectors=x, fields=[{"bucket": i % 10} for i in range(N)], batch_size=100_000)
+    c.commit()
+    dead = np.sort(rng.choice(N, STREAM_DELETED, replace=False))
+    c.delete(dead.tolist())
+    c.commit()
+    report["stream add+commit_s"] = time.perf_counter() - t0
+    live = np.ones(N, dtype=bool)
+    live[dead] = False
+    rows_d = torch.from_numpy(x).to(DEV)
+    ok = torch.from_numpy(live).to(DEV)
+    qs = mixture_queries(rng, centers, N_MQ)
+    stream_q = mixture_queries(rng, centers, STREAM_N_Q)
+    corpus = c._engine.corpus()
+    with uncounted():
+        force_tier(c, "resident")
+        windows_timing(c, stream_q, report)
+    stream_mode_checks(c, "FLAT-IP", rows_d, ok, qs, 100, ("host_rescore", "streaming"), report,
+                       stream_q)
+    k8_check(corpus, qs[:16], stats, "IP B=16 N=1M", h2d_bps, True)
+    k8_check(corpus, qs[:256], stats, "IP B=256 N=1M", h2d_bps, False)
+    tr = pass_trace(corpus, lambda: corpus.search(qs[:16], K, Metric.IP))
+    report["stream 1M B=16 pass"] = tr
+    check(tr["blocks"] >= 4, f"the 1M streaming pass took {tr['blocks']} blocks")
+    print(f"   1M streaming pass B=16: {tr}", flush=True)
+    for mode in ("FLAT-L2", "FLAT-L1"):
+        c.build_index(mode)
+        stream_mode_checks(c, mode, rows_d, ok, qs, STREAM_REPEAT_Q, ("host_rescore", "streaming"),
+                           report)
+    k8_check(c._engine.corpus(), qs[:16], stats, "L1 B=16 N=1M", h2d_bps, False, Metric.L1)
+    scan.DEVICE_BYTES = 0
+    del rows_d, corpus
+    db.drop_collection("stream")
+    torch.cuda.empty_cache()
+
+    bc, bits_rows, _, bits_q = sets["bits"]
+    bc.build_index("FLAT-TANIMOTO-BINARY")
+    bcorpus = bc._engine.corpus()
+    n_bits = bcorpus.n  # phase 10 added rows: the collection's own rows
+    bits_d = torch.empty((n_bits, bcorpus.dim), dtype=torch.uint8, device=DEV)
+    for lo in range(0, n_bits, 1 << 17):
+        hi = min(lo + (1 << 17), n_bits)
+        bits_d[lo:hi] = torch.from_numpy(bcorpus._host[lo:hi]).to(DEV).to(torch.uint8)
+    stream_mode_checks(bc, "FLAT-TANIMOTO-BINARY", bits_d,
+                       torch.ones(n_bits, dtype=torch.bool, device=DEV), bits_q, 5,
+                       ("host_rescore", "streaming"), report)
+    k8_check(bcorpus, bits_q[:16], stats, f"Tanimoto B=16 N={n_bits}", h2d_bps, False,
+             Metric.TANIMOTO)
+    scan.DEVICE_BYTES = 0
+    del bits_d
+    torch.cuda.empty_cache()
+
+    graph_stream_path(db, x, centers, rng, report)
+    torch.cuda.empty_cache()
+    scale_point(rng, report, h2d_bps)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1930,6 +2421,11 @@ def main() -> int:
             index_metrics_path(db, sets, db.get_collection("prefix", warm_up=False), centers, rng,
                                report, stats)
         counts["index_metrics"] = read_counts()
+
+        set_counts({})
+        with phase("10b streaming path"):
+            streaming_path(db, x, centers, np.random.default_rng(SEED + 8), sets, report, stats)
+        counts["streaming"] = read_counts()
         client.close()
 
     with phase("11 checks against numpy brute force"):
@@ -2030,7 +2526,8 @@ def main() -> int:
              "K16b ivf_binary_blocks": f"IVF-HAMMING B=16 nprobe={NPROBE}",
              "K6g beam_search": f"HNSW-L1 B=16 beam={GRAPH_NPROBE}",
              "K6g topl_scan": f"HNSW-L1 chunk={TOPL_CHUNK} N={N + GRAPH_INSERT} L=64",
-             "K6g robust_prune": "HNSW-L1 nodes=4096 L=72 r=32"}
+             "K6g robust_prune": "HNSW-L1 nodes=4096 L=72 r=32",
+             "K8 stream_block": "IP B=16 N=1M"}
     kernels = []
     # the K6g rows: K17, K19 and K20 under the domain metrics, whose launches
     # are their kernels' on the index-metrics path

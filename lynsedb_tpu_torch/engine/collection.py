@@ -802,9 +802,11 @@ class Collection:
         window: Optional[int] = None,
     ) -> list[SearchResult]:
         """Single-query stream over the flat scan path, micro-batched into
-        windows with up to two windows in flight, so the host trim of one
-        window overlaps the device work of the next. Falls back to sequential
-        searches when an ANN/aux index is active."""
+        windows with up to two windows in flight, so the host work of one
+        window overlaps the device work of the next. On a streaming corpus
+        the whole stream is one submit, whose chunks share one pump of the
+        corpus. Falls back to sequential searches when an ANN/aux index is
+        active."""
         q = np.ascontiguousarray(np.atleast_2d(np.asarray(vectors, dtype=np.float32)))
         if window is None:
             window = 16 if len(q) <= 32 else 64
@@ -832,12 +834,15 @@ class Collection:
                         )
                     )
 
-            for s in range(0, n_q, window):
-                in_flight.append(
-                    corpus.search_submit(q[s : s + window], k, metric, filter_mask=handle)
-                )
-                if len(in_flight) > 2:
-                    drain_one()
+            if corpus.would_stream():
+                in_flight.append(corpus.search_submit(q, k, metric, filter_mask=handle))
+            else:
+                for s in range(0, n_q, window):
+                    in_flight.append(
+                        corpus.search_submit(q[s : s + window], k, metric, filter_mask=handle)
+                    )
+                    if len(in_flight) > 2:
+                        drain_one()
             while in_flight:
                 drain_one()
             return results

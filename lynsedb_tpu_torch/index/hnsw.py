@@ -16,6 +16,11 @@ tier walks the corpus's staged transform with exact keys, which are the
 distances returned (the JAX package's f32 tier: no rescore). Rows added
 after the build are linked into layer 0 in place at the next commit.
 
+On a corpus that streams (its bf16 copy past the device budget) the graph
+has no device rows to walk: a search is the exact streaming scan, and a
+commit defers linking until the corpus is on the card again (the JAX
+package's hnsw.py:207-216, 301-307).
+
 The files are the JAX package's (``index/hnsw.npz``, ``index/hnsw_meta.json``),
 so each package opens the other's index.
 """
@@ -235,11 +240,16 @@ class HNSWIndex:
         metric = self.metric
         corpus = coll.corpus()
         handle = _handle(mask)
+        q2 = np.ascontiguousarray(np.atleast_2d(q), dtype=np.float32)
+        if corpus.would_stream():
+            # no device rows for the walk: the exact blockwise streaming scan
+            dists, ids = corpus.search(q2, k, metric, filter_mask=handle)
+            self.last_scanned = int(corpus.n)
+            return finalize_ranked(dists.astype(np.float32), ids.astype(np.int64), k, metric)
         dev = self._device(corpus)
         ef = max(int(nprobe or 0), self.ef_search, k)
         if metric is Metric.IP:
             ef = ef * 5 // 4  # +25% for raw MIPS (as DiskANN's IP oversample)
-        q2 = np.ascontiguousarray(np.atleast_2d(q), dtype=np.float32)
         live = corpus.valid_mask(handle)[: self.built_rows]
 
         def dispatch(qd: torch.Tensor, q_np: np.ndarray):
@@ -283,6 +293,11 @@ class HNSWIndex:
         base = getattr(self, "_rows_at_build", self.built_rows)
         grown = getattr(self, "_inserted_since_build", 0) + (n - self.built_rows)
         corpus = coll.corpus()
+        if corpus.would_stream():
+            # the streaming search is the exact scan, and linking (or a
+            # rebuild) needs the f32 rows on the card: built_rows stays, so
+            # the first commit with the corpus on the card links the tail
+            return
         if grown > REBUILD_GROWTH_FRACTION * max(base, 1):
             self.rebuild(coll)
             return

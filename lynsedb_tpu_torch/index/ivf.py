@@ -305,6 +305,10 @@ class IVFIndex:
                 f"search scratch need {need} bytes on {self.device} but {free} are free")
 
     def _device_state(self, coll):
+        """The index's device arrays. The blocks are gathered from the
+        corpus's f32 device copy (or its staged transform), so on a streaming
+        corpus this raises the corpus's ValueError, as the JAX package's IVF
+        does through ``corpus._data``."""
         if self._dev is not None:
             return self._dev
         corpus = coll.corpus()  # ensures device rows are current

@@ -13,9 +13,12 @@ one chain of kernels on the card:
   4. K3 ``rescore_topk`` rescores the C rows exactly in f32 from the corpus
      copy and keeps the best k by (score, id), dropping non-finite scores.
 
-Rows added after the last encode (an uncommitted tail) are served by
-:meth:`AuxQuantIndex._search_host`: the code scan's top S rescored on the
-host mirror, an exact scan of the tail and a merge that removes duplicates.
+Off the corpus's resident tier step 4 runs on the host mirror instead (the
+JAX package's host-rescore ending). A streaming corpus (no bf16 copy on the
+card to rescore from) and rows added after the last encode (an uncommitted
+tail) are served by :meth:`AuxQuantIndex._search_host`: the code scan's top S
+rescored on the host mirror, an exact scan of the tail and a merge that
+removes duplicates.
 
 The files are the JAX package's (``index/aux.npz``, ``index/aux_meta.json``):
 SQ8, RaBitQ and PolarVec encode to the same bytes in both packages, and each
@@ -231,9 +234,9 @@ class AuxQuantIndex:
         if q.shape[0] > max_b:
             return _concat_parts([self.search(coll, q[s : s + max_b], k, nprobe, mask)
                                   for s in range(0, q.shape[0], max_b)])
-        if not (n_codes >= coll.n_rows and n_codes > 0):
-            return self._search_host(coll, q, k, mask)
         corpus = coll.corpus()
+        if corpus.would_stream() or not (n_codes >= coll.n_rows and n_codes > 0):
+            return self._search_host(coll, q, k, mask)
         valid = corpus.valid_mask(_handle(mask))
         s = self._shortlist_width(k, n_codes)
         c = min(s, max(64, 4 * k))
@@ -241,14 +244,17 @@ class AuxQuantIndex:
         qd = torch.from_numpy(q).to(self.device)
         keys = self._code_keys(qd, valid)
         cand_keys, cand_ids = shortlist_device_rescore_ids(
-            qd, keys, corpus._dev16, corpus.bf16_aux(), self.metric, s, c)
+            qd, keys, corpus.data16, corpus.bf16_aux(), self.metric, s, c)
         del keys
+        if corpus.tier != scan.RESIDENT:
+            return corpus._rescore_fetched(q, cand_keys, cand_ids, self.metric, k)
         dists, ids = rescore_topk(qd, corpus._data, cand_keys, cand_ids, min(k, c), self.metric)
         return _trim_results(*_fetch(dists, ids))
 
     def _search_host(self, coll, q: np.ndarray, k: int, mask=None):
-        """Collections with an unencoded tail: the code scan's top S rescored
-        on the host mirror, an exact scan of the tail, and a merge."""
+        """The two-fetch route of streaming corpora and of collections with
+        an unencoded tail: the code scan's top S rescored on the host mirror,
+        an exact scan of the tail, and a merge."""
         metric = self.metric
         corpus = coll.corpus()
         n_codes = self.encoded_rows

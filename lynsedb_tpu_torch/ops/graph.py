@@ -750,6 +750,27 @@ def robust_prune(x, node_ids: Optional[torch.Tensor], cand_ids: torch.Tensor, *,
 robust_prune.launches = 0
 
 
+def prune_gathered(node_rows: torch.Tensor, cand_rows: torch.Tensor, node_ids, cand_ids,
+                   alpha: float, *, metric: Metric, r: int, descending: bool) -> np.ndarray:
+    """K20 over pre-gathered rows (the JAX package's prune_gathered): the
+    (m, D) node rows and their (m, L, D) candidate rows, gathered from the
+    host mirror by a caller whose corpus has no device copy, form one small
+    local corpus; a candidate that is -1 or the node itself is dropped.
+    Returns the (m, r) pruned global ids, -1 padded."""
+    m, l, d = cand_rows.shape
+    dev = node_rows.device
+    node_ids = torch.as_tensor(np.asarray(node_ids, dtype=np.int64), device=dev)
+    cand = torch.as_tensor(np.asarray(cand_ids, dtype=np.int64), device=dev)
+    x = torch.cat([node_rows.reshape(m, d), cand_rows.reshape(m * l, d)]).to(torch.float32)
+    local = m + torch.arange(m * l, device=dev).reshape(m, l)
+    local = torch.where((cand < 0) | (cand == node_ids[:, None]), -1, local).to(torch.int32)
+    out = robust_prune(x.contiguous(), torch.arange(m, dtype=torch.int32, device=dev),
+                       local.contiguous(), metric=metric, r=r, alpha=alpha,
+                       descending=descending).long()
+    glob = torch.where(out >= m, cand.reshape(-1)[(out - m).clamp_min(0)], -1)
+    return glob.cpu().numpy()
+
+
 def candidate_pair_keys(x, cand_ids: torch.Tensor, metric: Metric) -> torch.Tensor:
     """(BS, L, L) similarity keys among each point's candidates (rows of
     max(id, 0)), for the host prune."""
@@ -1225,8 +1246,13 @@ CPU_BITMAP_BUDGET = 1 << 30
 
 
 def bitmap_budget(device: torch.device) -> int:
-    """Bytes the beam's visited bitmaps may take: an eighth of the card's
-    free memory (as ops/scan._check_fits counts it), or the CPU budget."""
+    """Bytes the beam's visited bitmaps may take: an eighth of the device
+    budget where ops/scan.DEVICE_BYTES sets one, else of the card's free
+    memory, or the CPU budget."""
+    from . import scan
+
+    if scan.DEVICE_BYTES > 0:
+        return scan.DEVICE_BYTES // 8
     if device.type != "cuda":
         return CPU_BITMAP_BUDGET // 8
     free, _ = torch.cuda.mem_get_info(device)
@@ -1275,11 +1301,15 @@ def finalize_ranked(dists: np.ndarray, ids: np.ndarray, k: int, metric: Metric):
     return d_arr, i_arr
 
 
-def entry_sample(corpus, n: int, metric: Metric, device, sample: int, norm_top: int):
+def entry_sample(corpus, n: int, metric: Metric, device, sample: int, norm_top: int,
+                 pinned: Optional[np.ndarray] = None):
     """A fixed entry-scan node sample on the card: (ids int32, the rows'
-    corpus transform); ``norm_top`` pins the top-norm band (raw MIPS)."""
+    corpus transform); ``norm_top`` pins the top-norm band (raw MIPS),
+    ``pinned`` adds rows the graph cannot reach (DiskANN's unlinked rows)."""
     ids = entry_sample_ids(n, sample, sq_norms=corpus.host_sq_norms() if norm_top else None,
                            norm_top=norm_top)
+    if pinned is not None and len(pinned):
+        ids = np.concatenate([ids, np.asarray(pinned, dtype=np.int32)])
     rows = corpus.host_rows(ids.astype(np.int64)).astype(np.float32)
     return (torch.from_numpy(ids.astype(np.int32)).to(device),
             D.corpus_transform(torch.from_numpy(rows).to(device), metric))

@@ -1,16 +1,29 @@
-"""The flat-scan engine: a device-resident corpus and the searches over it.
+"""The flat-scan engine: a corpus on the device and the searches over it.
 
 Port of lynsedb_tpu/ops/scan.py. The corpus keeps
 
-  * an exact f32 mirror of every row in host RAM (numpy), the source every
-    device array is staged from;
-  * on the device: a mean-centred **bf16** copy (the first-pass scan array),
-    its per-row aux arrays (``xm``, ``xc_sq``, ``xsq_true``), an **f32** copy
-    (the exact scan and the rescore gather from it), the validity mask and the
-    corpus transform of the metric searched last (norms, centred or
-    probability rows, bit-packed rows; ops/distance.py).
+  * an exact f32 mirror of every row in host RAM (numpy, spilled to a
+    temp-file memmap past ``MIRROR_RAM_BYTES``), the source every device
+    array is staged from;
+  * on the device, as far as the device budget (``DEVICE_BYTES``) allows: a
+    mean-centred **bf16** copy (the first-pass scan array), its per-row aux
+    arrays (``xm``, ``xc_sq``, ``xsq_true``), an **f32** copy (the exact scan
+    and the rescore gather from it), the validity mask and the corpus
+    transform of the metric searched last (norms, centred or probability
+    rows, bit-packed rows; ops/distance.py).
 
-A search runs one of three plans, each a chain of hand-written kernels:
+Three tiers, chosen at staging from the port's byte counts:
+
+  * **resident**: every copy fits (``device_bytes``);
+  * **host-rescore**: the f32 copy does not fit but the bf16 copy, its aux
+    arrays, the mask and the search scratch do; the first pass runs on the
+    device and returns ids only, and the resolver rescores them exactly from
+    the host mirror;
+  * **streaming**: not even the bf16 copy fits; it moves to a host mirror and
+    each search pumps fixed blocks through two pinned staging buffers while
+    K8 carries a top-C state from block to block.
+
+A search runs one of these plans, each a chain of hand-written kernels:
 
   * **exact** (every metric below ``TWO_PASS_MIN_ROWS`` rows or under
     ``mode="exact"``, and always for the 13 metrics outside IP/L2/cosine): the
@@ -18,23 +31,25 @@ A search runs one of three plans, each a chain of hand-written kernels:
     ``flat_scores_f32`` (IP, L2, cosine), K6a ``gemm_metric_scores``
     (correlation, Hellinger), K6b ``binary_scores`` (Hamming, Jaccard,
     Tanimoto, Dice) or K6c ``elementwise_scores`` (the rest) — and K5
-    ``topk_select`` takes the top k;
+    ``topk_select`` takes the top k. Off the resident tier the f32 rows are
+    pumped from the host mirror block by block (K8 over the f32 blocks);
   * **two-pass** (IP/L2/cosine): K2 ``bf16_centered_scores`` scores the
     centred bf16 copy, K5 takes a top-C shortlist, K3 ``rescore_topk``
-    rescores it exactly in f32 and sorts on (score, id);
+    rescores it exactly in f32 and sorts on (score, id) — or, off the
+    resident tier, the host mirror does;
   * **gather** (IP/L2/cosine under a selective filter: at most
     ``GATHER_MAX_ROWS`` rows and at most a quarter of the corpus, K4): K11
     ``bf16_gather_scores`` scores only the filter's rows from the centred
-    copy, K5 takes the top C of them, K3 rescores with global ids.
+    copy, K5 takes the top C of them, K3 rescores with global ids. A
+    streaming corpus scores the filter's rows exactly on the host instead.
 
 Every other filter is a mask on its plan's pass. ``search_approx`` for the L1
 family is K6c on the bf16 copy, K5, then K6c over the shortlist's f32 rows
-(K9, K10); range search is the top-(max_results) search with a threshold test
-(K10); ``rescore`` of explicit rows runs on the host mirror for IP/L2/cosine
-and through the distance kernels' gather mode for the rest (K10). The JAX
-package's host-rescore route and its streaming tier for corpora whose copies
-do not fit on the device are not ported (ROADMAP A.5b): staging such a corpus
-raises.
+(K9, K10); off the resident tier the L1 family always runs that plan, its
+rescore over rows gathered from the host mirror. Range search is the
+top-(max_results) search with a threshold test (K10); ``rescore`` of explicit
+rows runs on the host mirror for IP/L2/cosine and through the distance
+kernels' gather mode for the rest (K10).
 
 The quantized FLAT indexes (index/quantized.py) end in the same K3 rescore:
 their code scan's top S goes through :func:`shortlist_device_rescore_ids`
@@ -47,7 +62,13 @@ hold against the JAX package.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+import os
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,7 +76,7 @@ import torch
 from ..metrics import Metric
 from . import _cuda
 from . import distance as D
-from .topk import topk_select, unorient
+from .topk import topk_select, topk_select_plain, unorient
 
 # Metrics served by the bf16 first pass + exact f32 rescore.
 TWO_PASS_METRICS = (Metric.IP, Metric.L2, Metric.COSINE)
@@ -80,6 +101,21 @@ PLAIN_ELEMENTS = 1 << 25
 # Largest shortlist K3 sorts in shared memory; a larger one goes through K5.
 RESCORE_SORT_MAX = 1024
 
+# The device budget of one corpus in bytes. 0 (the default) is the card's
+# free memory plus what the corpus holds already (no limit for a CPU corpus).
+DEVICE_BYTES = int(os.environ.get("LYNSE_DEVICE_BYTES", "0"))
+# Rows one streaming block holds, in bytes of its pumped rows.
+STREAM_BLOCK_BYTES = 1 << 30
+# The bytes both pinned staging buffers of a streaming pass hold together.
+STREAM_INFLIGHT_BYTES = 3 << 30
+# Host mirrors larger than this spill to a temp-file memmap (the reference
+# scans mmap'd segments the same way, flat_mmap.rs:89).
+MIRROR_RAM_BYTES = 16 << 30
+# Host threads that copy mirror rows into a pinned staging buffer.
+FILL_THREADS = 4
+
+RESIDENT, HOST_RESCORE, STREAMING = "resident", "host_rescore", "streaming"
+
 # The kernels' metric codes (csrc/common.cuh lt::Metric, lt::BinaryMetric).
 _METRIC_CODE = {Metric.IP: 0, Metric.L2: 1, Metric.COSINE: 2}
 _GEMM_CODE = {**_METRIC_CODE, Metric.CORRELATION: 3, Metric.HELLINGER: 4}
@@ -88,6 +124,9 @@ _ELEM_CODE = {Metric.L1: 5, Metric.CHEBYSHEV: 6, Metric.CANBERRA: 7, Metric.BRAY
               Metric.WASSERSTEIN: 9, Metric.JENSEN_SHANNON: 10, Metric.HAVERSINE: 11}
 # the metrics K6c's bf16 mode serves (the rows themselves, not a transform)
 _BF16_ELEM = (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS)
+# the metrics whose first pass reads the centred bf16 copy off the resident
+# tier; the other nine stream their exact f32 rows
+_BF16_PASS = TWO_PASS_METRICS + _BF16_ELEM
 
 
 def resolve_device(device) -> torch.device:
@@ -106,6 +145,38 @@ def resolve_device(device) -> torch.device:
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _alloc_rows(n_rows: int, dim: int, np_dtype) -> np.ndarray:
+    """A zeroed (n_rows, dim) host mirror: in RAM up to MIRROR_RAM_BYTES, an
+    anonymous temp-file memmap above (the OS pages it)."""
+    nbytes = n_rows * dim * np.dtype(np_dtype).itemsize
+    if nbytes <= MIRROR_RAM_BYTES:
+        return np.zeros((n_rows, dim), dtype=np_dtype)
+    f = tempfile.TemporaryFile(prefix="lynse_mirror_")
+    f.truncate(nbytes)
+    mm = np.memmap(f, dtype=np_dtype, mode="r+", shape=(n_rows, dim))
+    mm._lynse_backing = f  # the file lives as long as the array
+    return mm
+
+
+@functools.cache
+def _fill_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(FILL_THREADS, thread_name_prefix="lynse_fill")
+
+
+def _copy_rows(dst: np.ndarray, src: np.ndarray) -> None:
+    """dst[:] = src over FILL_THREADS host threads (numpy copies release the
+    GIL), so a pinned buffer fills at more than one core's copy rate."""
+    n = len(src)
+    if n < 4 * FILL_THREADS * 1024:
+        np.copyto(dst, src)
+        return
+    step = -(-n // FILL_THREADS)
+    parts = [_fill_pool().submit(np.copyto, dst[lo : lo + step], src[lo : lo + step])
+             for lo in range(0, n, step)]
+    for part in parts:
+        part.result()
 
 
 def _kernel_metric(name: str, metric: Metric) -> int:
@@ -572,6 +643,71 @@ def shortlist_device_rescore_ids(q: torch.Tensor, approx_keys: torch.Tensor, x16
     return top2, torch.where(top2 > float("-inf"), gid, -1)
 
 
+# ── K8: one block of the streaming scan ──────────────────────────────────
+
+
+class StreamBlock(NamedTuple):
+    """One corpus block on the scan's device: rows [base, base + len(x)).
+    ``kind`` "bf16": ``x`` the centred bf16 rows, ``aux`` their xm / xc_sq
+    / xsq_true, ``mean`` (D,); "f32": ``x`` the exact rows. ``valid`` (r,)
+    bool is the block's mask (range, tombstones, filter)."""
+
+    kind: str
+    x: torch.Tensor
+    aux: Optional[dict]
+    valid: torch.Tensor
+    base: int
+    mean: Optional[torch.Tensor]
+
+
+def stream_block_keys(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock,
+                      metric: Metric, plain: bool = False) -> torch.Tensor:
+    """The oriented, masked keys (B, r) of one block: K2 over a bf16 block
+    (IP, L2, cosine), K6c's bf16 mode (the L1 family), or the metric's exact
+    kernel over the transform of an f32 block (``qt`` its query transform).
+    ``plain``: the kernels' plain versions, on any device."""
+    if blk.kind == "f32":
+        ct = D.corpus_transform(blk.x, metric)
+        return (metric_keys_plain if plain else metric_keys)(qt, ct, blk.valid, metric)
+    if metric in TWO_PASS_METRICS:
+        aux = {"mean": blk.mean, **blk.aux}
+        fn = bf16_centered_scores_plain if plain else bf16_centered_scores
+        return fn(q, blk.x, aux, blk.valid, metric)
+    if plain:
+        return metric_keys_plain({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
+    return elementwise_scores({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
+
+
+def stream_block(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock, keys: torch.Tensor,
+                 ids: torch.Tensor, metric: Metric, c: int):
+    """K8: advance one query chunk's carried top-C state (``keys`` (B, C)
+    f32, ``ids`` (B, C) int32 global row ids, -inf / -1 in empty slots)
+    across one block: the block's keys (:func:`stream_block_keys`), K5's top
+    C of them with global ids, and K5's ``ids`` mode merging them into the
+    state (best key first, the lower id between equal keys). Returns the new
+    (keys, ids)."""
+    bk = stream_block_keys(q, qt, blk, metric)
+    top, loc = topk_select(bk, min(c, bk.shape[1]))
+    del bk
+    gid = torch.where(top > float("-inf"), loc + blk.base, -1).to(torch.int32)
+    out = topk_select(torch.cat([keys, top], dim=1), c, ids=torch.cat([ids, gid], dim=1))
+    if q.device.type == "cuda":
+        stream_block.launches += 1
+    return out
+
+
+stream_block.launches = 0
+
+
+def stream_block_plain(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock,
+                       keys: torch.Tensor, ids: torch.Tensor, metric: Metric, c: int):
+    """Plain version of :func:`stream_block`, on the inputs' device."""
+    bk = stream_block_keys(q, qt, blk, metric, plain=True)
+    top, loc = topk_select_plain(bk, min(c, bk.shape[1]))
+    gid = torch.where(top > float("-inf"), loc + blk.base, -1).to(torch.int32)
+    return topk_select_plain(torch.cat([keys, top], dim=1), c, ids=torch.cat([ids, gid], dim=1))
+
+
 # ── host-side exact scores ───────────────────────────────────────────────
 
 
@@ -646,11 +782,13 @@ def _empty(b: int) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
 
 
 class DeviceCorpus:
-    """Device-resident corpus for one vector field (the role of the
-    reference's FlatMmap, src/storage/flat_mmap.rs:89): the exact f32 host
-    mirror, and on ``device`` the centred bf16 copy, its aux arrays, the f32
-    copy and the validity mask. ``device`` is explicit: "cuda" needs a card
-    and runs the kernels; "cpu" runs their plain versions."""
+    """The corpus of one vector field (the role of the reference's
+    FlatMmap, src/storage/flat_mmap.rs:89): the exact f32 host mirror, and on
+    ``device`` what its tier holds — the centred bf16 copy, its aux arrays,
+    the f32 copy and the validity mask (resident), the bf16 copy, aux and
+    mask (host-rescore), or nothing corpus-sized (streaming: a bf16 host
+    mirror pumped through the card). ``device`` is explicit: "cuda" needs a
+    card and runs the kernels; "cpu" runs their plain versions."""
 
     APPROX_MIN_ROWS = 65_536  # approx engage threshold (approx_search.rs:49)
 
@@ -661,7 +799,9 @@ class DeviceCorpus:
         self.n = 0
         self.capacity = 0
         self.epoch = 0
+        self.tier = RESIDENT
         self._host = np.zeros((0, self.dim), dtype=np.float32)  # exact mirror
+        self._host16: Optional[np.ndarray] = None  # streaming: (cap, dim) bf16 bits, int16
         self._dev16: Optional[torch.Tensor] = None  # (cap, dim) centred bf16
         self._dev32: Optional[torch.Tensor] = None  # lazy (cap, dim) f32
         self._tombs_np = np.zeros(0, dtype=bool)
@@ -674,74 +814,138 @@ class DeviceCorpus:
         self._xsqtrue_host: Optional[np.ndarray] = None  # (cap,) true row norms
         self._aux: Optional[dict] = None  # device copies of mean and the aux rows
         self._valid_base: Optional[torch.Tensor] = None
-        # (metric, corpus transform) of the metric searched last: one at a time;
-        # a restage counts that metric's transform (_check_fits)
+        # (metric, corpus transform) of the metric searched last: one at a time
         self._transform: Optional[tuple[Metric, dict]] = None
-        self._last_metric: Optional[Metric] = None
         self._dirty = True
         self._dirty_lo = 0
         # rows scored by the most recent search (QueryProfile.scanned_vectors)
         self.last_scanned = 0
+        # a list to append each streamed block's timing events to (None: off)
+        self.stream_trace: Optional[list] = None
 
-    # ── staging ──────────────────────────────────────────────────────────
+    # ── the device budget and the tiers ──────────────────────────────────
 
     def _cap_for(self, n: int) -> int:
         return _round_up(max(n, 1), ROW_ALIGN)
 
+    def _scratch_bytes(self, cap: int) -> int:
+        """One search's scratch: the (B, cap) score matrix at the largest
+        batch, and K5's two buffers, which hold at most cap (key, index)
+        pairs a row for any k."""
+        b_max = max(1, SCORE_BUDGET // cap)
+        return b_max * cap * 4 + 2 * b_max * cap * 8
+
     def device_bytes(self, cap: int, metric: Optional[Metric] = None) -> int:
-        """Device memory a corpus of ``cap`` rows needs at its largest: the
-        bf16 and f32 copies, the aux rows and masks, the corpus transform of
-        ``metric`` (none if None), and one search's scratch (the (B, cap)
-        score matrix at the largest batch, and K5's two buffers, which hold
-        at most cap (key, index) pairs a row for any k)."""
+        """Device memory the resident tier needs at its largest: the bf16
+        and f32 copies, the aux rows and masks, the corpus transform of
+        ``metric`` (none if None), and one search's scratch."""
         copies = cap * self.dim * (2 + 4) + cap * (4 * 3 + 2)
         if metric is not None:
             copies += cap * D.transform_row_bytes(metric, self.dim)
-        b_max = max(1, SCORE_BUDGET // cap)
-        return copies + b_max * cap * 4 + 2 * b_max * cap * 8
+        return copies + self._scratch_bytes(cap)
+
+    def host_rescore_bytes(self, cap: int) -> int:
+        """Device memory the host-rescore tier needs: the bf16 copy, its aux
+        rows, the masks and one search's scratch."""
+        return cap * self.dim * 2 + cap * (4 * 3 + 2) + self._scratch_bytes(cap)
 
     def _held_bytes(self) -> int:
-        """Device bytes of the copies, aux rows and mask staged now (the
-        metric transform is dropped before any check that counts it)."""
+        """Device bytes of the copies, aux rows and mask staged now."""
         held = [self._dev16, self._dev32, self._valid_base, *(self._aux or {}).values()]
         return sum(t.numel() * t.element_size() for t in held if t is not None)
+
+    def _transform_bytes(self) -> int:
+        if self._transform is None:
+            return 0
+        return sum(t.numel() * t.element_size() for t in self._transform[1].values()
+                   if isinstance(t, torch.Tensor) and t is not self._dev32)
 
     def _free_bytes(self) -> int:
         free, _ = torch.cuda.mem_get_info(self.device)
         return free + torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(
             self.device)
 
-    def _check_fits(self, cap: int, metric: Optional[Metric]) -> None:
-        """Raise before staging a corpus, or ``metric``'s transform of it,
-        whose device copies, transform and search scratch do not fit the
-        card's free memory beside what this corpus holds already. Such
-        corpora need the host-rescore route or the streaming tier, which are
-        not ported."""
+    def budget(self) -> int:
+        """The device bytes this corpus may hold: DEVICE_BYTES where set,
+        else the card's free memory plus what the corpus holds (no limit for
+        a CPU corpus)."""
+        if DEVICE_BYTES > 0:
+            return DEVICE_BYTES
         if self.device.type != "cuda":
-            return
-        free, need = self._free_bytes() + self._held_bytes(), self.device_bytes(cap, metric)
-        if need > free:
-            what = "" if metric is None else f" and the {metric.value} transform"
+            return sys.maxsize
+        return self._free_bytes() + self._held_bytes() + self._transform_bytes()
+
+    def _tier_for(self, cap: int) -> str:
+        """The tier of the copies alone: a metric's transform is staged
+        beside the resident copies where it fits, and a search whose
+        transform does not fit pumps its exact rows instead (``_submit``),
+        so no metric moves the corpus off its tier."""
+        budget = self.budget()
+        if self.device_bytes(cap) <= budget:
+            return RESIDENT
+        if self.host_rescore_bytes(cap) <= budget:
+            return HOST_RESCORE
+        return STREAMING
+
+    def _check_fits(self) -> None:
+        """Raise where not even a streaming pass fits the budget: two
+        ROW_ALIGN-row blocks of the f32 pump (the widest) and a 64-query
+        chunk's keys with K5's buffers."""
+        need = 2 * ROW_ALIGN * (self.dim * 4 + 1) + 64 * ROW_ALIGN * (4 + 16)
+        budget = self.budget()
+        if need > budget:
             raise RuntimeError(
-                f"a corpus of {self.n} x {self.dim} rows needs {need} bytes on {self.device} "
-                f"(bf16 and f32 copies{what} and search scratch) but {free} are free; the "
-                "host-rescore route and the streaming tier for such corpora are not ported yet "
-                "(ROADMAP A.5)"
-            )
+                f"a corpus of {self.n} x {self.dim} rows cannot be searched on {self.device}: "
+                f"even one streamed block of {ROW_ALIGN} rows and its scratch need {need} bytes, "
+                f"but the device budget is {budget} (LYNSE_DEVICE_BYTES)")
+
+    def would_stream(self) -> bool:
+        """Whether (re)staging at the current row count streams: the tier
+        staged if nothing is pending, else the tier staging would choose,
+        without staging anything (write paths ask before the first search
+        after a commit)."""
+        if self.n == 0:
+            return False
+        if not self._dirty:
+            return self.tier == STREAMING
+        return self._tier_for(self._cap_for(self.n)) == STREAMING
+
+    @property
+    def streaming(self) -> bool:
+        """True when the staged tier is the streaming one."""
+        return self.tier == STREAMING
+
+    def restage(self) -> None:
+        """Drop every staged array and stage again under the current budget
+        (the tier may change)."""
+        self._dirty, self._dirty_lo = True, 0
+        self._transform = None
+        self._ensure_staged()
+
+    def _fits(self, metric: Metric) -> bool:
+        """Whether ``metric``'s transform fits beside the resident copies."""
+        if self._transform is not None and self._transform[0] is metric:
+            return True
+        return self.device_bytes(self.capacity, metric) <= self.budget()
+
+    # ── staging ──────────────────────────────────────────────────────────
 
     def _ensure_staged(self) -> None:
-        """Stage (or refresh) the device arrays from the host mirror.
+        """Stage (or refresh) the tier's arrays from the host mirror.
 
-        Writes touch only the host mirror; the device arrays are rebuilt here
-        on demand. A small contiguous tail at unchanged capacity updates in
-        place; anything else restages fully, dropping the old arrays first."""
+        Writes touch only the host mirror; the device arrays (or the
+        streaming bf16 mirror) are rebuilt here on demand. A small
+        contiguous tail at unchanged capacity and tier updates in place;
+        anything else restages fully, dropping the old arrays first."""
         if not self._dirty or self.n == 0:
             return
         cap = self._cap_for(self.n)
+        tier = self._tier_for(cap)
         incremental = (
-            self._dev16 is not None
+            tier == self.tier
             and cap == self.capacity
             and self._mean_np is not None
+            and (self._dev16 is not None or self._host16 is not None)
             and (self.n - self._dirty_lo) * 2 <= self.n
         )
         if incremental:
@@ -750,28 +954,37 @@ class DeviceCorpus:
             self._sq_host[lo : self.n] = sq
             self._xm_host[lo : self.n] = xm
             self._xsqtrue_host[lo : self.n] = xsqt
-            self._dev16[lo : self.n] = tail16.to(self.device)
             self._aux = None  # host aux changed; restage lazily
-            if self._dev32 is not None:
-                self._dev32[lo : self.n] = torch.from_numpy(self._host[lo : self.n]).to(self.device)
+            if tier == STREAMING:
+                self._host16[lo : self.n] = tail16.view(torch.int16).numpy()
+            else:
+                self._dev16[lo : self.n] = tail16.to(self.device)
+                if self._dev32 is not None:
+                    self._dev32[lo : self.n] = torch.from_numpy(
+                        np.ascontiguousarray(self._host[lo : self.n])).to(self.device)
         else:
-            self._dev16 = None  # free before reallocating
-            self._dev32 = None
-            self._aux = None
-            self._check_fits(cap, self._last_metric)
+            self._dev16 = self._dev32 = self._host16 = None  # free before reallocating
+            self._aux = self._valid_base = None
+            self._transform = None
+            self.tier = tier
+            if tier == STREAMING:
+                self._check_fits()
             self._compute_mean()
-            full16 = torch.zeros((cap, self.dim), dtype=torch.bfloat16)
+            full16 = _alloc_rows(cap, self.dim, np.int16)  # bf16 bits
             self._sq_host = np.zeros(cap, dtype=np.float32)
             self._xm_host = np.zeros(cap, dtype=np.float32)
             self._xsqtrue_host = np.zeros(cap, dtype=np.float32)
             for lo in range(0, self.n, STAGE_ROWS):
                 hi = min(lo + STAGE_ROWS, self.n)
                 block16, sq, xm, xsqt = self._convert_block(lo, hi)
-                full16[lo:hi] = block16
+                full16[lo:hi] = block16.view(torch.int16).numpy()
                 self._sq_host[lo:hi] = sq
                 self._xm_host[lo:hi] = xm
                 self._xsqtrue_host[lo:hi] = xsqt
-            self._dev16 = full16.to(self.device)
+            if tier == STREAMING:
+                self._host16 = full16
+            else:
+                self._dev16 = torch.from_numpy(full16).view(torch.bfloat16).to(self.device)
             self.capacity = cap
         self._valid_base = None
         self._dirty = False
@@ -812,11 +1025,12 @@ class DeviceCorpus:
         if m == 0:
             return
         if self.n + m > len(self._host):
-            new_len = max(8192, len(self._host))
-            while new_len < self.n + m:
-                new_len *= 2
-            host = np.zeros((new_len, self.dim), dtype=np.float32)
-            host[: self.n] = self._host[: self.n]
+            # double the mirror, or fit it exactly to one append past that
+            new_len = max(8192, 2 * len(self._host), self.n + m)
+            host = _alloc_rows(new_len, self.dim, np.float32)
+            for lo in range(0, self.n, STAGE_ROWS):
+                hi = min(lo + STAGE_ROWS, self.n)
+                host[lo:hi] = self._host[lo:hi]
             self._host = host
         self._host[self.n : self.n + m] = rows
         self._dirty_lo = min(self._dirty_lo, self.n)
@@ -837,18 +1051,24 @@ class DeviceCorpus:
 
     def overwrite(self, row_ids: np.ndarray, rows: np.ndarray) -> None:
         """Positional overwrite (upsert path). Overwritten rows centre with
-        the existing mean (any fixed mean preserves rankings)."""
+        the existing mean (any fixed mean preserves rankings); a streaming
+        corpus rewrites its bf16 mirror in place."""
         rows = np.ascontiguousarray(rows, dtype=np.float32)
         ids = np.asarray(row_ids, dtype=np.int64)
         self._host[ids] = rows
-        if self._dev16 is not None and not self._dirty and self._mean_np is not None:
+        if self._dirty or self._mean_np is None:
+            self._dirty_lo = 0  # scattered rows: full restage
+            self._dirty = True
+        elif self._host16 is not None:
+            self._host16[ids] = self._overwrite_aux(ids, rows).view(torch.int16).numpy()
+        elif self._dev16 is not None:
             xc16 = self._overwrite_aux(ids, rows)
             idx = torch.from_numpy(ids).to(self.device)
             self._dev16[idx] = xc16.to(self.device)
             if self._dev32 is not None:
                 self._dev32[idx] = torch.from_numpy(rows).to(self.device)
         else:
-            self._dirty_lo = 0  # scattered rows: full restage
+            self._dirty_lo = 0
             self._dirty = True
         self._invalidate()
 
@@ -868,7 +1088,9 @@ class DeviceCorpus:
     def reset(self) -> None:
         self.n = 0
         self.capacity = 0
+        self.tier = RESIDENT
         self._host = np.zeros((0, self.dim), dtype=np.float32)
+        self._host16 = None
         self._dev16 = None
         self._dev32 = None
         self._tombs_np = np.zeros(0, dtype=bool)
@@ -886,13 +1108,22 @@ class DeviceCorpus:
     @property
     def _data(self) -> torch.Tensor:
         """The f32 device copy (cap, D), staged on first use: the exact scan
-        reads it and the rescore gathers from it."""
+        reads it and the rescore gathers from it. A streaming corpus has
+        none."""
         self._ensure_staged()
+        if self.tier == STREAMING:
+            raise ValueError(
+                "the corpus's bf16 copy exceeds the device budget (LYNSE_DEVICE_BYTES); the "
+                "f32 device copy is unavailable in streaming mode, where searches use the "
+                "blockwise streaming scan")
         if self._dev32 is None:
             if self.capacity == 0:
                 raise ValueError("empty corpus")
             full = torch.zeros((self.capacity, self.dim), dtype=torch.float32, device=self.device)
-            full[: self.n] = torch.from_numpy(self._host[: self.n]).to(self.device)
+            for lo in range(0, self.n, STAGE_ROWS):
+                hi = min(lo + STAGE_ROWS, self.n)
+                full[lo:hi] = torch.from_numpy(np.ascontiguousarray(self._host[lo:hi])).to(
+                    self.device)
             self._dev32 = full
         return self._dev32
 
@@ -906,7 +1137,7 @@ class DeviceCorpus:
         their guidance from it with the bf16_aux corrections."""
         self._ensure_staged()
         if self._dev16 is None:
-            raise ValueError("empty corpus")
+            raise ValueError("bf16 device array unavailable (streaming or empty corpus)")
         return self._dev16
 
     def host_sq_norms(self) -> np.ndarray:
@@ -914,11 +1145,6 @@ class DeviceCorpus:
         indexes pin the top-norm band into their IP entry samples)."""
         self._ensure_staged()
         return self._xsqtrue_host[: self.n]
-
-    def would_stream(self) -> bool:
-        """Always False: the port has no streaming tier, and staging a corpus
-        whose copies do not fit raises in _check_fits (ROADMAP A.5)."""
-        return False
 
     def bf16_aux(self) -> dict:
         """Device aux arrays of the centred bf16 copy: mean (D,), xm (cap,),
@@ -934,29 +1160,165 @@ class DeviceCorpus:
 
     def transform(self, metric: Metric) -> dict:
         """The corpus transform of ``metric`` over the f32 copy. One metric's
-        is staged at a time: another metric's replaces it, after a check that
-        the copies, the new transform and the search scratch fit."""
+        is staged at a time: another metric's replaces it. A transform that
+        does not fit the budget beside the resident copies raises (the scan
+        pumps that metric's rows from the host mirror instead)."""
         if self._transform is None or self._transform[0] is not metric:
-            data = self._data
+            self._ensure_staged()
+            if self.tier == STREAMING:
+                return self._data  # raises: no f32 device copy to transform
             self._transform = None  # free before staging another
-            self._last_metric = metric
-            self._check_fits(self.capacity, metric)
-            self._transform = (metric, D.corpus_transform(data, metric))
+            if self.tier != RESIDENT or not self._fits(metric):
+                raise RuntimeError(
+                    f"the {metric.value} transform of {self.n} x {self.dim} rows does not fit "
+                    f"the device budget beside the corpus copies; the corpus is in the "
+                    f"{self.tier} tier, whose scan pumps this metric's rows from the host mirror")
+            self._transform = (metric, D.corpus_transform(self._data, metric))
         return self._transform[1]
+
+    def _host_valid(self, handle: Optional[FilterHandle]) -> np.ndarray:
+        """(n,) bool on the host: not tombstoned and passing the filter."""
+        valid = np.ones(self.n, dtype=bool)
+        m = min(len(self._tombs_np), self.n)
+        valid[:m] &= ~self._tombs_np[:m]
+        if handle is not None:
+            m = min(len(handle.mask), self.n)
+            valid[:m] &= handle.mask[:m]
+            valid[m:] = False
+        return valid
 
     def valid_mask(self, filter_mask=None) -> torch.Tensor:
         """(cap,) bool: rows in range, not tombstoned, and passing the filter."""
         self._ensure_staged()
         if self._valid_base is None:
             host_valid = np.zeros(self.capacity, dtype=bool)
-            host_valid[: self.n] = True
-            m = min(len(self._tombs_np), self.n)
-            host_valid[:m] &= ~self._tombs_np[:m]
+            host_valid[: self.n] = self._host_valid(None)
             self._valid_base = torch.from_numpy(host_valid).to(self.device)
         handle = _handle(filter_mask)
         if handle is None:
             return self._valid_base
         return self._valid_base & handle.device_mask(self.capacity, self.epoch, self.device)
+
+    # ── the streaming pump ───────────────────────────────────────────────
+
+    def _stream_block_rows(self, qc: int, row_bytes: int) -> int:
+        """Rows of one streamed block: within STREAM_BLOCK_BYTES, both
+        buffers within STREAM_INFLIGHT_BYTES and a quarter of the budget
+        each, a query chunk's keys within half the budget and within
+        SCORE_BUDGET; a multiple of ROW_ALIGN. The budget here is what the
+        staged copies leave of it."""
+        budget = self.budget() - self._held_bytes() - self._transform_bytes()
+        rows = min(STREAM_BLOCK_BYTES // row_bytes, STREAM_INFLIGHT_BYTES // (2 * row_bytes),
+                   (budget // 4) // row_bytes, (budget // 2) // (20 * qc), SCORE_BUDGET // qc)
+        return max(ROW_ALIGN, rows // ROW_ALIGN * ROW_ALIGN)
+
+    def _blocks(self, kind: str, rows: int, valid: np.ndarray):
+        """Yield the StreamBlocks of rows [0, n), ``rows`` at a time, on the
+        corpus's device: "bf16" blocks of the centred copy with their aux,
+        or "f32" blocks of the exact mirror, each with its slice of the
+        host mask ``valid``. A CPU corpus yields views of the mirrors; a
+        CUDA corpus pumps them (:meth:`_pump`)."""
+        mean = None if kind == "f32" else torch.from_numpy(self._mean_np).to(self.device)
+        if self.device.type == "cuda":
+            yield from self._pump(kind, rows, valid, mean)
+            return
+        for lo in range(0, self.n, rows):
+            hi = min(lo + rows, self.n)
+            if kind == "bf16":
+                x = torch.from_numpy(self._host16[lo:hi]).view(torch.bfloat16)
+                aux = {name: torch.from_numpy(arr[lo:hi]) for name, arr in self._aux_host()}
+            else:
+                x, aux = torch.from_numpy(np.ascontiguousarray(self._host[lo:hi])), None
+            yield StreamBlock(kind, x, aux, torch.from_numpy(valid[lo:hi]), lo, mean)
+
+    def _aux_host(self):
+        return (("xm", self._xm_host), ("xc_sq", self._sq_host), ("xsq_true", self._xsqtrue_host))
+
+    def _pump(self, kind: str, rows: int, valid: np.ndarray, mean):
+        """The CUDA pump: two pinned staging buffers, each filled from the
+        (possibly memmapped) mirrors by FILL_THREADS host threads, and two
+        device buffers. Block i+1's H2D runs on a second stream while block
+        i is scanned on the current one; events order both ways: a device
+        buffer is overwritten only after the scan that read it
+        (``scanned``), a pinned buffer is refilled only after the copy out
+        of it (``copied``). So at most two blocks are in flight, as
+        STREAM_INFLIGHT_BYTES bounds them, and nothing waits on a fetch."""
+        dev, d = self.device, self.dim
+        es = 2 if kind == "bf16" else 4
+        x_bytes = _round_up(rows * d * es, 256)
+        aux_stride = _round_up(rows * 4, 256)
+        v_off = x_bytes + (3 * aux_stride if kind == "bf16" else 0)
+        size = v_off + _round_up(rows, 256)
+        pinned = [torch.empty(size, dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+        bufs = [torch.empty(size, dtype=torch.uint8, device=dev) for _ in range(2)]
+        copy_stream = torch.cuda.Stream(dev)
+        compute = torch.cuda.current_stream(dev)
+        copied = [torch.cuda.Event() for _ in range(2)]
+        scanned = [torch.cuda.Event() for _ in range(2)]
+        used = [False, False]
+        trace = self.stream_trace
+        src_x = self._host16 if kind == "bf16" else self._host
+        for i, lo in enumerate(range(0, self.n, rows)):
+            s, hi = i % 2, min(lo + rows, self.n)
+            r = hi - lo
+            if used[s]:
+                copied[s].synchronize()
+            t0 = time.perf_counter()
+            host = pinned[s].numpy()
+            _copy_rows(host[: r * d * es].view(src_x.dtype).reshape(r, d), src_x[lo:hi])
+            if kind == "bf16":
+                for j, (_, arr) in enumerate(self._aux_host()):
+                    off = x_bytes + j * aux_stride
+                    host[off : off + r * 4].view(np.float32)[:] = arr[lo:hi]
+            host[v_off : v_off + r] = valid[lo:hi].view(np.uint8)
+            fill_s = time.perf_counter() - t0
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if trace is not None \
+                else None
+            with torch.cuda.stream(copy_stream):
+                if used[s]:
+                    copy_stream.wait_event(scanned[s])
+                if ev:
+                    ev[0].record(copy_stream)
+                bufs[s].copy_(pinned[s], non_blocking=True)
+                if ev:
+                    ev[1].record(copy_stream)
+                copied[s].record(copy_stream)
+            compute.wait_event(copied[s])
+            used[s] = True
+            buf = bufs[s]
+            x = buf[: r * d * es].view(torch.bfloat16 if kind == "bf16" else torch.float32)
+            aux = None
+            if kind == "bf16":
+                aux = {name: buf[x_bytes + j * aux_stride : x_bytes + j * aux_stride + r * 4]
+                       .view(torch.float32) for j, (name, _) in enumerate(self._aux_host())}
+            if ev:
+                ev[2].record(compute)
+            yield StreamBlock(kind, x.view(r, d), aux, buf[v_off : v_off + r].view(torch.bool),
+                              lo, mean)
+            if ev:
+                ev[3].record(compute)
+                trace.append({"rows": r, "bytes": size, "fill_s": fill_s, "events": ev})
+            scanned[s].record(compute)
+
+    def _stream_pass(self, qd: torch.Tensor, metric: Metric, kind: str, c: int,
+                     handle: Optional[FilterHandle], step: Callable = stream_block):
+        """One pass over every block (K8 for each query chunk of 16 or 64
+        queries, all chunks sharing the block): (keys (B, C), ids (B, C)),
+        the best C of every valid row, -inf / -1 in empty slots. ``step``:
+        K8 or its plain version."""
+        b = qd.shape[0]
+        qc = 16 if b <= 16 else 64
+        chunks = [qd[s : s + qc] for s in range(0, b, qc)]
+        qts = [D.query_transform(ch, metric) if kind == "f32" else None for ch in chunks]
+        row_bytes = self.dim * (2 if kind == "bf16" else 4) + (12 if kind == "bf16" else 0) + 1
+        rows = self._stream_block_rows(qc, row_bytes)
+        state = [(torch.full((len(ch), c), float("-inf"), device=self.device),
+                  torch.full((len(ch), c), -1, dtype=torch.int32, device=self.device))
+                 for ch in chunks]
+        for blk in self._blocks(kind, rows, self._host_valid(handle)):
+            for i, ch in enumerate(chunks):
+                state[i] = step(ch, qts[i], blk, *state[i], metric, c)
+        return torch.cat([s[0] for s in state]), torch.cat([s[1] for s in state])
 
     # ── search entry points ──────────────────────────────────────────────
 
@@ -983,8 +1345,8 @@ class DeviceCorpus:
         """Launch a search; returns a zero-arg resolver that waits for the
         device and returns (dists (B, k'), row ids (B, k')) trimmed of empty
         slots (ids -1 pad rows that found fewer). Distances are exact f32.
-        ``mode``: "auto" picks the plan by metric, size and filter; "exact"
-        forces the one-pass scan; "approx" is search_approx's plan."""
+        ``mode``: "auto" picks the plan by metric, size, filter and tier;
+        "exact" forces the one-pass scan; "approx" is search_approx's plan."""
         q = np.ascontiguousarray(np.atleast_2d(np.asarray(queries, dtype=np.float32)))
         b = q.shape[0]
         if self.n == 0:
@@ -995,9 +1357,9 @@ class DeviceCorpus:
         self._ensure_staged()
         # keep the (B, cap) score matrix within SCORE_BUDGET by splitting
         # oversized batches; every part is launched before any is resolved
-        # (the gather route scores fewer rows and splits the same way)
+        # (a streaming pass chunks its queries itself)
         max_b = max(1, SCORE_BUDGET // self.capacity)
-        if b > max_b:
+        if b > max_b and self.tier != STREAMING:
             resolvers = [
                 self._submit(q[s : s + max_b], k, metric, handle, mode, oversample)
                 for s in range(0, b, max_b)
@@ -1006,22 +1368,25 @@ class DeviceCorpus:
         return self._submit(q, k, metric, handle, mode, oversample)
 
     def _submit(self, q: np.ndarray, k: int, metric: Metric, handle, mode: str, oversample: int):
+        """Route one search to its plan by tier (the module docstring)."""
         qd = torch.from_numpy(q).to(self.device)
-        if mode == "approx" and metric not in TWO_PASS_METRICS:
-            return self._approx_submit(qd, k, metric, self.valid_mask(handle), oversample)
-        two_pass = mode != "exact" and metric in TWO_PASS_METRICS and self.n >= TWO_PASS_MIN_ROWS
-        if not two_pass:
-            return self._exact_submit(qd, k, metric, self.valid_mask(handle))
-        if handle is not None and handle.use_gather(self.n):
-            return self._gather_submit(qd, k, metric, handle, oversample)
-        c = self._shortlist_size(k, self.n, oversample)
-        self.last_scanned = self.n + c  # full first pass + exact rescore rows
-        keys = bf16_centered_scores(qd, self._dev16, self.bf16_aux(), self.valid_mask(handle),
-                                    metric)
-        cand_keys, cand_idx = topk_select(keys, c)
-        del keys
-        dists, ids = rescore_topk(qd, self._data, cand_keys, cand_idx, min(k, c), metric)
-        return lambda: _trim_results(*_fetch(dists, ids))
+        exact = mode == "exact" or metric not in _BF16_PASS or self.n < TWO_PASS_MIN_ROWS
+        if self.tier == RESIDENT:
+            if mode == "approx" and metric not in TWO_PASS_METRICS:
+                return self._approx_submit(qd, k, metric, self.valid_mask(handle), oversample)
+            if not exact and metric in TWO_PASS_METRICS:
+                end = self._two_pass(qd, k, metric, handle, oversample)
+                return lambda: end(q)
+            if self._fits(metric):
+                return self._exact_submit(qd, k, metric, self.valid_mask(handle))
+            # its transform does not fit beside the copies: pump its exact rows
+            return self._stream_submit(q, qd, k, metric, handle, oversample, True)
+        if self.tier == STREAMING or exact:
+            return self._stream_submit(q, qd, k, metric, handle, oversample, exact)
+        if metric in TWO_PASS_METRICS:
+            end = self._two_pass(qd, k, metric, handle, oversample)
+            return lambda: end(q)
+        return self._bf16_elem_submit(q, qd, k, metric, handle, oversample, mode == "approx")
 
     def gather_inputs(self, handle: FilterHandle) -> tuple[torch.Tensor, torch.Tensor]:
         """The gather route's K11 inputs: the filter's (1, S) int32 row list,
@@ -1030,20 +1395,144 @@ class DeviceCorpus:
         idx = handle.device_indices(self.n, self.epoch, self.device)
         return idx, torch.where(self.valid_mask()[idx.long()], 0.0, float("-inf"))
 
-    def _gather_submit(self, qd: torch.Tensor, k: int, metric: Metric, handle: FilterHandle,
-                       oversample: int):
-        """The gather route of a selective filter (K4): K11 scores the
-        filter's rows of the centred bf16 copy, K5 takes the top C, K3
-        rescores them exactly with global ids."""
-        idx, slot = self.gather_inputs(handle)
-        c = min(self._shortlist_size(k, handle.count, oversample), idx.shape[1])
-        self.last_scanned = handle.count + c  # the subset + exact rescore rows
-        keys = bf16_gather_scores(qd, self._dev16, self.bf16_aux(), idx, slot, metric)
-        top, local = topk_select(keys, c)
+    def _two_pass(self, qd: torch.Tensor, k: int, metric: Metric, handle, oversample: int):
+        """The two-pass plan over the device's bf16 copy: K2 -> K5, or the
+        gather route of a selective filter (K4: K11 -> K5 with global ids),
+        then the exact rescore: K3 on the device in the resident tier, the
+        host mirror otherwise (the device never holds the f32 copy there).
+        Returns a resolver that takes the queries' host rows."""
+        if handle is not None and handle.use_gather(self.n):
+            idx, slot = self.gather_inputs(handle)
+            c = min(self._shortlist_size(k, handle.count, oversample), idx.shape[1])
+            self.last_scanned = handle.count + c  # the subset + exact rescore rows
+            keys = bf16_gather_scores(qd, self._dev16, self.bf16_aux(), idx, slot, metric)
+            top, local = topk_select(keys, c)
+            gid = torch.where(top > float("-inf"), idx[0][local.long()], -1)
+        else:
+            c = self._shortlist_size(k, self.n, oversample)
+            self.last_scanned = self.n + c  # full first pass + exact rescore rows
+            keys = bf16_centered_scores(qd, self._dev16, self.bf16_aux(),
+                                        self.valid_mask(handle), metric)
+            top, gid = topk_select(keys, c)
         del keys
-        gid = torch.where(top > float("-inf"), idx[0][local.long()], -1)
-        dists, ids = rescore_topk(qd, self._data, top, gid, min(k, c), metric)
-        return lambda: _trim_results(*_fetch(dists, ids))
+        if self.tier == RESIDENT:
+            dists, ids = rescore_topk(qd, self._data, top, gid, min(k, c), metric)
+            return lambda q_np: _trim_results(*_fetch(dists, ids))
+        return lambda q_np: self._rescore_fetched(q_np, top, gid, metric, k)
+
+    def _bf16_elem_submit(self, q: np.ndarray, qd: torch.Tensor, k: int, metric: Metric, handle,
+                          oversample: int, approx: bool):
+        """The L1 family in the host-rescore tier: K6c's bf16 mode over the
+        device's centred copy, K5's shortlist, the exact rescore of its rows
+        gathered from the host mirror (K6c's gather mode)."""
+        if approx:
+            c = min(max(k * oversample, k), self.capacity)
+        else:
+            c = self._shortlist_size(k, self.n, oversample)
+        self.last_scanned = self.n + c
+        keys = elementwise_scores({"x": qd}, {"x": self._dev16}, self.valid_mask(handle), metric,
+                                  mean=self.bf16_aux()["mean"])
+        top, cand = topk_select(keys, c)
+        del keys
+        return lambda: self._rescore_fetched(q, top, cand, metric, k)
+
+    def _stream_submit(self, q: np.ndarray, qd: torch.Tensor, k: int, metric: Metric, handle,
+                       oversample: int, exact: bool):
+        """A pass of the streaming pump (:meth:`_stream_pass`): the bf16
+        blocks (IP, L2, cosine and the L1 family) and a top-C shortlist the
+        host mirror rescores exactly, or the exact f32 blocks (the other
+        metrics, ``mode="exact"``, and small corpora) and their top k. A
+        selective filter under IP/L2/cosine on a streaming corpus scores
+        its rows exactly on the host instead."""
+        if (not exact and self.tier == STREAMING and metric in TWO_PASS_METRICS
+                and handle is not None and handle.use_gather(self.n)):
+            return self._compact_submit(q, k, metric, handle)
+        if exact:
+            kk = min(k, self.n)
+            self.last_scanned = self.n
+            keys, ids = self._stream_pass(qd, metric, "f32", kk, handle)
+            dists = unorient(keys, metric.ascending)
+            ids = torch.where(keys > float("-inf"), ids.long(), -1)
+            return lambda: _trim_results(*_fetch(dists, ids))
+        c = self._shortlist_size(k, self.n, oversample)
+        self.last_scanned = self.n + c
+        keys, ids = self._stream_pass(qd, metric, "bf16", c, handle)
+        return lambda: self._rescore_fetched(q, keys, ids, metric, k)
+
+    def _compact_submit(self, q: np.ndarray, k: int, metric: Metric, handle: FilterHandle):
+        """A selective filter on a streaming corpus: the exact scores of the
+        filter's rows straight off the host mirror (no device pass)."""
+        idx = np.nonzero(handle.mask[: self.n])[0]
+        self.last_scanned = len(idx)
+
+        def resolve():
+            sub = self._host[idx]  # (S, D)
+            ip = q @ sub.T
+            if metric is Metric.IP:
+                exact = ip
+            else:
+                q_sq = (q * q).sum(-1, keepdims=True)
+                s_sq = (sub * sub).sum(-1)
+                if metric is Metric.L2:
+                    exact = np.maximum(q_sq + s_sq[None, :] - 2.0 * ip, 0.0)
+                else:
+                    denom = np.sqrt(q_sq * s_sq[None, :])
+                    with np.errstate(invalid="ignore", divide="ignore"):
+                        exact = np.where(denom < 1e-30, 1.0, 1.0 - ip / np.maximum(denom, 1e-30))
+            m = min(len(self._tombs_np), self.n)
+            dead = np.zeros(len(idx), dtype=bool)
+            dead[idx < m] = self._tombs_np[idx[idx < m]]
+            exact = np.where(dead[None, :], np.nan, exact)
+            keyed = np.where(np.isnan(exact), -np.inf, -exact if metric.ascending else exact)
+            order = _stable_top(-keyed, k)
+            d = np.take_along_axis(exact, order, axis=1).astype(np.float32)
+            kept = np.isfinite(np.take_along_axis(keyed, order, axis=1))
+            return _trim_results(d, idx[order].astype(np.int64), kept)
+
+        return resolve
+
+    def _rescore_fetched(self, q: np.ndarray, keys: torch.Tensor, ids: torch.Tensor,
+                         metric: Metric, k: int):
+        """Fetch a first pass's (B, C) shortlist and rescore it on the host."""
+        keys_np, ids_np = keys.cpu().numpy(), ids.cpu().numpy().astype(np.int64)
+        keep = (keys_np > -np.inf) & (ids_np >= 0)
+        return self._rescore_topk(q, ids_np, keep, metric, k)
+
+    def _rescore_topk(self, q: np.ndarray, ids: np.ndarray, keep: np.ndarray, metric: Metric,
+                      k: int):
+        """The host second pass: exact f32 scores of the shortlist rows from
+        the host mirror (host_exact_scores for IP/L2/cosine, the K6 kernels'
+        gather mode over the rows uploaded otherwise), ordered on (score
+        desc, id asc), trimmed to k."""
+        b, c = ids.shape
+        safe = np.where(keep, ids, 0)
+        # flat 1-D gather then reshape (2-D fancy indexing is slower)
+        rows = self._host[safe.ravel()].reshape(b, c, self.dim)
+        if metric in TWO_PASS_METRICS:
+            exact = host_exact_scores(q, rows, metric)
+        else:
+            exact = self._rows_dists(q, rows, keep, metric)
+        key = -exact if metric.ascending else exact
+        key = np.where(keep & np.isfinite(key), key, -np.inf)
+        order = np.lexsort((safe, -key), axis=1)[:, :k]
+        d = np.take_along_axis(exact, order, axis=1).astype(np.float32)
+        i = np.take_along_axis(ids, order, axis=1)
+        kept = np.take_along_axis(key, order, axis=1) > -np.inf
+        return _trim_results(d, i, kept)
+
+    def _rows_dists(self, q: np.ndarray, rows: np.ndarray, keep: np.ndarray,
+                    metric: Metric) -> np.ndarray:
+        """(B, C) exact distances of explicit (B, C, D) rows uploaded to the
+        device: the metric's kernel in gather mode over their transform
+        (the JAX package's rescore_rows), NaN where ``keep`` is False."""
+        b, c = keep.shape
+        qd = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32)).to(self.device)
+        flat = torch.from_numpy(np.ascontiguousarray(rows.reshape(b * c, self.dim),
+                                                     dtype=np.float32)).to(self.device)
+        ids = np.where(keep, np.arange(b * c, dtype=np.int32).reshape(b, c), -1).astype(np.int32)
+        keys = metric_keys(D.query_transform(qd, metric), D.corpus_transform(flat, metric), None,
+                           metric, ids=torch.from_numpy(ids).to(self.device))
+        return np.where(keep, unorient(keys, metric.ascending).cpu().numpy(), np.nan)
 
     def _approx_submit(self, qd: torch.Tensor, k: int, metric: Metric, valid: torch.Tensor,
                        oversample: int):
@@ -1090,8 +1579,12 @@ class DeviceCorpus:
         eps steers the shortlist's oversample. IP/L2/cosine take the default
         two-pass plan, the L1 family its approximate plan (K9, _approx_submit).
         Below the engage threshold it is the exact search
-        (approx_search.rs:49)."""
+        (approx_search.rs:49); a streaming corpus's pass is already a
+        two-pass plan."""
         if self.n <= self.APPROX_MIN_ROWS or not metric.supports_flat_approx:
+            return self.search(queries, k, metric, filter_mask)
+        self._ensure_staged()
+        if self.tier == STREAMING:
             return self.search(queries, k, metric, filter_mask)
         oversample = 4 if eps >= 1e-3 else (8 if eps >= 1e-5 else 16)
         return self.search_submit(queries, k, metric, filter_mask, mode="approx",
@@ -1119,24 +1612,47 @@ class DeviceCorpus:
         """Exact (B, C) distances of explicit candidate rows, NaN where an id
         is negative. ``cand_ids`` is (B, C), or (C,) shared by every query.
         IP/L2/cosine rescore on the host mirror; the other metrics through
-        their distance kernel's gather mode over the staged transform (K10)."""
+        their distance kernel's gather mode over the staged transform (K10),
+        or over the rows uploaded from the host mirror off the resident
+        tier."""
         q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
         ids = np.asarray(cand_ids)
         if ids.ndim == 1:
             ids = np.broadcast_to(ids, (q.shape[0], ids.shape[0]))
         valid = ids >= 0
+        safe = np.where(valid, ids, 0)
         if metric in TWO_PASS_METRICS:
-            safe = np.where(valid, ids, 0)
             # flat 1-D gather then reshape (2-D fancy indexing is slower)
             rows = self._host[safe.ravel()].reshape(safe.shape + (self.dim,))
             return np.where(valid, host_exact_scores(q, rows, metric), np.nan)
         if ids.shape[1] == 0:
             return np.zeros(ids.shape, dtype=np.float32)
+        self._ensure_staged()
+        if self.tier != RESIDENT or not self._fits(metric):
+            rows = self._host[safe.ravel()].reshape(safe.shape + (self.dim,))
+            return self._rows_dists(q, rows, valid, metric)
         ct = self.transform(metric)
         qd = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
         ids_d = torch.from_numpy(np.where(valid, ids, -1).astype(np.int32)).to(self.device)
         keys = metric_keys(D.query_transform(qd, metric), ct, None, metric, ids=ids_d)
         return np.where(valid, unorient(keys, metric.ascending).cpu().numpy(), np.nan)
+
+
+
+def _stable_top(a: np.ndarray, k: int) -> np.ndarray:
+    """The first k columns of each row of a stable ascending argsort of the
+    (B, S) array ``a``, without sorting all S: a partition finds each row's
+    k-th value, and only the entries at or below it (every tie included) are
+    sorted, stably."""
+    k = min(k, a.shape[1])
+    if k == 0 or k == a.shape[1]:
+        return np.argsort(a, axis=1, kind="stable")[:, :k]
+    kth = np.partition(a, k - 1, axis=1)[:, k - 1]
+    out = np.empty((a.shape[0], k), dtype=np.int64)
+    for r in range(a.shape[0]):
+        cand = np.flatnonzero(a[r] <= kth[r])
+        out[r] = cand[np.argsort(a[r, cand], kind="stable")[:k]]
+    return out
 
 
 def _fetch(dists: torch.Tensor, ids: torch.Tensor):

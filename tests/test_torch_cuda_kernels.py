@@ -940,3 +940,126 @@ def test_domain_hnsw_index_cuda_matches_cpu(dev, tmp_path, mode):
     for (gi, gd), (wi, wd) in zip(*answers):
         if np.array_equal(gi, wi):
             np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-4)
+
+
+# ── the streaming pump (K8) and the query windows (K7) ───────────────────
+
+
+def _streaming_corpus(monkeypatch, dev, n=9_000, d=24, seed=0):
+    """A card corpus forced to stream in blocks of 1,152 rows (not a
+    multiple of the 16- or 64-query chunk; a 930-row tail block), with
+    tombstones and a filter that cross the block boundaries."""
+    monkeypatch.setattr(scan, "DEVICE_BYTES", 1 << 20)
+    monkeypatch.setattr(scan, "STREAM_BLOCK_BYTES", 1152 * (2 * d + 13))
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32) + 0.25
+    corpus = DeviceCorpus(d, device=dev)
+    corpus.append(x)
+    tombs = np.zeros(n, dtype=bool)
+    tombs[1150:1160] = True  # across the first block boundary
+    corpus.set_tombstones(tombs)
+    corpus.finalize()
+    assert corpus.streaming
+    mask = rng.random(n) < 0.5
+    mask[2300:2310] = True
+    return corpus, x, rng.normal(size=(70, d)).astype(np.float32), FilterHandle(mask)
+
+
+@pytest.mark.parametrize("metric", [Metric.IP, Metric.L2, Metric.COSINE, Metric.L1,
+                                    Metric.HAMMING, Metric.CORRELATION])
+@pytest.mark.parametrize("b", [5, 70])
+@pytest.mark.parametrize("filtered", [False, True])
+def test_stream_pump_matches_plain_loop(dev, monkeypatch, metric, b, filtered):
+    """A pass of the pump (pinned buffers, the copy stream, K8) against the
+    plain loop on the card over the same blocks: the same ids, keys within
+    K2's tolerance (the exact f32 pump of the other metrics: rtol 1e-5)."""
+    corpus, _, q, handle = _streaming_corpus(monkeypatch, dev)
+    qd = torch.from_numpy(q[:b]).to(dev)
+    kind = "bf16" if metric in scan._BF16_PASS else "f32"
+    c = 64
+    handle = handle if filtered else None
+    before = scan.stream_block.launches
+    keys, ids = corpus._stream_pass(qd, metric, kind, c, handle)
+    blocks = -(-corpus.n // corpus._stream_block_rows(16 if b <= 16 else 64,
+                                                     24 * (2 if kind == "bf16" else 4)
+                                                     + (13 if kind == "bf16" else 1)))
+    assert scan.stream_block.launches - before == blocks * -(-b // (16 if b <= 16 else 64))
+    pk, pi = corpus._stream_pass(qd, metric, kind, c, handle, step=scan.stream_block_plain)
+    torch.cuda.synchronize()
+    ok = pk > float("-inf")
+    tol = 1e-5 * pk.abs() + 1e-4
+    assert torch.equal(ok, keys > float("-inf"))
+    assert bool(((keys - pk).abs()[ok] <= tol[ok]).all())
+    diff = (ids != pi) & ok
+    for r, j in zip(*torch.nonzero(diff, as_tuple=True)):  # only between near-ties
+        m = torch.nonzero(pi[r] == ids[r, j]).flatten()
+        assert len(m) and abs(float(pk[r, m[0]] - pk[r, j])) <= float(tol[r, j])
+    valid = corpus._host_valid(handle)
+    got = ids[ok].cpu().numpy()
+    assert valid[got].all()  # no tombstoned or filtered-out row
+
+
+def test_stream_block_ids_past_2_24(dev):
+    """K8 carries int32 global ids: a block based past 2^24 (where an f32
+    id would round) keeps every id exact."""
+    rng = np.random.default_rng(3)
+    d, r, base = 32, 700, (1 << 24) + 3
+    x = torch.from_numpy(rng.normal(size=(r, d)).astype(np.float32)).to(dev)
+    mean = x.mean(0)
+    x16 = (x - mean).to(torch.bfloat16)
+    xf = x16.float()
+    aux = {"xm": (xf @ mean).contiguous(), "xc_sq": (xf * xf).sum(1),
+           "xsq_true": (x * x).sum(1)}
+    blk = scan.StreamBlock("bf16", x16, aux, torch.ones(r, dtype=torch.bool, device=dev), base,
+                           mean)
+    q = torch.from_numpy(rng.normal(size=(4, d)).astype(np.float32)).to(dev)
+    state = (torch.full((4, 64), float("-inf"), device=dev),
+             torch.full((4, 64), -1, dtype=torch.int32, device=dev))
+    keys, ids = scan.stream_block(q, None, blk, *state, Metric.IP, 64)
+    pk, pi = scan.stream_block_plain(q, None, blk, *state, Metric.IP, 64)
+    assert bool((ids >= base).all()) and bool((ids < base + r).all())
+    assert torch.equal(torch.sort(ids, 1).values, torch.sort(pi, 1).values)
+
+
+def test_pump_refills_a_buffer_only_after_its_scan(dev, monkeypatch):
+    """Each block's H2D into a device buffer starts after the scan of the
+    block that used the buffer before it (two blocks back) ended."""
+    corpus, _, q, _ = _streaming_corpus(monkeypatch, dev)
+    corpus.stream_trace = []
+    corpus.search(q[:16], 10, Metric.IP)
+    torch.cuda.synchronize()
+    trace = corpus.stream_trace
+    assert len(trace) >= 4
+    for i in range(2, len(trace)):
+        prev_scan_end, h2d_start = trace[i - 2]["events"][3], trace[i]["events"][0]
+        assert prev_scan_end.elapsed_time(h2d_start) >= 0, i
+
+
+@pytest.mark.parametrize("tier", ["resident", "host_rescore"])
+def test_query_windows_match_search(dev, monkeypatch, tmp_path, tier):
+    """search_stream's windows (a submit each: K2 -> K5 -> K3, or the host
+    rescore off the resident tier) give the answers of a search of the
+    same rows."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(12_000, 32)).astype(np.float32)
+    q = rng.normal(size=(100, 32)).astype(np.float32)
+    client = lynsedb_tpu_torch.VectorDBClient(tmp_path / "r", device=dev)
+    try:
+        coll = client.create_database("d").require_collection("c", dim=32,
+                                                              default_index="FLAT-L2")
+        coll.add(vectors=x)
+        coll.commit()
+        corpus = coll._engine.corpus()
+        if tier == "host_rescore":
+            monkeypatch.setattr(scan, "DEVICE_BYTES",
+                                corpus.host_rescore_bytes(corpus._cap_for(12_000)))
+            corpus.restage()
+        got = coll.search_stream(q, k=10, window=16)
+        assert corpus.tier == tier
+        for r, res in enumerate(got):
+            want = coll.search(q[r], k=10)
+            np.testing.assert_array_equal(np.asarray(res.ids), np.asarray(want.ids))
+            np.testing.assert_allclose(np.asarray(res.distances), np.asarray(want.distances),
+                                       rtol=1e-6, atol=1e-6)
+    finally:
+        client.close()

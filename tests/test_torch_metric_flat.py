@@ -252,33 +252,50 @@ def test_gather_route_matches_jax(collections, mode):
 
 
 def test_transform_that_does_not_fit_raises(rng, monkeypatch):
-    """The memory check counts a metric's transform beside the corpus copies
-    and the search scratch: with free memory for exactly what an L1 search
-    stages (no array beyond the f32 copy), a Jensen-Shannon transform (an
-    extra (N, D) f32 array) raises before it is staged, and so does a later
-    restage of the grown corpus, which counts the metric searched last."""
+    """The device budget counts a metric's transform beside the corpus
+    copies and the search scratch: at a budget of exactly what an L1 search
+    stages (no array beyond the f32 copy), asking for the Jensen-Shannon
+    transform (an extra (N, D) f32 array) raises, and a Jensen-Shannon
+    search stages nothing but pumps its exact f32 rows from the host mirror
+    with the same answers, the corpus staying resident. A corpus that not
+    even one streamed block of fits still raises at staging, for a card's
+    corpus as for any."""
     import torch
 
     from lynsedb_tpu_torch.metrics import Metric
 
     x = np.abs(rng.normal(size=(5000, 16))).astype(np.float32)
+    q = np.abs(rng.normal(size=(3, 16))).astype(np.float32)
+    resident = torch_scan.DeviceCorpus(16, device="cpu")
     corpus = torch_scan.DeviceCorpus(16, device="cpu")
-    corpus.append(x)
-    corpus.search(x[:2], K, Metric.L1)  # stages the bf16 and f32 copies and the mask
+    for c in (resident, corpus):
+        c.append(x)
+    corpus.search(q, K, Metric.L1)  # stages the bf16 and f32 copies and the mask
     cap, held = corpus.capacity, corpus._held_bytes()
     assert held == cap * 16 * (2 + 4) + cap
     need_l1 = corpus.device_bytes(cap, Metric.L1)
     need_js = corpus.device_bytes(cap, Metric.JENSEN_SHANNON)
     assert need_js - need_l1 >= cap * 16 * 4
-    corpus.device = torch.device("cuda")  # the check runs for a card's corpus only
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (need_l1 - held, 10 * need_js))
-    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: 0)
-    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev=None: 0)
+    monkeypatch.setattr(torch_scan, "DEVICE_BYTES", need_l1)
     corpus._transform = None
     assert corpus.transform(Metric.L1)["x"].shape == (cap, 16)  # fits exactly
+    assert corpus.tier == torch_scan.RESIDENT
+    got = corpus.search(q, K, Metric.JENSEN_SHANNON)
+    assert corpus.tier == torch_scan.RESIDENT and corpus._dev32 is not None
+    assert corpus._transform[0] is Metric.L1  # the Jensen-Shannon transform was not staged
+    monkeypatch.setattr(torch_scan, "DEVICE_BYTES", 0)
+    want = resident.search(q, K, Metric.JENSEN_SHANNON)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
+    monkeypatch.setattr(torch_scan, "DEVICE_BYTES", need_l1)
     with pytest.raises(RuntimeError, match="jensen_shannon transform"):
         corpus.transform(Metric.JENSEN_SHANNON)
-    assert corpus._transform is None  # nothing staged
-    corpus.append(x)  # doubles the rows: a full restage
-    with pytest.raises(RuntimeError, match="jensen_shannon transform"):
-        corpus._ensure_staged()
+    tiny = torch_scan.DeviceCorpus(16, device="cpu")
+    tiny.append(x)
+    tiny.device = torch.device("cuda")  # the card's free memory is the budget
+    monkeypatch.setattr(torch_scan, "DEVICE_BYTES", 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (1 << 12, 1 << 40))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev=None: 0)
+    with pytest.raises(RuntimeError, match="even one streamed block"):
+        tiny._ensure_staged()
