@@ -9,10 +9,14 @@ Phases (each prints its seconds):
      (one process a source, all at once).
   3. kernels: each kernel against its plain PyTorch version at the shapes its
      path gives it, with times, bounds and a library call's time beside:
-     K1 flat_scores_f32, K2 bf16_centered_scores, K3 rescore_topk, K5
-     topk_select at 1,000,000 x 128 rows, B in {1, 16, 256}, k=10, C=256,
-     IP/L2/cosine, a 10% mask, duplicated rows; K5 past k = 1,024 (k in
-     {1,000, 1,025, 4,096}, and k = N at N = 20,000) and K3 at C = 1,280;
+     K1 flat_scores_f32, K2 bf16_centered_topc (the fused first pass: its
+     top C held to the plain keys of the same rows within K2's bound, its
+     ids to the plain version's but at near-ties of the C-th key; yardstick
+     torch.topk(qc16 @ x16.T, C)), K3 rescore_topk, K5 topk_select (bit-equal,
+     on the first pass's (B, N) keys; yardstick torch.topk) at 1,000,000 x
+     128 rows, B in {1, 16, 256}, k=10, C=256, IP/L2/cosine, a 10% mask,
+     duplicated rows; K5 at k in {1,000, 1,025, 4,096, 4,097}, and k in
+     {4,096, N} of 20,000 tied keys; K2 and K3 at C = 1,280;
      kmeans_assign at N in {256,000, 1,000,000}, K = 1,000 (L2 and IP) and
      kmeans_update at N = 256,000 (twice, bit-identical).
   4. flat path: VectorDBClient(device="cuda") -> create_database ->
@@ -169,9 +173,9 @@ GRAPH_INSERT, GRAPH_DELETE, PREFIX = 10_000, 0.01, 100_000
 KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
     "K1 flat_scores_f32": (scan.flat_scores_f32, "lynsedb_tpu_torch/csrc/flat_scores_f32.cu",
                            "lynsedb_tpu/ops/scan.py:190"),
-    "K2 bf16_centered_scores": (scan.bf16_centered_scores,
-                                "lynsedb_tpu_torch/csrc/bf16_centered_scores.cu",
-                                "lynsedb_tpu/ops/scan.py:291"),
+    "K2 bf16_centered_topc": (scan.bf16_centered_topc,
+                              "lynsedb_tpu_torch/csrc/bf16_centered_topc.cu",
+                              "lynsedb_tpu/ops/scan.py:291"),
     "K3 rescore_topk": (scan.rescore_topk, "lynsedb_tpu_torch/csrc/rescore_topk.cu",
                         "lynsedb_tpu/ops/scan.py:495"),
     "K5 topk_select": (topk.topk_select, "lynsedb_tpu_torch/csrc/topk_select.cu",
@@ -213,9 +217,9 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
 }
 # the kernels each path must launch
 PATHS = {
-    "flat": ("K1 flat_scores_f32", "K2 bf16_centered_scores", "K3 rescore_topk",
+    "flat": ("K1 flat_scores_f32", "K2 bf16_centered_topc", "K3 rescore_topk",
              "K5 topk_select", "K11 bf16_gather_scores"),
-    "large_k": ("K2 bf16_centered_scores", "K3 rescore_topk", "K5 topk_select"),
+    "large_k": ("K2 bf16_centered_topc", "K3 rescore_topk", "K5 topk_select"),
     "ivf": ("K1 flat_scores_f32", "K5 topk_select", "K15 kmeans_assign", "K15 kmeans_update",
             "K16 ivf_scan_blocks"),
     "quantized": ("K3 rescore_topk", "K5 topk_select", "K11 bf16_gather_scores",
@@ -227,7 +231,7 @@ PATHS = {
                 "K6c elementwise_scores"),
     "index_metrics": ("K5 topk_select", "K6b binary_scores", "K16b ivf_binary_blocks",
                       "K17 beam_search", "K19 topl_scan", "K20 robust_prune"),
-    "streaming": ("K1 flat_scores_f32", "K2 bf16_centered_scores", "K5 topk_select",
+    "streaming": ("K1 flat_scores_f32", "K2 bf16_centered_topc", "K5 topk_select",
                   "K6b binary_scores", "K6c elementwise_scores", "K8 stream_block",
                   "K11 bf16_gather_scores", "K17 beam_search",
                   "K20 robust_prune"),
@@ -325,6 +329,35 @@ def check_ids(got: np.ndarray, want: np.ndarray, want_keys: np.ndarray, tol: np.
             raise AssertionError(f"id mismatch at ({r}, {c}): {got[r, c]} vs {want[r, c]}")
 
 
+def check_topc(q, aux, full, got, want, metric, what: str) -> float:
+    """K2's fused pass against its plain version: each returned key within
+    K2's bound (1e-5 |q - m| |x - m| + 1e-5; cosine: over its denominator)
+    of the plain key of the same row (``full``, the plain (B, N) keys), keys
+    descending, the same slots empty, no row twice, and the plain version's
+    ids but for rows whose plain key lies within twice that bound of the
+    plain C-th key. Returns the largest key error."""
+    (gk, gi), (wk, wi) = got, want
+    live = gi >= 0
+    check(torch.equal(live, wi >= 0), f"{what}: empty slots differ")
+    check(bool((gk[:, :-1] >= gk[:, 1:]).all()), f"{what}: keys not descending")
+    rows = torch.where(live, gi, 0).long()
+    xc = torch.sqrt(aux["xc_sq"][rows])
+    tol = 1e-5 * (q - aux["mean"][None, :]).norm(dim=1)[:, None] * xc + 1e-5
+    if metric is Metric.COSINE:  # the bound holds for the numerator
+        tol = tol / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][rows]).clamp_min(1e-30)
+    err = torch.where(live, (gk - full.gather(1, rows)).abs(), 0.0)
+    check(bool((err <= tol).all()), f"{what}: keys outside K2's bound")
+    srt = torch.sort(gi, dim=1).values
+    check(bool(((srt[:, 1:] != srt[:, :-1]) | (srt[:, 1:] < 0)).all()), f"{what}: a row twice")
+    kth = torch.where(wi >= 0, wk, float("inf")).min(dim=1).values  # the plain C-th key
+    tol_max = torch.where(live, tol, 0.0).max(dim=1).values
+    for r in torch.nonzero((torch.sort(gi, 1).values != torch.sort(wi, 1).values).any(1)).flatten():
+        for row in set(gi[r][live[r]].tolist()) ^ set(wi[r][wi[r] >= 0].tolist()):
+            check(abs(float(full[r, row] - kth[r])) <= 2 * float(tol_max[r]),
+                  f"{what}: row {row} of query {int(r)} is no near-tie of the C-th key")
+    return float(err.max())
+
+
 class Stats:
     """Per kernel: the largest error and, per shape label, the kernel's,
     the plain version's and the library call's ms and the bound."""
@@ -388,10 +421,9 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                                  2 * b * n_live * DIM))
             del p1, fin, err1
 
-            for keys, kk in ((k1, K), (None, C)):
-                if keys is None:
-                    keys = scan.bf16_centered_scores(q, x16, aux, valid, metric)
-                    k2 = keys
+            # K5 on K1's keys (k = 10) and on the first pass's (B, N) keys (k = C)
+            k2 = scan.bf16_centered_scores_plain(q, x16, aux, valid, metric)
+            for keys, kk in ((k1, K), (k2, C)):
                 got, want = topk.topk_select(keys, kk), topk.topk_select_plain(keys, kk)
                 check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
                       f"K5 {metric} B={b} k={kk}")
@@ -404,33 +436,27 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                                    lambda: torch.topk(keys, C), bound(b * rows * 4 + b * C * 8, 0))
             del k1
 
-            p2 = scan.bf16_centered_scores_plain(q, x16, aux, valid, metric)
-            fin = torch.isfinite(p2)
-            check(torch.equal(fin, torch.isfinite(k2)), "K2: masked entries differ")
-            qc_norm = (q - aux["mean"][None, :]).norm(dim=1)[:, None]
-            tol = 1e-5 * qc_norm * torch.sqrt(aux["xc_sq"])[None, :] + 1e-5
-            if metric is Metric.COSINE:  # the bound holds for the numerator
-                tol = tol / torch.sqrt(
-                    (q * q).sum(-1)[:, None] * aux["xsq_true"][None, :]).clamp_min(1e-30)
-            err2 = (k2 - p2).abs()
-            check(bool((err2[fin] <= tol[fin]).all()), f"K2 {metric} B={b}")
-            stats.error("K2 bf16_centered_scores", err2[fin].max())
+            # K2, the fused first pass: the top C without the (B, N) keys
+            top, gid = scan.bf16_centered_topc(q, x16, aux, valid, metric, C)
+            stats.error("K2 bf16_centered_topc",
+                        check_topc(q, aux, k2, (top, gid),
+                                   scan.bf16_centered_topc_plain(q, x16, aux, valid, metric, C),
+                                   metric, f"K2 {metric} B={b}"))
             if ip:
                 qc16 = scan._query_terms(q, aux["mean"])[0]
                 # IP's epilogue reads a live row's m . (x - m) (4 B) and
-                # every row's valid byte
-                stats.time("K2 bf16_centered_scores", f"IP B={b}",
-                           lambda: scan.bf16_centered_scores(q, x16, aux, live, metric),
-                           lambda: scan.bf16_centered_scores_plain(q, x16, aux, live, metric),
-                           lambda: qc16 @ x16.T,
-                           bound(n_live * (DIM * 2 + 4) + rows + b * DIM * 2 + b * rows * 4,
+                # every row's valid byte; it writes the (B, C) keys and ids
+                stats.time("K2 bf16_centered_topc", f"IP B={b} C={C}",
+                           lambda: scan.bf16_centered_topc(q, x16, aux, live, metric, C),
+                           lambda: scan.bf16_centered_topc_plain(q, x16, aux, live, metric, C),
+                           lambda: torch.topk(qc16 @ x16.T, C),
+                           bound(n_live * (DIM * 2 + 4) + rows + b * DIM * 2 + b * C * 8,
                                  2 * b * n_live * DIM, BF16_FLOPS))
-            del p2, fin, tol, err2
-
-            cand_keys, cand_idx = topk.topk_select(k2, C)
             if ip and b == 16:
                 keys16 = k2
             del k2
+
+            cand_keys, cand_idx = top, gid
             args3 = (q, x32, cand_keys, cand_idx, K, metric)
             n_cand = int((cand_keys > float("-inf")).sum())  # the rows K3 gathers
             gd, gi = scan.rescore_topk(*args3)
@@ -448,18 +474,21 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                                  4 * n_cand * DIM))
         print(f"   {metric.value}: K1, K2, K3, K5 agree with their plain versions", flush=True)
 
-    # K5 past the shared-memory select (sort and merge), exact, ties included
-    for kk in (BIG_K, 1025, 4096):
+    # K5 up to the select's k = 4,096 and past it (sort and merge), exact,
+    # ties included; K2 at the large-k path's shortlist
+    for kk in (BIG_K, 1025, 4096, 4097):
         got, want = topk.topk_select(keys16, kk), topk.topk_select_plain(keys16, kk)
         check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"K5 k={kk}")
     ties = np.round(rng.normal(size=(4, 20_000)), 1).astype(np.float32)
     ties[rng.random(ties.shape) < 0.05] = -np.inf
     ties_t = torch.from_numpy(ties).to(DEV)
-    got, want = topk.topk_select(ties_t, 20_000), topk.topk_select_plain(ties_t, 20_000)
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K5 k = N = 20,000")
+    for kk in (4096, 20_000):
+        got, want = topk.topk_select(ties_t, kk), topk.topk_select_plain(ties_t, kk)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K5 k = {kk} of 20,000 tied keys")
     c_big = corpus._shortlist_size(BIG_K, N)
     q1 = torch.from_numpy(rng.normal(size=(1, DIM)).astype(np.float32)).to(DEV)
-    keys1 = scan.bf16_centered_scores(q1, x16, aux, valid, Metric.IP)
+    keys1 = scan.bf16_centered_scores_plain(q1, x16, aux, valid, Metric.IP)
     stats.time("K5 topk_select", f"IP B=1 k={c_big}", lambda: topk.topk_select(keys1, c_big),
                lambda: topk.topk_select_plain(keys1, c_big), lambda: torch.topk(keys1, c_big),
                bound(rows * 4 + c_big * 8, 0))
@@ -468,8 +497,11 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                bound(16 * rows * 4 + 16 * c_big * 8, 0))
     # K3 with a shortlist above its shared-memory sort (C = 1,280)
     q16 = torch.from_numpy(rng.normal(size=(16, DIM)).astype(np.float32)).to(DEV)
-    cand_keys, cand_idx = topk.topk_select(
-        scan.bf16_centered_scores(q16, x16, aux, valid, Metric.IP), c_big)
+    cand_keys, cand_idx = scan.bf16_centered_topc(q16, x16, aux, valid, Metric.IP, c_big)
+    stats.error("K2 bf16_centered_topc", check_topc(
+        q16, aux, scan.bf16_centered_scores_plain(q16, x16, aux, valid, Metric.IP),
+        (cand_keys, cand_idx), scan.bf16_centered_topc_plain(q16, x16, aux, valid, Metric.IP,
+                                                             c_big), Metric.IP, f"K2 C={c_big}"))
     args3 = (q16, x32, cand_keys, cand_idx, BIG_K, Metric.IP)
     n_cand = int((cand_keys > float("-inf")).sum())
     gd, gi = scan.rescore_topk(*args3)
@@ -483,8 +515,8 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                lambda: scan.rescore_topk_plain(*args3), None,
                bound(n_cand * DIM * 4 + 16 * DIM * 4 + 16 * c_big * 8 + 16 * BIG_K * 12,
                      4 * n_cand * DIM))
-    print(f"   K5 at k in {{{BIG_K}, 1025, 4096}} and k = N = 20,000, K3 at C = {c_big}: "
-          "equal to their plain versions", flush=True)
+    print(f"   K5 at k in {{{BIG_K}, 1025, 4096, 4097}} and k in {{4096, N = 20,000}} of tied "
+          f"keys, K2 and K3 at C = {c_big}: agree with their plain versions", flush=True)
     return corpus
 
 
@@ -710,8 +742,7 @@ def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
     for metric in METRICS:
         for b in QUANT_BATCHES:
             q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
-            top, cand = topk.topk_select(scan.bf16_centered_scores(q, x16, aux, valid, metric),
-                                         SHORTLIST)
+            top, cand = scan.bf16_centered_topc(q, x16, aux, valid, metric, SHORTLIST)
             got = scan.bf16_gather_scores(q, x16, aux, cand, top, metric)
             want = scan.bf16_gather_scores_plain(q, x16, aux, cand, top, metric)
             check_gather(got, want, q, aux, cand, metric, f"K11 {metric} B={b}", stats)
@@ -2066,7 +2097,7 @@ def k8_check(corpus: DeviceCorpus, qs: np.ndarray, stats: Stats, label: str, h2d
 
 def windows_timing(c, qs: np.ndarray, report) -> None:
     """search_stream of 1,000 queries on the resident FLAT-IP corpus, a
-    submit a window of 64 (K2 -> K5 -> K3), three runs after a warm one,
+    submit a window of 64 (K2's fused pass and K5's merge -> K3), three runs after a warm one,
     beside the same chain's plain versions on the card and its bound: each
     window reads the bf16 copy, its aux rows and the mask once."""
     corpus, w = c._engine.corpus(), 64
@@ -2089,9 +2120,8 @@ def windows_timing(c, qs: np.ndarray, report) -> None:
 
     def plain():
         for s in range(0, len(qs), w):
-            keys = scan.bf16_centered_scores_plain(qd[s : s + w], corpus._dev16, aux, valid,
-                                                   Metric.IP)
-            top, idx = topk.topk_select_plain(keys, ck)
+            top, idx = scan.bf16_centered_topc_plain(qd[s : s + w], corpus._dev16, aux, valid,
+                                                     Metric.IP, ck)
             scan.rescore_topk_plain(qd[s : s + w], x32, top, idx, K, Metric.IP)
 
     ts = timed(lambda: c.search_stream(qs, k=K, window=w))
@@ -2511,7 +2541,7 @@ def main() -> int:
     for key, val in report.items():
         print(f"   {key}: {val}")
     stats.table(card)
-    shown = {"K1 flat_scores_f32": "IP B=16", "K2 bf16_centered_scores": "IP B=16",
+    shown = {"K1 flat_scores_f32": "IP B=16", "K2 bf16_centered_topc": f"IP B=16 C={C}",
              "K3 rescore_topk": f"IP B=16 C={C}", "K5 topk_select": f"IP B=16 k={C}",
              "K15 kmeans_assign": f"L2 N={N_CLUSTERS * 256} K={N_CLUSTERS}",
              "K15 kmeans_update": f"N={N_CLUSTERS * 256} K={N_CLUSTERS}",

@@ -1,6 +1,7 @@
 // Shared pieces of the kernels: the metric codes and keys, the binary
-// distances, the selection order, an in-shared-memory bitonic sort and a
-// tiled f32 score product. The other metrics' formulas are in metrics.cuh.
+// distances, the selection order, a bitonic sort, the span threshold select
+// (WarpTopk) and a tiled f32 score product. The other metrics' formulas are
+// in metrics.cuh.
 //
 // Every entry point of the library is a plain C function that launches on the
 // caller's stream, allocates nothing and returns the cudaError_t of its launch
@@ -81,41 +82,232 @@ __device__ __forceinline__ void bitonic_sort(float* keys, int* idx, int n) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) bitonic_step(keys, idx, n, size, stride);
 }
 
-// Leaves the best kp of n pairs (both powers of two, kp <= n, and
-// n <= 4 * blockDim.x: a thread holds at most two entries while halving)
-// sorted best first in positions [0, kp). Runs of kp are sorted in
-// alternating directions; then, while more than one run is left, position p
-// of each pair of runs keeps the better of its two entries (the best kp of
-// the pair, as a bitonic sequence) and one bitonic merge sorts each new run.
-// That is a sort of kp-runs plus log2(n / kp) merges instead of a full sort.
-__device__ __forceinline__ void bitonic_topk(float* keys, int* idx, int n, int kp) {
-  for (int size = 2; size <= kp; size <<= 1)
-    for (int stride = size >> 1; stride > 0; stride >>= 1) bitonic_step(keys, idx, n, size, stride);
-  for (int m = n; m > kp; m >>= 1) {
-    float nk[2];
-    int ni[2];
+// A (key, id) entry as one 64-bit value that orders as better() does: the
+// key's bits made order-preserving (-0 folded into +0, which compares equal
+// to it), then the id inverted, so a larger value is a bigger key or, at an
+// equal key, a lower id. Keys are never NaN here (callers map NaN to -inf).
+__device__ __forceinline__ uint64_t pack_entry(float key, int id) {
+  uint32_t u = __float_as_uint(key + 0.f);
+  u ^= (u >> 31) ? 0xffffffffu : 0x80000000u;
+  return ((uint64_t)u << 32) | (uint32_t)((int64_t)INT_MAX - id);
+}
+
+__device__ __forceinline__ float entry_key(uint64_t v) {
+  const uint32_t u = (uint32_t)(v >> 32);
+  return __uint_as_float((u >> 31) ? u ^ 0x80000000u : ~u);
+}
+
+__device__ __forceinline__ int entry_id(uint64_t v) {
+  return (int)((int64_t)INT_MAX - (int64_t)(uint32_t)v);
+}
+
+constexpr uint64_t kPadEntry = 0x007fffff00000000ull;  // pack_entry(-inf, INT_MAX)
+constexpr uint64_t kNoRowEntry = 0x007fffff80000000ull;  // pack_entry(-inf, -1)
+
+// Sorts 256 packed entries, larger first, held 8 a lane (entry 8 * lane + e
+// in register e): a bitonic network, in-lane compare-exchanges for strides
+// below 8 and shuffles for the others.
+__device__ __forceinline__ void warp_sort256(uint64_t (&v)[8]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int t = threadIdx.x + c * blockDim.x;
-      if (t < (m >> 1)) {
-        const int a = 2 * (t / kp) * kp + t % kp, b = a + kp;
-        const bool take_b = better(keys[b], idx[b], keys[a], idx[a]);
-        nk[c] = take_b ? keys[b] : keys[a];
-        ni[c] = take_b ? idx[b] : idx[a];
+  for (int size = 2; size <= 256; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride < 8) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (e & stride) continue;
+          const int f = e + stride;
+          const bool larger_first = ((lane * 8 + e) & size) == 0;
+          if (larger_first ? v[f] > v[e] : v[e] > v[f]) {
+            const uint64_t t = v[e];
+            v[e] = v[f];
+            v[f] = t;
+          }
+        }
+      } else {
+        const int m = stride >> 3;
+        const bool lower = (lane & m) == 0;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool larger_first = ((lane * 8 + e) & size) == 0;
+          const uint64_t o = __shfl_xor_sync(0xffffffffu, v[e], m);
+          // the pair's lower position keeps the larger one when larger_first
+          if ((lower == larger_first) == (o > v[e])) v[e] = o;
+        }
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int t = threadIdx.x + c * blockDim.x;
-      if (t < (m >> 1)) {
-        keys[t] = nk[c];
-        idx[t] = ni[c];
-      }
-    }
-    __syncthreads();
-    for (int stride = kp >> 1; stride > 0; stride >>= 1) bitonic_step(keys, idx, m >> 1, kp, stride);
   }
+}
+
+// The span threshold select shared by K2's fused first pass
+// (bf16_centered_topc.cu) and K5 (topk_select.cu): the running exact top k
+// of the entries one warp offers, for one list (a query's, or a span of a
+// key row's). The list's memory, shared or device, holds kp packed entries
+// kept (kp = k rounded up to a power of two, at least 8), largest first,
+// padded with kPadEntry past `kept`, then kPend pending entries.
+//
+// An entry joins the pending ones only if it is larger than the k-th kept
+// so far (or than the caller's start value while fewer than k are kept), so
+// after the first few rounds almost every offer costs one compare. flush()
+// sorts the pending entries in registers (warp_sort256) and keeps the best
+// kp of them and the kept ones: in registers up to kp = 256
+// (merge_registers), else along the merge path, in place (merge_path: each
+// lane finds where its 8 outputs start by a binary search on its diagonal
+// and merges them into registers before any lane writes, 256 outputs at a
+// time from the back, so a chunk reads no kept position below the one
+// before it wrote); then it raises the threshold. The caller flushes
+// before a round could overflow the pending entries. Packed entries order
+// as better() does, so the result is exactly the best k in any order of
+// offers: where ids arrive in ascending order (K2's rows, K5's first level)
+// the test is a strict `key > threshold`, since a later equal key loses the
+// tie to the kept one. Every lane holds the same counts and threshold; no
+// block barrier is used.
+struct WarpTopk {
+  static constexpr int kPend = 256;
+
+  uint64_t* list;
+  int kept, pend;
+  uint64_t thr;
+
+  // start: the threshold while fewer than k are kept. kPadEntry (-inf,
+  // INT_MAX) keeps -inf entries (K5 returns them); kNoRowEntry (-inf, -1)
+  // drops them (K2).
+  __device__ __forceinline__ void init(uint64_t* entries, int kp, uint64_t start) {
+    list = entries;
+    kept = pend = 0;
+    thr = start;
+    for (int e = threadIdx.x & 31; e < kp; e += 32) list[e] = kPadEntry;
+    __syncwarp();
+  }
+
+  // One entry a lane (`live`: the lane has one); every lane calls it. The
+  // caller leaves room for 32 pending entries.
+  __device__ __forceinline__ void offer(int kp, uint64_t v, bool live) {
+    const bool pass = live && v > thr;
+    const unsigned mask = __ballot_sync(0xffffffffu, pass);
+    if (pass) list[kp + pend + __popc(mask & ((1u << (threadIdx.x & 31)) - 1))] = v;
+    pend += __popc(mask);
+  }
+
+  // kp <= 256: the kept entries, 8 a lane on the first kp / 8 lanes, each
+  // against the sorted pending entry kp - 1 - its position (one shuffle),
+  // keep the larger: the best kp as a bitonic sequence, which log2(kp)
+  // compare-exchange steps sort, in registers.
+  __device__ __forceinline__ void merge_registers(int kp, const uint64_t (&v)[8]) {
+    const int lane = threadIdx.x & 31, lanes = kp >> 3;
+    const bool mine = lane < lanes;
+    uint64_t x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint64_t o = __shfl_xor_sync(0xffffffffu, v[7 - e], lanes - 1);
+      const uint64_t kv = mine ? list[lane * 8 + e] : 0;
+      x[e] = kv > o ? kv : o;
+    }
+    for (int m = lanes >> 1; m > 0; m >>= 1) {
+      const bool lower = (lane & m) == 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const uint64_t o = __shfl_xor_sync(0xffffffffu, x[e], m);
+        x[e] = lower == (o > x[e]) ? o : x[e];
+      }
+    }
+#pragma unroll
+    for (int stride = 4; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e & stride) continue;
+        if (x[e + stride] > x[e]) {
+          const uint64_t t = x[e];
+          x[e] = x[e + stride];
+          x[e + stride] = t;
+        }
+      }
+    }
+    __syncwarp();
+    if (mine) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) list[lane * 8 + e] = x[e];
+    }
+    __syncwarp();
+  }
+
+  // kp > 256: the sorted pending entries (at list + kp) merged into the kept
+  // ones along the merge path, in place, 256 outputs at a time from the back.
+  __device__ __forceinline__ void merge_path(int kp) {
+    const int lane = threadIdx.x & 31;
+    const uint64_t* pending = list + kp;
+    for (int c = (kp - 1) >> 8; c >= 0; --c) {
+      const int d0 = c * 256 + lane * 8;
+      uint64_t out[8];
+      // i = how many of the first d0 merged entries are kept ones
+      int lo = max(0, d0 - kPend), hi = d0;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (pending[d0 - 1 - mid] > list[mid]) hi = mid;
+        else lo = mid + 1;
+      }
+      int i = lo, j = d0 - lo;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool take_b = j < kPend && (i >= kp || pending[j] > list[i]);
+        out[e] = take_b ? pending[j] : list[i];
+        i += !take_b;
+        j += take_b;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < 8; ++e) list[d0 + e] = out[e];
+      __syncwarp();
+    }
+  }
+
+  __device__ __forceinline__ void flush(int kp, int k) {
+    if (pend == 0) return;
+    const int lane = threadIdx.x & 31;
+    uint64_t* pending = list + kp;
+    uint64_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = lane * 8 + e < pend ? pending[lane * 8 + e] : kPadEntry;
+    warp_sort256(v);
+    if (kp <= 256) {
+      merge_registers(kp, v);
+    } else {
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < 8; ++e) pending[lane * 8 + e] = v[e];
+      __syncwarp();
+      merge_path(kp);
+    }
+    kept = min(kept + pend, k);
+    pend = 0;
+    if (kept == k) thr = list[k - 1];
+  }
+};
+
+// kp of a list of k: k rounded up to a power of two, at least 8.
+__host__ __device__ inline int list_kp(int k) {
+  int p = 8;
+  while (p < k) p <<= 1;
+  return p;
+}
+
+inline int next_pow2(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+// The card's SM count (the grids of the select kernels are sized from it).
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -39,12 +39,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # no 64-bit address is ever passed as a 32-bit int
 _SIGNATURES = {
     "lt_topk_select": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "lt_topk_merge_runs": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "lt_gemm_metric_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                               _P),
     "lt_binary_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_elementwise_scores": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _P, _P),
-    "lt_bf16_centered_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "lt_bf16_centered_topc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                              _P, _P),
     "lt_rescore_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "lt_rescore_keys": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
@@ -124,7 +126,12 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             lib.lt_topk_scratch.argtypes = [_I, _I, _I]
-            lib.lt_topk_scratch.restype = ctypes.c_longlong
+            lib.lt_topk_merge_scratch.argtypes = [_I, _I, _I, _I]
+            for name in ("lt_topk_scratch", "lt_topk_merge_scratch"):
+                getattr(lib, name).restype = ctypes.c_longlong
+            for name in ("lt_topc_spans", "lt_topc_scratch"):
+                getattr(lib, name).argtypes = [_I, _I, _I, _I]
+                getattr(lib, name).restype = ctypes.c_longlong
             lib.lt_error_string.argtypes = [_I]
             lib.lt_error_string.restype = ctypes.c_char_p
             _LIB.append(lib)

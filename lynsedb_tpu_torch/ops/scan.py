@@ -33,8 +33,10 @@ A search runs one of these plans, each a chain of hand-written kernels:
     Tanimoto, Dice) or K6c ``elementwise_scores`` (the rest) — and K5
     ``topk_select`` takes the top k. Off the resident tier the f32 rows are
     pumped from the host mirror block by block (K8 over the f32 blocks);
-  * **two-pass** (IP/L2/cosine): K2 ``bf16_centered_scores`` scores the
-    centred bf16 copy, K5 takes a top-C shortlist, K3 ``rescore_topk``
+  * **two-pass** (IP/L2/cosine): K2 ``bf16_centered_topc`` scores the
+    centred bf16 copy on the tensor cores and keeps each span's top C in
+    shared memory, K5 merges the spans' lists into the top-C shortlist
+    (the (B, N) keys never reach device memory), K3 ``rescore_topk``
     rescores it exactly in f32 and sorts on (score, id) — or, off the
     resident tier, the host mirror does;
   * **gather** (IP/L2/cosine under a selective filter: at most
@@ -76,7 +78,7 @@ import torch
 from ..metrics import Metric
 from . import _cuda
 from . import distance as D
-from .topk import topk_select, topk_select_plain, unorient
+from .topk import merge_runs, topk_select, topk_select_plain, unorient
 
 # Metrics served by the bf16 first pass + exact f32 rescore.
 TWO_PASS_METRICS = (Metric.IP, Metric.L2, Metric.COSINE)
@@ -425,7 +427,7 @@ def metric_keys(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metri
     return gemm_metric_scores(qt, ct, valid, metric, ids)
 
 
-# ── K2: centred bf16 first pass ──────────────────────────────────────────
+# ── K2: centred bf16 first pass, fused with its top-C selection ────────
 
 
 def _query_terms(q: torch.Tensor, mean: torch.Tensor):
@@ -437,8 +439,9 @@ def _query_terms(q: torch.Tensor, mean: torch.Tensor):
 
 
 def bf16_centered_scores_plain(q, x16, aux: dict, valid, metric: Metric) -> torch.Tensor:
-    """Plain version of :func:`bf16_centered_scores`: the bf16 operands are
-    upcast to f32 before the product (JAX's preferred_element_type=f32)."""
+    """The first pass's oriented, masked keys (B, N): the bf16 operands are
+    upcast to f32 before the product (JAX's preferred_element_type=f32).
+    The score function of :func:`bf16_centered_topc_plain`."""
     qc16, qc_sq, qm, q_sq = _query_terms(q, aux["mean"])
     ip_c = qc16.to(torch.float32) @ x16.to(torch.float32).T
     if metric is Metric.IP:
@@ -450,39 +453,59 @@ def bf16_centered_scores_plain(q, x16, aux: dict, valid, metric: Metric) -> torc
         denom = torch.sqrt(q_sq[:, None] * aux["xsq_true"][None, :])
         scores = torch.where(denom < 1e-30, 1.0, 1.0 - num / torch.clamp_min(denom, 1e-30))
     else:
-        _kernel_metric("bf16_centered_scores", metric)
+        _kernel_metric("bf16_centered_topc", metric)
     return _to_key(scores, metric.ascending, valid)
 
 
-def bf16_centered_scores(q: torch.Tensor, x16: torch.Tensor, aux: dict, valid: torch.Tensor,
-                         metric: Metric) -> torch.Tensor:
-    """Oriented, masked first-pass keys (B, N) of f32 queries ``q`` (B, D)
-    against the mean-centred bf16 corpus ``x16`` (N, D). ``aux``: mean (D,),
-    xm / xc_sq / xsq_true (N,) f32 (see DeviceCorpus._convert_block)."""
-    if q.device.type == "cpu":
-        return bf16_centered_scores_plain(q, x16, aux, valid, metric)
-    code = _kernel_metric("bf16_centered_scores", metric)
+def bf16_centered_topc_plain(q, x16, aux: dict, valid, metric: Metric, c: int):
+    """Plain version of :func:`bf16_centered_topc`: every key, then the
+    exact top C, with id -1 in the slots a masked row or NaN would fill."""
+    top, idx = topk_select_plain(bf16_centered_scores_plain(q, x16, aux, valid, metric), c)
+    return top, torch.where(top > float("-inf"), idx, -1)
+
+
+def bf16_centered_topc(q: torch.Tensor, x16: torch.Tensor, aux: dict, valid: torch.Tensor,
+                       metric: Metric, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact top C of the first-pass keys of f32 queries ``q`` (B, D)
+    against the mean-centred bf16 corpus ``x16`` (N, D): (keys (B, C) f32,
+    row ids (B, C) int32), key descending and the lower row id first between
+    equal keys, (-inf, -1) in slots no live row fills. ``aux``: mean (D,),
+    xm / xc_sq / xsq_true (N,) f32 (see DeviceCorpus._convert_block);
+    ``valid`` (N,) bool. The kernel keeps each span's top C in shared memory
+    and never writes the (B, N) keys; K5 merges the spans' sorted lists
+    (:func:`topk.merge_runs`). 1 <= C <= N."""
     b, d = q.shape
     n = x16.shape[0]
+    if not 1 <= c <= n:
+        raise ValueError(f"bf16_centered_topc: C={c} outside [1, {n}]")
+    if q.device.type == "cpu":
+        return bf16_centered_topc_plain(q, x16, aux, valid, metric, c)
+    code = _kernel_metric("bf16_centered_topc", metric)
     qc16, qc_sq, qm, q_sq = _query_terms(q, aux["mean"])
-    _cuda.require_cuda("bf16_centered_scores", q, x16, aux["xm"], aux["xc_sq"], aux["xsq_true"],
+    _cuda.require_cuda("bf16_centered_topc", q, x16, aux["xm"], aux["xc_sq"], aux["xsq_true"],
                        valid)
     if x16.dtype != torch.bfloat16 or x16.shape[1] != d or q.dtype != torch.float32:
-        raise ValueError("bf16_centered_scores: q (B, D) float32 and x16 (N, D) bfloat16 expected")
+        raise ValueError("bf16_centered_topc: q (B, D) float32 and x16 (N, D) bfloat16 expected")
     if any(aux[key].shape != (n,) for key in ("xm", "xc_sq", "xsq_true")) or valid.shape != (n,):
-        raise ValueError("bf16_centered_scores: aux arrays and valid must be (N,)")
-    keys = torch.empty((b, n), dtype=torch.float32, device=q.device)
+        raise ValueError("bf16_centered_topc: aux arrays and valid must be (N,)")
+    lib = _cuda.library()
+    spans, scratch = lib.lt_topc_spans(b, n, d, c), lib.lt_topc_scratch(b, n, d, c)
+    keys = torch.empty((b, spans * c), dtype=torch.float32, device=q.device)
+    ids = torch.empty((b, spans * c), dtype=torch.int32, device=q.device)
+    lists = torch.empty(scratch, dtype=torch.int64, device=q.device) if scratch else None
     _cuda.call(
-        "lt_bf16_centered_scores", qc16.data_ptr(), x16.data_ptr(), qc_sq.data_ptr(),
+        "lt_bf16_centered_topc", qc16.data_ptr(), x16.data_ptr(), qc_sq.data_ptr(),
         qm.data_ptr(), q_sq.data_ptr(), aux["xm"].data_ptr(), aux["xc_sq"].data_ptr(),
-        aux["xsq_true"].data_ptr(), valid.data_ptr(), b, n, d, code, int(metric.ascending),
-        keys.data_ptr(), _cuda.stream_of(q),
+        aux["xsq_true"].data_ptr(), valid.data_ptr(), b, n, d, c, code, int(metric.ascending),
+        keys.data_ptr(), ids.data_ptr(), _cuda.ptr(lists), _cuda.stream_of(q),
     )
-    bf16_centered_scores.launches += 1
-    return keys
+    bf16_centered_topc.launches += 1
+    if spans == 1:
+        return keys, ids
+    return merge_runs(keys, ids, c)
 
 
-bf16_centered_scores.launches = 0
+bf16_centered_topc.launches = 0
 
 
 # ── K3: exact rescore of the shortlist ───────────────────────────────────
@@ -596,7 +619,7 @@ def bf16_gather_scores(q: torch.Tensor, x16: torch.Tensor, aux: dict, idx: torch
                        slot_keys: Optional[torch.Tensor], metric: Metric) -> torch.Tensor:
     """Oriented keys (B, S) of f32 queries ``q`` (B, D) against the rows
     ``idx`` of the mean-centred bf16 corpus ``x16``, with K2's corrections
-    (``aux`` as for bf16_centered_scores). ``idx`` int32 is (B, S), one list
+    (``aux`` as for bf16_centered_topc). ``idx`` int32 is (B, S), one list
     a query, or (1, S), one list shared by every query; a slot is empty
     (key -inf) where its id is negative or, when ``slot_keys`` (laid out as
     ``idx``) is given, where its key is -inf."""
@@ -660,37 +683,41 @@ class StreamBlock(NamedTuple):
     mean: Optional[torch.Tensor]
 
 
-def stream_block_keys(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock,
-                      metric: Metric, plain: bool = False) -> torch.Tensor:
-    """The oriented, masked keys (B, r) of one block: K2 over a bf16 block
-    (IP, L2, cosine), K6c's bf16 mode (the L1 family), or the metric's exact
-    kernel over the transform of an f32 block (``qt`` its query transform).
+def _block_top(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock, metric: Metric, c: int,
+               plain: bool):
+    """One block's top C with global row ids, -inf / -1 in empty slots: K2's
+    fused pass over a bf16 block (IP, L2, cosine), else the block's keys —
+    K6c's bf16 mode (the L1 family), or the metric's exact kernel over the
+    transform of an f32 block (``qt`` its query transform) — and K5.
     ``plain``: the kernels' plain versions, on any device."""
-    if blk.kind == "f32":
-        ct = D.corpus_transform(blk.x, metric)
-        return (metric_keys_plain if plain else metric_keys)(qt, ct, blk.valid, metric)
-    if metric in TWO_PASS_METRICS:
-        aux = {"mean": blk.mean, **blk.aux}
-        fn = bf16_centered_scores_plain if plain else bf16_centered_scores
-        return fn(q, blk.x, aux, blk.valid, metric)
-    if plain:
-        return metric_keys_plain({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
-    return elementwise_scores({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
+    c = min(c, blk.x.shape[0])
+    if blk.kind == "bf16" and metric in TWO_PASS_METRICS:
+        fn = bf16_centered_topc_plain if plain else bf16_centered_topc
+        top, loc = fn(q, blk.x, {"mean": blk.mean, **blk.aux}, blk.valid, metric, c)
+    else:
+        if blk.kind == "f32":
+            ct = D.corpus_transform(blk.x, metric)
+            keys = (metric_keys_plain if plain else metric_keys)(qt, ct, blk.valid, metric)
+        elif plain:
+            keys = metric_keys_plain({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
+        else:
+            keys = elementwise_scores({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
+        top, loc = (topk_select_plain if plain else topk_select)(keys, c)
+    return top, torch.where(top > float("-inf"), loc + blk.base, -1).to(torch.int32)
 
 
 def stream_block(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock, keys: torch.Tensor,
                  ids: torch.Tensor, metric: Metric, c: int):
     """K8: advance one query chunk's carried top-C state (``keys`` (B, C)
     f32, ``ids`` (B, C) int32 global row ids, -inf / -1 in empty slots)
-    across one block: the block's keys (:func:`stream_block_keys`), K5's top
-    C of them with global ids, and K5's ``ids`` mode merging them into the
-    state (best key first, the lower id between equal keys). Returns the new
-    (keys, ids)."""
-    bk = stream_block_keys(q, qt, blk, metric)
-    top, loc = topk_select(bk, min(c, bk.shape[1]))
-    del bk
-    gid = torch.where(top > float("-inf"), loc + blk.base, -1).to(torch.int32)
-    out = topk_select(torch.cat([keys, top], dim=1), c, ids=torch.cat([ids, gid], dim=1))
+    across one block: the block's top C with global ids (:func:`_block_top`)
+    and K5 merging the two sorted runs, state and block (best key first, the
+    lower id between equal keys). Returns the new (keys, ids)."""
+    top, gid = _block_top(q, qt, blk, metric, c, plain=False)
+    if top.shape[1] < c:  # a block shorter than C: pad its list to a run of C
+        top = torch.nn.functional.pad(top, (0, c - top.shape[1]), value=float("-inf"))
+        gid = torch.nn.functional.pad(gid, (0, c - gid.shape[1]), value=-1)
+    out = merge_runs(torch.cat([keys, top], dim=1), torch.cat([ids, gid], dim=1), c)
     if q.device.type == "cuda":
         stream_block.launches += 1
     return out
@@ -702,9 +729,7 @@ stream_block.launches = 0
 def stream_block_plain(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock,
                        keys: torch.Tensor, ids: torch.Tensor, metric: Metric, c: int):
     """Plain version of :func:`stream_block`, on the inputs' device."""
-    bk = stream_block_keys(q, qt, blk, metric, plain=True)
-    top, loc = topk_select_plain(bk, min(c, bk.shape[1]))
-    gid = torch.where(top > float("-inf"), loc + blk.base, -1).to(torch.int32)
+    top, gid = _block_top(q, qt, blk, metric, c, plain=True)
     return topk_select_plain(torch.cat([keys, top], dim=1), c, ids=torch.cat([ids, gid], dim=1))
 
 
@@ -1148,7 +1173,7 @@ class DeviceCorpus:
 
     def bf16_aux(self) -> dict:
         """Device aux arrays of the centred bf16 copy: mean (D,), xm (cap,),
-        xc_sq (cap,), xsq_true (cap,) — see bf16_centered_scores."""
+        xc_sq (cap,), xsq_true (cap,) — see bf16_centered_topc."""
         self._ensure_staged()
         if self._aux is None:
             self._aux = {
@@ -1396,10 +1421,11 @@ class DeviceCorpus:
         return idx, torch.where(self.valid_mask()[idx.long()], 0.0, float("-inf"))
 
     def _two_pass(self, qd: torch.Tensor, k: int, metric: Metric, handle, oversample: int):
-        """The two-pass plan over the device's bf16 copy: K2 -> K5, or the
-        gather route of a selective filter (K4: K11 -> K5 with global ids),
-        then the exact rescore: K3 on the device in the resident tier, the
-        host mirror otherwise (the device never holds the f32 copy there).
+        """The two-pass plan over the device's bf16 copy: K2's fused pass (its
+        span lists merged by K5), or the gather route of a selective filter
+        (K4: K11 -> K5 with global ids), then the exact rescore: K3 on the
+        device in the resident tier, the host mirror otherwise (the device
+        never holds the f32 copy there).
         Returns a resolver that takes the queries' host rows."""
         if handle is not None and handle.use_gather(self.n):
             idx, slot = self.gather_inputs(handle)
@@ -1408,13 +1434,12 @@ class DeviceCorpus:
             keys = bf16_gather_scores(qd, self._dev16, self.bf16_aux(), idx, slot, metric)
             top, local = topk_select(keys, c)
             gid = torch.where(top > float("-inf"), idx[0][local.long()], -1)
+            del keys
         else:
             c = self._shortlist_size(k, self.n, oversample)
             self.last_scanned = self.n + c  # full first pass + exact rescore rows
-            keys = bf16_centered_scores(qd, self._dev16, self.bf16_aux(),
-                                        self.valid_mask(handle), metric)
-            top, gid = topk_select(keys, c)
-        del keys
+            top, gid = bf16_centered_topc(qd, self._dev16, self.bf16_aux(),
+                                          self.valid_mask(handle), metric, c)
         if self.tier == RESIDENT:
             dists, ids = rescore_topk(qd, self._data, top, gid, min(k, c), metric)
             return lambda q_np: _trim_results(*_fetch(dists, ids))

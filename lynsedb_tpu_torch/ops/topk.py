@@ -7,13 +7,18 @@ ties: the order ``jax.lax.top_k`` gives in the JAX package
 ``approx_max_k`` lowers to the same exact top-k on the CPU.
 
 :func:`topk_select` is the kernel's wrapper: on a CUDA tensor it launches the
-bitonic select kernel (csrc/topk_select.cu), on a CPU tensor it runs the plain
+select kernel (csrc/topk_select.cu), on a CPU tensor it runs the plain
 version beside it. Any 1 <= k <= N runs a hand-written kernel: k <= 1,024
-selects in shared memory, a larger k sorts 4,096-key chunks and merges the
-sorted runs.
+reads each key once and keeps a running top k a warp for every span of a
+row (then the same kernel merges the spans' lists), a larger k sorts
+4,096-key chunks and merges the sorted runs. :func:`merge_runs` is K5 over
+rows of runs already sorted (the fused first pass's span lists, K8's
+state): pairwise merges in one or two launches.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -79,6 +84,46 @@ def topk_select(keys: torch.Tensor, k: int, ids: torch.Tensor | None = None
 
 
 topk_select.launches = 0
+
+MERGE_RUN_MAX = 256  # the longest run the merge of sorted runs takes
+# Rows with more runs than this merge in two launches, groups of this many
+# runs in parallel blocks first: one block a row would wait on memory once a
+# level for every level of a long merge.
+MERGE_GROUP = 16
+
+
+def merge_runs(keys: torch.Tensor, ids: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 over sorted runs: ``keys`` (B, L * k) f32 and ``ids`` (B, L * k)
+    int32 hold L runs of k entries each, every run sorted best first (key
+    descending, the lower id first between equal keys), as the fused first
+    pass's span lists and K8's state are. Returns the best k of each row,
+    what ``topk_select(keys, k, ids=ids)`` returns. Runs of at most
+    ``MERGE_RUN_MAX`` entries merge pairwise in the kernel
+    (csrc/topk_select.cu, each launch counted as K5's): in one launch, or in
+    groups of ``MERGE_GROUP`` runs and then the groups' results; longer runs
+    go to :func:`topk_select`."""
+    b, n = keys.shape
+    if ids.shape != keys.shape or ids.dtype != torch.int32 or n % k:
+        raise ValueError("merge_runs: ids int32 shaped like keys, and whole runs of k expected")
+    if keys.device.type == "cpu":
+        return topk_select_plain(keys, k, ids)
+    if k > MERGE_RUN_MAX:
+        return topk_select(keys, k, ids=ids)
+    _cuda.require_cuda("merge_runs", keys, ids)
+    runs = n // k
+    # groups of about sqrt(runs) runs (at least MERGE_GROUP): two launches
+    per = max(MERGE_GROUP, math.isqrt(runs - 1) + 1) if runs > MERGE_GROUP else runs
+    groups = -(-runs // per)
+    out_keys = torch.empty((b, groups * k), dtype=torch.float32, device=keys.device)
+    out_idx = torch.empty((b, groups * k), dtype=torch.int32, device=keys.device)
+    scratch = torch.empty(_cuda.library().lt_topk_merge_scratch(b, runs, k, per),
+                          dtype=torch.int64, device=keys.device)
+    _cuda.call("lt_topk_merge_runs", keys.data_ptr(), ids.data_ptr(), b, runs, k, per,
+               out_keys.data_ptr(), out_idx.data_ptr(), scratch.data_ptr(), _cuda.stream_of(keys))
+    topk_select.launches += 1
+    if groups == 1:
+        return out_keys, out_idx
+    return merge_runs(out_keys, out_idx, k)
 
 
 def _masked_keys(scores: torch.Tensor, ascending: bool, valid: torch.Tensor | None) -> torch.Tensor:

@@ -6,11 +6,13 @@ CUDA kernels have no interpret mode, so these tests are marked ``cuda`` and
 skip without a card; ``python3 chip_smoke.py`` repeats the comparisons at the
 main path's full shapes.
 
-Tolerances: K5 (selection) exact, at any k; K1, K3 and ivf_scan_blocks
-distances rtol=1e-5, atol=1e-4 (f32 sums in another order); K2 keys
-|d| <= 1e-5 * |qc| * |xc| + 1e-5 (a bf16 product is exact in f32, only the
-summation order differs); ids identical except between entries whose plain
-keys lie within that tolerance. kmeans_assign: ids equal except where a
+Tolerances: K5 (selection, and its merge of sorted runs) exact, at any k; K1, K3 and ivf_scan_blocks
+distances rtol=1e-5, atol=1e-4 (f32 sums in another order); K2 (the fused
+first pass) keys |d| <= 1e-5 * |qc| * |xc| + 1e-5 at the same row id (a
+bf16 product is exact in f32, only the tensor cores' summation order
+differs); its ids the plain version's set, except for rows whose plain key
+lies within twice that tolerance of the plain C-th key; K3's ids identical
+except between entries whose plain keys lie within its tolerance. kmeans_assign: ids equal except where a
 row's two best centroids lie within 1e-5 relative; kmeans_update: sums
 rtol=1e-5, atol=1e-4, counts exact, two runs bit-identical. K14 rtol=1e-6
 (the same additions in the same order); K12 keys rtol=1e-5, atol=1e-5 (the
@@ -61,7 +63,9 @@ def _tie_keys(rng, b, n):
 @pytest.mark.parametrize("b,n,k", [(1, 1, 1), (3, 5000, 10), (4, 20000, 256), (2, 70000, 1024),
                                    (5, 100, 100), (2, 4096, 4096 // 4), (2, 5000, 1025),
                                    (3, 70000, 1025), (2, 9000, 4096), (1, 4097, 1500),
-                                   (2, 20000, 20000), (2, 3000, 3000), (70000, 16, 3)])
+                                   (2, 20000, 20000), (2, 3000, 3000), (70000, 16, 3),
+                                   (3, 70001, 4000), (2, 4097, 4097), (16, 1_000_000, 4096),
+                                   (256, 1_000_000, 256), (7, 100_003, 1)])
 def test_topk_select_matches_plain(dev, b, n, k):
     keys = torch.from_numpy(_tie_keys(np.random.default_rng(n), b, n)).to(dev)
     got_k, got_i = topk.topk_select(keys, k)
@@ -69,6 +73,33 @@ def test_topk_select_matches_plain(dev, b, n, k):
     torch.cuda.synchronize()
     assert torch.equal(got_k, want_k)
     assert torch.equal(got_i, want_i)
+
+
+def _sorted_runs(rng, b, runs, r):
+    """(B, runs * r) keys and distinct int32 ids, each run sorted best first
+    (many tied keys, lower id first), some runs ending in (-inf, -1)."""
+    keys = np.round(rng.normal(size=(b, runs, r)), 1).astype(np.float32)
+    ids = rng.permutation(1 << 24)[: b * runs * r].reshape(b, runs, r).astype(np.int32)
+    order = np.lexsort((ids, -keys), axis=2)
+    keys, ids = np.take_along_axis(keys, order, 2), np.take_along_axis(ids, order, 2)
+    tail = rng.integers(0, r + 1, size=(b, runs))
+    tail[:, 0] = 0
+    cut = np.arange(r)[None, None, :] >= (r - tail)[:, :, None]
+    keys[cut], ids[cut] = -np.inf, -1
+    return keys.reshape(b, runs * r), ids.reshape(b, runs * r)
+
+
+@pytest.mark.parametrize("b,runs,r", [(1, 261, 256), (16, 131, 256), (3, 1, 64), (2, 5, 100),
+                                      (256, 2, 256), (4, 7, 8), (2, 33, 192), (1, 2, 1)])
+def test_merge_runs_matches_plain(dev, b, runs, r):
+    """K5 over sorted runs (the fused pass's span lists, K8's state) equals
+    topk_select_plain in ids mode, ties and (-inf, -1) tails included."""
+    keys, ids = _sorted_runs(np.random.default_rng(runs * r + b), b, runs, r)
+    kt, it = torch.from_numpy(keys).to(dev), torch.from_numpy(ids).to(dev)
+    got = topk.merge_runs(kt, it, r)
+    want = topk.topk_select_plain(kt, r, it)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _assert_ids_match(got_ids, want_ids, want_keys, tol):
@@ -119,23 +150,80 @@ def _aux(x_np, device):
     return corpus
 
 
-@pytest.mark.parametrize("metric", METRICS)
-def test_bf16_centered_scores_matches_plain(dev, metric):
-    rng = np.random.default_rng(2)
-    corpus = _aux(rng.normal(size=(6000, 64)).astype(np.float32) + 0.5, dev)
-    aux, x16 = corpus.bf16_aux(), corpus._dev16
-    q = torch.from_numpy(rng.normal(size=(17, 64)).astype(np.float32)).to(dev)
-    valid = corpus.valid_mask()
-    got = scan.bf16_centered_scores(q, x16, aux, valid, metric)
-    want = scan.bf16_centered_scores_plain(q, x16, aux, valid, metric)
-    torch.cuda.synchronize()
+def _assert_topc_close(q, x16, aux, valid, metric, c, got, want):
+    """K2's fused pass against its plain version: every returned key within
+    |d| <= 1e-5 |q - m| |x - m| + 1e-5 (cosine: over its denominator) of
+    the plain key of the same row, keys descending, the same slots empty,
+    and the ids the same set but for rows whose plain key lies within that
+    tolerance of the plain C-th key."""
+    full = scan.bf16_centered_scores_plain(q, x16, aux, valid, metric)
     qc = q - aux["mean"][None, :]
-    bound = 1e-5 * qc.norm(dim=1)[:, None] * x16.float().norm(dim=1)[None, :] + 1e-5
+    tol = 1e-5 * qc.norm(dim=1)[:, None] * x16.float().norm(dim=1)[None, :] + 1e-5
     if metric is Metric.COSINE:  # the bound is on the numerator; scale by the denominator
-        bound = bound / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][None, :]).clamp_min(1e-30)
-    fin = torch.isfinite(want)
-    assert torch.equal(fin, torch.isfinite(got))
-    assert bool(((got - want).abs()[fin] <= bound[fin]).all())
+        tol = tol / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][None, :]).clamp_min(1e-30)
+    (gk, gi), (wk, wi) = got, want
+    assert gk.shape == wk.shape == gi.shape == (q.shape[0], c)
+    assert torch.equal(gi < 0, wi < 0) and torch.equal(gi < 0, torch.isinf(gk) & (gk < 0))
+    assert bool((gk[:, :-1] >= gk[:, 1:]).all())
+    live = gi >= 0
+    rows = torch.where(live, gi, 0).long()
+    assert bool(((gk - full.gather(1, rows)).abs() <= tol.gather(1, rows))[live].all())
+    for r in range(q.shape[0]):
+        got_set = set(gi[r][live[r]].tolist())
+        want_set = set(wi[r][wi[r] >= 0].tolist())
+        assert len(got_set) == int(live[r].sum())  # no row twice
+        kth = wk[r][wi[r] >= 0][-1] if want_set else None
+        for row in got_set ^ want_set:
+            assert abs(float(full[r, row] - kth)) <= 2 * float(tol[r, row]), (r, row)
+
+
+_TOPC_CASES = [  # (d, n, b, c): every D, N, B and C of the fused pass's routes
+    (128, 100_000, 1, 256), (128, 100_000, 16, 256), (128, 100_000, 256, 256),
+    (128, 100_000, 17, 1024), (128, 100_000, 7, 64), (768, 100_000, 16, 256),
+    (100, 4097, 7, 1024), (3, 4095, 17, 64), (1, 4097, 1, 256), (1, 1, 1, 1),
+    (768, 4095, 256, 1024), (3, 100_000, 256, 64), (100, 100_000, 1, 1024),
+    (128, 4095, 16, 4095), (128, 100_000, 3, 5000), (128, 100_000, 2, 20_000),
+]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d,n,b,c", _TOPC_CASES)
+def test_bf16_centered_scores_matches_plain(dev, metric, d, n, b, c):
+    """K2, the fused first pass (tensor-core scores and each span's top C),
+    against its plain version on duplicated rows and a mask."""
+    rng = np.random.default_rng(d * 7 + n)
+    x = rng.normal(size=(n, d)).astype(np.float32) + 0.5
+    x[n // 2 : n // 2 + min(1000, n // 4)] = x[: min(1000, n // 4)]  # duplicated rows
+    corpus = _aux(x, dev)
+    corpus.set_tombstones(np.arange(n) % 13 == 5)
+    aux, x16 = corpus.bf16_aux(), corpus._dev16
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    valid = corpus.valid_mask(rng.random(n) < 0.7)
+    c = min(c, x16.shape[0])
+    got = scan.bf16_centered_topc(q, x16, aux, valid, metric, c)
+    want = scan.bf16_centered_topc_plain(q, x16, aux, valid, metric, c)
+    torch.cuda.synchronize()
+    _assert_topc_close(q, x16, aux, valid, metric, c, got, want)
+
+
+def test_bf16_centered_topc_masked_spans(dev):
+    """Wholly masked spans, rows past n (capacity padding) and fewer live
+    rows than C: the empty slots come back (-inf, -1)."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(50_000, 64)).astype(np.float32)
+    corpus = _aux(x, dev)
+    mask = np.zeros(50_000, bool)
+    mask[[3, 17, 40_000, 49_999]] = True
+    mask[20_000:20_100] = True
+    valid = corpus.valid_mask(mask)
+    q = torch.from_numpy(rng.normal(size=(5, 64)).astype(np.float32)).to(dev)
+    for c in (64, 256):
+        got = scan.bf16_centered_topc(q, corpus._dev16, corpus.bf16_aux(), valid, Metric.L2, c)
+        want = scan.bf16_centered_topc_plain(q, corpus._dev16, corpus.bf16_aux(), valid,
+                                             Metric.L2, c)
+        torch.cuda.synchronize()
+        assert int((got[1] >= 0).sum(1).min()) == min(c, 104)
+        _assert_topc_close(q, corpus._dev16, corpus.bf16_aux(), valid, Metric.L2, c, got, want)
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -190,7 +278,16 @@ def test_topk_select_ids_match_plain(dev):
     keys = torch.from_numpy(_tie_keys(rng, 3, 9000)).to(dev)
     ids = torch.from_numpy(np.stack([rng.permutation(50000)[:9000] for _ in range(3)])
                            .astype(np.int32)).to(dev)
-    for k in (10, 2000):
+    for k in (10, 2000, 4096, 5000):
+        got, want = topk.topk_select(keys, k, ids=ids), topk.topk_select_plain(keys, k, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # (256, 1M) with caller ids: the fused pass's merge at its largest
+    keys = torch.from_numpy(_tie_keys(rng, 256, 1_000_000)).to(dev)
+    # distinct ids up to 2^30 in scrambled order (an odd multiplier is a bijection mod 2^30)
+    ids = (torch.arange(1_000_000, device=dev) * 1_000_003 % (1 << 30)).to(torch.int32)
+    ids = ids.expand(256, -1).contiguous()
+    for k in (256, 4096):
         got, want = topk.topk_select(keys, k, ids=ids), topk.topk_select_plain(keys, k, ids)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
