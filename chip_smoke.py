@@ -9,7 +9,8 @@ Phases (each prints its seconds):
      (one process a source, all at once).
   3. kernels: each kernel against its plain PyTorch version at the shapes its
      path gives it, with times, bounds and a library call's time beside:
-     K1 flat_scores_f32, K2 bf16_centered_topc (the fused first pass: its
+     K1 flat_scores_f32 (and at B=17, the first batch of its FMA route),
+     K2 bf16_centered_topc (the fused first pass: its
      top C held to the plain keys of the same rows within K2's bound, its
      ids to the plain version's but at near-ties of the C-th key; yardstick
      torch.topk(qc16 @ x16.T, C)), K3 rescore_topk, K5 topk_select (bit-equal,
@@ -26,7 +27,8 @@ Phases (each prints its seconds):
      (100,000 rows: the gather route, K11 -> K5 -> K3, scanned_vectors
      100,000 + the shortlist); then a 2,000-row collection (the exact K1
      plan). K11 against its plain version on the route's own (1, 100,000)
-     row list and slot keys, B in {1, 16, 256}.
+     row list and slot keys, B in {1, 16, 256, 33}, its bound at the bf16
+     peak and the two calls qc16 @ x16.index_select(0, idx).T beside it.
   5. large k: search(k=1000) and search_range(max_results=1000) on the 1M
      collection (a shortlist of 1,280: K5's sort-and-merge path, K3 via K5).
      Then the quantized scans at 1,000,000 x 128: K12 int8_code_scores for
@@ -142,6 +144,8 @@ from lynsedb_tpu_torch.ops import graph
 from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 from lynsedb_tpu_torch.tools.flat_latency import GcClock
+from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, F32_OPS, HBM_BPS, INT8_OPS, SFU_OPS,
+                                              bound, bound_t, f32_tile_bound, shared_list_bound)
 
 N, DIM, K, C = 1_000_000, 128, 10, 256
 BATCHES = (1, 16, 256)
@@ -153,13 +157,6 @@ N_CENTERS, SPREAD = 2000, 0.6  # the corpus's mixture
 BIG_K = 1000
 SEED = 0
 DEV = torch.device("cuda")
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 and dense bf16 flop/s,
-# dense int8 op/s
-HBM_BPS, F32_FLOPS, BF16_FLOPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
-# f32 instructions a second outside the tensor cores (67 TFLOP/s counts an
-# FMA as two flops), and the special-function units' and popcount's rate:
-# 132 SMs x 16 a clock x 1.98 GHz (a reciprocal, a logarithm, a popcount)
-F32_OPS, SFU_OPS = F32_FLOPS / 2, 132 * 16 * 1.98e9
 # the upstream gate's quantized modes (benchmarks/gate_index_modes.py:39-43)
 # and their recall@10 floors (SURVEY.md section 6)
 QUANT_MODES = {"FLAT-IP-SQ8": 0.95, "FLAT-L2-SQ8": 0.95, "FLAT-IP-PQ": 0.70,
@@ -293,18 +290,6 @@ def uncounted():
         set_counts(saved)
 
 
-def bound_t(bytes_moved: float, t_ops: float):
-    """(ms, "bytes" or "operations"): the least time for the work, the
-    larger of its bytes over the memory rate and its operations' time
-    ``t_ops`` in seconds."""
-    t_bytes, t_ops = bytes_moved / HBM_BPS * 1e3, t_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def bound(bytes_moved: float, flops: float, peak_flops: float = F32_FLOPS):
-    return bound_t(bytes_moved, flops / peak_flops)
-
-
 def make_corpus(rng):
     """1M rows from a mixture of N_CENTERS gaussian clusters, 1,000 rows
     duplicated (exact score ties). Returns (rows, centers)."""
@@ -417,8 +402,7 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                 args_t = (q, x32, None, None, live, metric)
                 stats.time("K1 flat_scores_f32", f"IP B={b}", lambda: scan.flat_scores_f32(*args_t),
                            lambda: scan.flat_scores_f32_plain(*args_t), lambda: q @ x32.T,
-                           bound(n_live * DIM * 4 + rows + b * DIM * 4 + b * rows * 4,
-                                 2 * b * n_live * DIM))
+                           f32_tile_bound(b, DIM, n_live, rows))
             del p1, fin, err1
 
             # K5 on K1's keys (k = 10) and on the first pass's (B, N) keys (k = C)
@@ -473,6 +457,22 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                            bound(n_cand * DIM * 4 + b * DIM * 4 + b * C * 8 + b * K * 12,
                                  4 * n_cand * DIM))
         print(f"   {metric.value}: K1, K2, K3, K5 agree with their plain versions", flush=True)
+
+    # K1 at the edge of its routes: B = 17 is the first batch on the FMA
+    # route (a 32-query tile); a generator of its own leaves the data of the
+    # checks below as they were
+    q17 = torch.from_numpy(np.random.default_rng(SEED + 17).normal(size=(17, DIM))
+                           .astype(np.float32)).to(DEV)
+    args17 = (q17, x32, None, None, valid, Metric.IP)
+    k17, p17 = scan.flat_scores_f32(*args17), scan.flat_scores_f32_plain(*args17)
+    fin = torch.isfinite(p17)
+    check(torch.equal(fin, torch.isfinite(k17)), "K1 B=17: masked entries differ")
+    err17 = (k17[fin] - p17[fin]).abs()
+    check(bool((err17 <= 1e-4 + 1e-5 * p17[fin].abs()).all()), "K1 ip B=17")
+    stats.error("K1 flat_scores_f32", err17.max())
+    del k17, p17, fin, err17
+    print("   K1 at B=17 (the FMA route's first batch): agrees with its plain version",
+          flush=True)
 
     # K5 up to the select's k = 4,096 and past it (sort and merge), exact,
     # ties included; K2 at the large-k path's shortlist
@@ -626,8 +626,13 @@ def check_gather(got, want, q, aux, ids, metric, what: str, stats: Stats) -> Non
 def gather_route_phase(coll, rng, stats: Stats) -> None:
     """K11 against its plain version at the flat path's gather-route inputs:
     the engine's bucket = 3 handle over the 1M collection, its (1, 100,000)
-    row list shared by every query and its slot keys, B in {1, 16, 256},
-    IP / L2 / cosine; timed under IP (the collection's metric)."""
+    row list shared by every query and its slot keys, B in {1, 16, 256} and
+    33 (two query groups of the shared-list tile), IP / L2 / cosine; timed
+    under IP (the collection's metric) at B in {1, 16, 256}, its bound
+    counting the flops at the bf16 tensor-core peak (the same work could run
+    there, as K2's does), with the two calls qc16 @ x16.index_select(0,
+    idx).T beside it (a gather and a matmul: no one PyTorch call, so no
+    library time)."""
     eng = coll._engine
     corpus, handle = eng.corpus(), eng.resolve_filter("bucket = 3")
     check(handle.use_gather(corpus.n), "bucket = 3 takes the gather route")
@@ -635,21 +640,26 @@ def gather_route_phase(coll, rng, stats: Stats) -> None:
     s = idx.shape[1]
     x16, aux = corpus.data16, corpus.bf16_aux()
     for metric in METRICS:
-        for b in BATCHES:
+        for b in (*BATCHES, 33):
             q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
-            got = scan.bf16_gather_scores(q, x16, aux, idx, slot, metric)
-            want = scan.bf16_gather_scores_plain(q, x16, aux, idx, slot, metric)
+            got = scan.bf16_gather_scores(q, x16, aux, idx, slot, metric, shared=True)
+            want = scan.bf16_gather_scores_plain(q, x16, aux, idx, slot, metric, shared=True)
             check(got.shape == (b, s), f"K11 shared list B={b}: shape {tuple(got.shape)}")
             check_gather(got, want, q, aux, idx, metric, f"K11 {metric} shared S={s} B={b}", stats)
             del got, want
-            if metric is Metric.IP:  # rows, xm, the list and its slot keys; B x S keys out
+            if metric is Metric.IP and b in BATCHES:  # rows, xm, the list and its slot keys
                 stats.time("K11 bf16_gather_scores", f"IP B={b} shared S={s}",
-                           lambda: scan.bf16_gather_scores(q, x16, aux, idx, slot, metric),
-                           lambda: scan.bf16_gather_scores_plain(q, x16, aux, idx, slot, metric),
-                           None, bound(s * (DIM * 2 + 4 + 8) + b * s * 4 + b * DIM * 4,
-                                       2 * b * s * DIM))
+                           lambda: scan.bf16_gather_scores(q, x16, aux, idx, slot, metric,
+                                                           shared=True),
+                           lambda: scan.bf16_gather_scores_plain(q, x16, aux, idx, slot, metric,
+                                                                 shared=True),
+                           None, shared_list_bound(b, DIM, s))
+                qc16 = scan._query_terms(q, aux["mean"])[0]
+                two = cuda_ms(lambda: qc16 @ x16.index_select(0, idx[0]).T)
+                print(f"   K11 shared S={s} B={b}: two calls (index_select + bf16 matmul) "
+                      f"{two:.4f} ms", flush=True)
     print(f"   K11 bf16_gather_scores over the shared (1, {s}) list: agrees with its plain "
-          "version", flush=True)
+          "version at B in [1, 16, 256, 33]", flush=True)
 
 
 def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
@@ -1379,8 +1389,7 @@ def metric_kernel_phase(corpus: DeviceCorpus, metric: Metric, qs: np.ndarray, st
             lead = scan._gemm_rows(ct, metric)
             ql = scan._gemm_rows(qt, metric)
             library = lambda: ql @ lead.T  # noqa: E731
-            extra = 8 if metric is Metric.CORRELATION else 5
-            bd = bound(n_live * (d * 4 + extra) + keys_bytes, 2 * b * n_live * d)
+            bd = f32_tile_bound(b, d, n_live, rows, 8 if metric is Metric.CORRELATION else 5)
         else:
             x32 = corpus._data
             if metric in (Metric.L1, Metric.CHEBYSHEV):

@@ -25,7 +25,9 @@
 // the pass is bound by bytes at every B <= 256 and the read must not be
 // repeated.
 // Design: mma.sync m16n8k16 (bf16 in, f32 accumulate), corpus rows on the M
-// side and queries on the N side, so a single query pads to 8, not to 64.
+// side and queries on the N side, so a single query pads to 8, not to 64
+// (the stage and its MMAs are mma_bf16.cuh's, shared with K11's shared-list
+// tile).
 // A block takes a span of rows x a group of up to 32 queries (at most 8
 // groups; the query group is the fastest grid index, so the groups that
 // share a span re-read it from L2); 8 warps, 16 rows each, make a 128-row
@@ -48,15 +50,15 @@
 // 8 * (next_pow2(C) + 256) bytes; where a group's lists do not fit in shared
 // memory even at one query, they live in a device scratch buffer (a route
 // by C).
-#include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTM = 128;              // corpus rows a tile: 16 a warp
-constexpr int kKC = 64;               // dimensions a stage
-constexpr int kStride = kKC + 8;      // bf16 a row of a stage (144 B: ldmatrix without conflicts)
-constexpr int kStages = 3;
+constexpr int kThreads = lt::kMmaThreads;
+constexpr int kTM = lt::kMmaRows;       // corpus rows a tile: 16 a warp
+constexpr int kKC = lt::kMmaDims;       // dimensions a stage
+constexpr int kStride = lt::kMmaStride;
+constexpr int kStages = lt::kMmaStages;
 constexpr int kMaxQN = 32;            // queries a block (4 n-tiles of 8)
 constexpr int kSRow = kTM + 4;        // floats a query of the score tile (stores without conflicts)
 constexpr int kSmemLimit = 225 * 1024;  // dynamic, below the 227 KB a block may use
@@ -80,22 +82,6 @@ struct Args {
   int* out_idx;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Stage `step` (tile step / kchunks, dimensions from (step % kchunks) * kKC)
 // of the tile's rows and the group's queries into `dst`: rows first, then
 // queries, kStride bf16 each; zeros past D, past the span and past the group.
@@ -118,7 +104,7 @@ __device__ __forceinline__ void load_stage(const Args& a, __nv_bfloat16* dst, in
         ok = r - kTM < nq && d < a.D;
         if (ok) src = a.q + (int64_t)(q0 + r - kTM) * a.D + d;
       }
-      cp_async16(dst + r * kStride + col, src, ok ? 16 : 0);
+      lt::cp_async16(dst + r * kStride + col, src, ok ? 16 : 0);
     }
   } else {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
@@ -131,33 +117,6 @@ __device__ __forceinline__ void load_stage(const Args& a, __nv_bfloat16* dst, in
         v = a.q[(int64_t)(q0 + r - kTM) * a.D + d];
       }
       dst[r * kStride + col] = v;
-    }
-  }
-}
-
-// acc[nt] += the warp's 16 rows x n-tile nt's 8 queries over one stage.
-template <int NT>
-__device__ __forceinline__ void mma_stage(const __nv_bfloat16* st, float (&acc)[NT][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const __nv_bfloat16* rows = st + (warp * 16 + (lane & 15)) * kStride + (lane >> 4) * 8;
-  const __nv_bfloat16* qs = st + (kTM + (lane & 7)) * kStride + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int ks = 0; ks < kKC; ks += 16) {
-    uint32_t a0, a1, a2, a3;
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
-                 : "r"(smem_addr(rows + ks)));
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t b0, b1;
-      asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-                   : "=r"(b0), "=r"(b1)
-                   : "r"(smem_addr(qs + nt * 8 * kStride + ks)));
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-          : "+f"(acc[nt][0]), "+f"(acc[nt][1]), "+f"(acc[nt][2]), "+f"(acc[nt][3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
     }
   }
 }
@@ -223,20 +182,20 @@ __global__ void __launch_bounds__(kThreads) topc_kernel(const Args a) {
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < steps) load_stage<QN>(a, ring + s * kStageElems, s, kchunks, row0, row_end, q0, nq);
-    cp_async_commit();
+    lt::cp_async_commit();
   }
   float acc[NT][4] = {};
   RowTerms terms = load_terms(a, row0, row_end);
   RowTerms next_terms = load_terms(a, row0 + kTM, row_end);
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kStages - 2>();
+    lt::cp_async_wait<kStages - 2>();
     __syncthreads();  // stage s has landed; every warp is done with stage s - 1 and the scores
     const int next = s + kStages - 1;
     if (next < steps)
       load_stage<QN>(a, ring + (next % kStages) * kStageElems, next, kchunks, row0, row_end, q0,
                      nq);
-    cp_async_commit();
-    mma_stage<NT>(ring + (s % kStages) * kStageElems, acc);
+    lt::cp_async_commit();
+    lt::mma_stage<NT>(ring + (s % kStages) * kStageElems, acc);
     if (s % kchunks != kchunks - 1) continue;
     // epilogue of tile s / kchunks: the keys of rows r (h = 0) and r + 8
     // (h = 1) into the score tile, -inf where the row is masked or missing
@@ -285,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) topc_kernel(const Args a) {
       }
     }
   }
-  cp_async_wait<0>();
+  lt::cp_async_wait<0>();
   const int64_t ld = (int64_t)gridDim.x / a.groups * a.C;
 #pragma unroll
   for (int m = 0; m < NT; ++m) {
@@ -366,8 +325,6 @@ int launch(const Args& a, const Plan& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 }  // namespace
 
 extern "C" {
@@ -394,7 +351,7 @@ int lt_bf16_centered_topc(const __nv_bfloat16* qc16, const __nv_bfloat16* x16, c
   if (B < 1 || N < 1 || D < 1 || C < 1 || C > N) return (int)cudaErrorInvalidValue;
   const Plan p = plan_for(B, N, C);
   if (p.device_lists && !lists) return (int)cudaErrorInvalidValue;
-  const bool vec = D % 8 == 0 && aligned16(qc16) && aligned16(x16);
+  const bool vec = D % 8 == 0 && lt::aligned16(qc16) && lt::aligned16(x16);
   const Args a{qc16, x16, qc_sq, qm, q_sq, xm, xc_sq, xsq_true, valid, B, N, D, C, metric,
                ascending != 0, vec, p.groups, p.ql, p.span_rows, p.kp,
                p.device_lists ? lists : nullptr, out_keys, out_idx};

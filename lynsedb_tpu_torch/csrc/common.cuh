@@ -1,7 +1,8 @@
 // Shared pieces of the kernels: the metric codes and keys, the binary
 // distances, the selection order, a bitonic sort, the span threshold select
-// (WarpTopk) and a tiled f32 score product. The other metrics' formulas are
-// in metrics.cuh.
+// (WarpTopk), the cp.async copies and the f32 tile product of K19. The other
+// metrics' formulas are in metrics.cuh; the pipelined f32 tile of K1 / K6a
+// is in f32_tile.cuh, the bf16 tensor-core stage of K2 / K11 in mma_bf16.cuh.
 //
 // Every entry point of the library is a plain C function that launches on the
 // caller's stream, allocates nothing and returns the cudaError_t of its launch
@@ -310,6 +311,28 @@ inline int sm_count() {
   return sms;
 }
 
+// cp.async: 16-byte copies from device to shared memory that run while the
+// threads compute. A copy of `bytes` < 16 copies that many and zero-fills
+// the rest (0: all zeros, for padding). Commit closes a group; wait<N>
+// returns once at most N of the thread's groups are still in flight.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -400,51 +423,6 @@ __device__ __forceinline__ void tile_accumulate(const T* __restrict__ q, const T
     }
     __syncthreads();
   }
-}
-
-// keys[b, n] = epi(b, n, q[b] . x[n]) for a (B, D) query block against an
-// (N, D) corpus, both row-major. Products and sums are f32 FMA (no TF32, no
-// tensor cores); T is float or __nv_bfloat16, upcast on the way to shared
-// memory, so a bf16 x bf16 product is exact and only the sum rounds. A block
-// covers TQ queries x 64 rows: TQ = 64 for large batches, 16 for B <= 16 so
-// a single query does not pay for 63 empty ones.
-template <int TQ, typename T, typename Epi>
-__global__ void __launch_bounds__(kTileThreads)
-    tile_scores_kernel(const T* __restrict__ q, const T* __restrict__ x, int B, int N, int D,
-                       Epi epi, float* __restrict__ keys) {
-  constexpr int RQ = TQ / 16;  // query rows per thread
-  __shared__ float qs[kTileK][TQ + 4];
-  __shared__ float xs[kTileK][kTile + 4];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.y * TQ;
-  const int64_t n0 = (int64_t)blockIdx.x * kTile;
-  float acc[RQ][4] = {};
-  tile_accumulate<TQ>(q, x, B, N, D, q0, n0, qs, xs, acc);
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int b = q0 + ty * RQ + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t n = n0 + tx * 4 + j;
-      if (n < N) keys[(int64_t)b * N + n] = epi(b, n, acc[i][j]);
-    }
-  }
-}
-
-template <typename T, typename Epi>
-inline int launch_tile_scores(const T* q, const T* x, int B, int N, int D, Epi epi, float* keys,
-                              cudaStream_t stream) {
-  const unsigned row_blocks = (unsigned)((N + kTile - 1) / kTile);
-  if (B <= 16) {
-    tile_scores_kernel<16, T, Epi><<<dim3(row_blocks, 1), kTileThreads, 0, stream>>>(
-        q, x, B, N, D, epi, keys);
-  } else {
-    const unsigned query_blocks = (unsigned)((B + kTile - 1) / kTile);
-    tile_scores_kernel<64, T, Epi><<<dim3(row_blocks, query_blocks), kTileThreads, 0, stream>>>(
-        q, x, B, N, D, epi, keys);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace lt

@@ -1,0 +1,322 @@
+// The exact f32 score tile of K1 and K6a (flat_scores_f32.cu): each query's
+// dot product with each corpus row as one f32 FMA chain over the dimensions
+// in order (no TF32, no tensor cores).
+//
+// A block takes a span of corpus rows for a group of queries and walks it in
+// tiles of rows, a stage of dimensions at a time; the stages run on across
+// tile boundaries, so the loads of the next tile fly while this one
+// computes. After a tile's last stage the caller's epilogue takes the
+// accumulators and the loop clears them. Two routes, chosen by B
+// (flat_scores_f32.cu):
+//   bytes (B <= 16)  BytesTile<QB>, QB = B rounded up to 1, 2, 4, 8 or 16:
+//                    128-row tiles of 32 dimensions through a 3-deep cp.async
+//                    ring of 16-byte copies, a row a thread, every real query
+//                    in every thread; the read of the corpus sets the time.
+//   FMA (B > 16)     FmaTile<TN, RN, KC>, TN = 32, 64 or 128 queries: 128-row
+//                    tiles of KC dimensions, loaded into registers (16 bytes
+//                    a load) while the last stage computes and stored k-major
+//                    into one of two shared stages; each thread makes an
+//                    8 x RN outer product a dimension from 16-byte shared
+//                    reads; a tile's dot products leave through a shared
+//                    score tile, so the epilogue holds no accumulators; the
+//                    FMAs set the time.
+// A row-major (N, D) float corpus whose D is a multiple of 4 and whose bases
+// are 16-byte aligned is loaded 16 bytes at a time; any other takes scalar
+// loads on the same route (a route by shape).
+#pragma once
+
+#include "common.cuh"
+
+namespace lt {
+
+// ── the bytes route: a cp.async ring, a row a thread ─────────────────────
+
+// 128 rows x QB queries a block, 32 dimensions a stage, 3 stages (62 KB at
+// QB = 16: three blocks an SM); thread t holds row t and every query. (On an
+// H100 at B = 1 and 16, 64-dimension stages, 256-row tiles, a fourth stage
+// or whole 128-dimension rows a stage were no faster.)
+template <int QB>
+struct BytesTile {
+  static constexpr int TM = 128, TN = QB, KC = 32, kStages = 3;
+  static constexpr int kThreads = TM;
+  static constexpr int kStride = KC + 4;  // floats a staged row: 16-byte reads without conflicts
+  static constexpr int kStageFloats = (TM + TN) * kStride;
+  static constexpr size_t kSmem = (size_t)kStages * kStageFloats * sizeof(float);
+};
+
+// One block's work: queries [q0, q0 + nq) of q (B, D) against rows [row0,
+// row_end) of x (N, D). vec: 16-byte loads (D % 4 == 0, aligned bases).
+struct F32Span {
+  const float* q;
+  const float* x;
+  int D;
+  bool vec;
+  int q0, nq;
+  int64_t row0, row_end;
+};
+
+// Stage `step` (tile step / kchunks, dimensions from (step % kchunks) * KC)
+// into dst: TM rows, then TN queries; zeros past D, past the span and past
+// the group.
+template <class Tile>
+__device__ __forceinline__ void stream_load_stage(const F32Span& sp, float* dst, int step,
+                                                  int kchunks) {
+  const int64_t r0 = sp.row0 + (int64_t)(step / kchunks) * Tile::TM;
+  const int k0 = (step % kchunks) * Tile::KC;
+  if (sp.vec) {
+    constexpr int kChunks = Tile::KC / 4;  // 16-byte copies a row
+    for (int c = threadIdx.x; c < (Tile::TM + Tile::TN) * kChunks; c += Tile::kThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 4, d = k0 + col;
+      const float* src = sp.x;
+      bool ok;
+      if (r < Tile::TM) {
+        ok = r0 + r < sp.row_end && d < sp.D;
+        if (ok) src = sp.x + (r0 + r) * sp.D + d;
+      } else {
+        ok = r - Tile::TM < sp.nq && d < sp.D;
+        if (ok) src = sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D + d;
+      }
+      cp_async16(dst + r * Tile::kStride + col, src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < (Tile::TM + Tile::TN) * Tile::KC; e += Tile::kThreads) {
+      const int r = e / Tile::KC, col = e % Tile::KC, d = k0 + col;
+      float v = 0.f;
+      if (r < Tile::TM) {
+        if (r0 + r < sp.row_end && d < sp.D) v = __ldg(sp.x + (r0 + r) * sp.D + d);
+      } else if (r - Tile::TM < sp.nq && d < sp.D) {
+        v = __ldg(sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D + d);
+      }
+      dst[r * Tile::kStride + col] = v;
+    }
+  }
+}
+
+// acc[j] += the thread's row . query j over one stage, dimension by dimension.
+template <class Tile>
+__device__ __forceinline__ void stream_stage_fma(const float* st, float (&acc)[Tile::TN]) {
+  const float* xs = st + threadIdx.x * Tile::kStride;
+  const float* qs = st + Tile::TM * Tile::kStride;
+#pragma unroll
+  for (int k = 0; k < Tile::KC; k += 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(xs + k);
+#pragma unroll
+    for (int j = 0; j < Tile::TN; ++j) {
+      const float4 qv = *reinterpret_cast<const float4*>(qs + j * Tile::kStride + k);
+      acc[j] = fmaf(xv.x, qv.x, acc[j]);
+      acc[j] = fmaf(xv.y, qv.y, acc[j]);
+      acc[j] = fmaf(xv.z, qv.z, acc[j]);
+      acc[j] = fmaf(xv.w, qv.w, acc[j]);
+    }
+  }
+}
+
+// The bytes route over the block's span: epi(tile_row, acc) after each
+// tile's last stage, acc[j] the dot product of row tile_row + thread with
+// query q0 + j (rows past the span and queries past the group hold 0 and
+// are the epilogue's to skip). `ring` is Tile::kSmem bytes of dynamic
+// shared memory. The ring runs on across tile boundaries.
+template <class Tile, class Epi>
+__device__ __forceinline__ void stream_span_scores(const F32Span& sp, float* ring,
+                                                   const Epi& epi) {
+  const int kchunks = (sp.D + Tile::KC - 1) / Tile::KC;
+  const int tiles = (int)((sp.row_end - sp.row0 + Tile::TM - 1) / Tile::TM);
+  const int steps = tiles * kchunks;
+#pragma unroll
+  for (int s = 0; s < Tile::kStages - 1; ++s) {
+    if (s < steps) stream_load_stage<Tile>(sp, ring + s * Tile::kStageFloats, s, kchunks);
+    cp_async_commit();
+  }
+  float acc[Tile::TN] = {};
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<Tile::kStages - 2>();
+    __syncthreads();  // stage s has landed; every thread is done with stage s - 1
+    const int next = s + Tile::kStages - 1;
+    if (next < steps)
+      stream_load_stage<Tile>(sp, ring + (next % Tile::kStages) * Tile::kStageFloats, next,
+                              kchunks);
+    cp_async_commit();
+    stream_stage_fma<Tile>(ring + (s % Tile::kStages) * Tile::kStageFloats, acc);
+    if (s % kchunks != kchunks - 1) continue;
+    epi(sp.row0 + (int64_t)(s / kchunks) * Tile::TM, acc);
+#pragma unroll
+    for (int j = 0; j < Tile::TN; ++j) acc[j] = 0.f;
+  }
+  cp_async_wait<0>();
+}
+
+// ── the FMA route: register-staged k-major stages, an 8 x RN outer product ──
+
+// 128 rows x TN queries (32, 64 or 128) a block, KC dimensions a stage, two
+// stages; 16 x QT threads (QT = TN / RN), thread t = 16 tq + tr holding rows
+// (i / 4) 64 + 4 tr + i % 4, i < 8, and queries (j / QV) (TN / QG) + QV tq +
+// j % QV, j < RN (QV = min(RN, 4) consecutive queries, QG = RN / QV
+// groups). A stage is stored k-major (xs[k][row], qs[k][query]), so a thread
+// reads its 8 rows and RN queries of one dimension with 16-byte (or 8-byte)
+// loads and makes 8 RN FMAs of them. (Measured on an H100 against the other
+// shapes tried: the queries fastest in a warp, 8 x 16 a thread at 128
+// threads, 16 dimensions a stage at TN = 128, or one block an SM were each
+// 2-74% slower at B = 256.)
+template <int TN_, int RN_, int KC_>
+struct FmaTile {
+  static constexpr int TM = 128, TN = TN_, KC = KC_, RM = 8, RN = RN_;
+  static constexpr int QV = RN < 4 ? RN : 4, QG = RN / QV, QT = TN / RN;
+  static constexpr int kThreads = 16 * QT;
+  static constexpr int kXStride = TM + 4, kQStride = TN + 4;  // floats a staged dimension
+  static constexpr int kStageFloats = KC * (kXStride + kQStride);
+  static constexpr int kScoreStride = TM + 4;  // floats a query of the score tile
+  // two stages, then the score tile
+  static constexpr size_t kSmem = (2 * (size_t)kStageFloats + TN * kScoreStride) * sizeof(float);
+  static constexpr int kLoads = ((TM + TN) * KC / 4 + kThreads - 1) / kThreads;  // float4 a thread
+
+  __device__ __forceinline__ static int tr() { return threadIdx.x % 16; }
+  __device__ __forceinline__ static int tq() { return threadIdx.x / 16; }
+  __device__ __forceinline__ static int row(int tr, int i) { return (i / 4) * 64 + 4 * tr + i % 4; }
+  __device__ __forceinline__ static int query(int tq, int j) {
+    return (j / QV) * (TN / QG) + QV * tq + j % QV;
+  }
+};
+
+// The next stage's 16-byte pieces, loaded into registers while the current
+// stage computes: piece c = thread + 256 p covers dimensions 4 (c % (KC /
+// 4)) .. of row c / (KC / 4) (the rows, then the queries); zeros past D, the
+// span and the group.
+template <class Tile>
+__device__ __forceinline__ void fma_load(const F32Span& sp, int step, int kchunks,
+                                         float4 (&pf)[Tile::kLoads]) {
+  const int64_t r0 = sp.row0 + (int64_t)(step / kchunks) * Tile::TM;
+  const int k0 = (step % kchunks) * Tile::KC;
+  constexpr int kPieces = Tile::KC / 4;  // a row's pieces a stage
+#pragma unroll
+  for (int p = 0; p < Tile::kLoads; ++p) {
+    const int c = threadIdx.x + p * Tile::kThreads, r = c / kPieces;
+    const int d = k0 + 4 * (c % kPieces);
+    const float* src = nullptr;
+    if (r < Tile::TM) {
+      if (r0 + r < sp.row_end) src = sp.x + (r0 + r) * sp.D;
+    } else if (r < Tile::TM + Tile::TN && r - Tile::TM < sp.nq) {
+      src = sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D;
+    }
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (src != nullptr && d < sp.D) {
+      if (sp.vec) {
+        v = __ldg(reinterpret_cast<const float4*>(src + d));
+      } else {
+        v.x = __ldg(src + d);
+        if (d + 1 < sp.D) v.y = __ldg(src + d + 1);
+        if (d + 2 < sp.D) v.z = __ldg(src + d + 2);
+        if (d + 3 < sp.D) v.w = __ldg(src + d + 3);
+      }
+    }
+    pf[p] = v;
+  }
+}
+
+template <class Tile>
+__device__ __forceinline__ void fma_store(float* st, const float4 (&pf)[Tile::kLoads]) {
+  constexpr int kPieces = Tile::KC / 4;
+#pragma unroll
+  for (int p = 0; p < Tile::kLoads; ++p) {
+    const int c = threadIdx.x + p * Tile::kThreads, r = c / kPieces, k = 4 * (c % kPieces);
+    if (r >= Tile::TM + Tile::TN) continue;
+    float* dst = r < Tile::TM ? st + k * Tile::kXStride + r
+                              : st + Tile::KC * Tile::kXStride + k * Tile::kQStride + r - Tile::TM;
+    const int ld = r < Tile::TM ? Tile::kXStride : Tile::kQStride;
+    dst[0] = pf[p].x;
+    dst[ld] = pf[p].y;
+    dst[2 * ld] = pf[p].z;
+    dst[3 * ld] = pf[p].w;
+  }
+}
+
+template <class Tile>
+__device__ __forceinline__ void fma_stage(const float* st, float (&acc)[Tile::RM][Tile::RN]) {
+  const int tr = Tile::tr(), tq = Tile::tq();
+  const float* xs = st + 4 * tr;
+  const float* qs = st + Tile::KC * Tile::kXStride + Tile::QV * tq;
+#pragma unroll
+  for (int k = 0; k < Tile::KC; ++k) {
+    float xv[Tile::RM], qv[Tile::RN];
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(xs + k * Tile::kXStride + 64 * g);
+      xv[4 * g] = v.x;
+      xv[4 * g + 1] = v.y;
+      xv[4 * g + 2] = v.z;
+      xv[4 * g + 3] = v.w;
+    }
+#pragma unroll
+    for (int g = 0; g < Tile::QG; ++g) {
+      const float* src = qs + k * Tile::kQStride + g * (Tile::TN / Tile::QG);
+      if constexpr (Tile::QV == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        qv[4 * g] = v.x;
+        qv[4 * g + 1] = v.y;
+        qv[4 * g + 2] = v.z;
+        qv[4 * g + 3] = v.w;
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(src);
+        qv[2 * g] = v.x;
+        qv[2 * g + 1] = v.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < Tile::RM; ++i)
+#pragma unroll
+      for (int j = 0; j < Tile::RN; ++j) acc[i][j] = fmaf(xv[i], qv[j], acc[i][j]);
+  }
+}
+
+// Stores the accumulators to the score tile sc[query][row] (4 rows a 16-byte
+// store) and clears them.
+template <class Tile>
+__device__ __forceinline__ void fma_scores_to_smem(float* sc, float (&acc)[Tile::RM][Tile::RN]) {
+  const int tr = Tile::tr(), tq = Tile::tq();
+#pragma unroll
+  for (int j = 0; j < Tile::RN; ++j)
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      float* dst = sc + Tile::query(tq, j) * Tile::kScoreStride + Tile::row(tr, 4 * g);
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[4 * g][j], acc[4 * g + 1][j], acc[4 * g + 2][j], acc[4 * g + 3][j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * g + e][j] = 0.f;
+    }
+}
+
+// The FMA route over the block's span: after each tile's last stage the
+// dot products go to a shared score tile sc[query][row] (sc[j * (TM + 4) +
+// r]: row tile_row + r, query q0 + j) and epi(tile_row, sc) runs, every
+// thread of the block, after the stage's barrier, so an epilogue of any
+// cost holds no accumulator registers and its stores can coalesce. `smem`
+// is Tile::kSmem bytes: two stages, one computed while the next is stored
+// from registers, then the score tile; one barrier a stage. The score tile
+// is rewritten at the next tile's last stage: when a tile has two stages or
+// more, that step's barrier lies between; when it has one (D <= KC), every
+// step is a last one, and a barrier after the epilogue keeps a fast warp
+// from overwriting scores that others still read.
+template <class Tile, class Epi>
+__device__ __forceinline__ void fma_span_scores(const F32Span& sp, float* smem, const Epi& epi) {
+  const int kchunks = (sp.D + Tile::KC - 1) / Tile::KC;
+  const int tiles = (int)((sp.row_end - sp.row0 + Tile::TM - 1) / Tile::TM);
+  const int steps = tiles * kchunks;
+  float* sc = smem + 2 * Tile::kStageFloats;
+  float4 pf[Tile::kLoads];
+  fma_load<Tile>(sp, 0, kchunks, pf);
+  fma_store<Tile>(smem, pf);
+  __syncthreads();
+  float acc[Tile::RM][Tile::RN] = {};
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) fma_load<Tile>(sp, s + 1, kchunks, pf);
+    fma_stage<Tile>(smem + (s & 1) * Tile::kStageFloats, acc);
+    const bool last = s % kchunks == kchunks - 1;
+    if (last) fma_scores_to_smem<Tile>(sc, acc);
+    if (s + 1 < steps) fma_store<Tile>(smem + ((s + 1) & 1) * Tile::kStageFloats, pf);
+    __syncthreads();  // stage s + 1 and the scores stored; every thread is done with stage s
+    if (!last) continue;
+    epi(sp.row0 + (int64_t)(s / kchunks) * Tile::TM, sc);
+    if (kchunks == 1) __syncthreads();  // the next step rewrites sc at once
+  }
+}
+
+}  // namespace lt

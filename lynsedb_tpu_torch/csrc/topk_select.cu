@@ -362,8 +362,6 @@ long long scratch_per_row(int rows, int n, int k) {
   return most;
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
 int select_rows(const float* keys, const int* idx_in, int B, int N, int k, int plan_rows,
                 float* out_keys, int* out_idx, float* scratch_keys[2], int* scratch_idx[2],
                 cudaStream_t stream) {
@@ -380,7 +378,7 @@ int select_rows(const float* keys, const int* idx_in, int B, int N, int k, int p
     float* dst_keys = last ? out_keys : scratch_keys[ping];
     int* dst_idx = last ? out_idx : scratch_idx[ping];
     const int64_t ld_out = last ? k : (int64_t)s.count * k;
-    const bool vec = ld % 4 == 0 && aligned16(in_keys) && (!in_idx || aligned16(in_idx));
+    const bool vec = ld % 4 == 0 && lt::aligned16(in_keys) && (!in_idx || lt::aligned16(in_idx));
     const long long items = (long long)B * s.count;
     select_span_kernel<<<(unsigned)((items + kSelectWarps - 1) / kSelectWarps),
                          kSelectWarps * 32, smem, stream>>>(

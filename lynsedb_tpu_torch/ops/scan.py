@@ -591,9 +591,20 @@ rescore_topk.launches = 0
 # ── K11: bf16 rescore of a gathered shortlist ────────────────────────────
 
 
-def bf16_gather_scores_plain(q, x16, aux: dict, idx, slot_keys, metric: Metric) -> torch.Tensor:
+def _gather_stride(idx: torch.Tensor, b: int, shared: bool) -> int:
+    """The batch stride of K11's index list: 0 for one list shared by every
+    query (1, S), else S. A (1, S) list under B > 1 can only be shared; at
+    B = 1 ``shared`` says which it is."""
+    if idx.dim() != 2 or idx.shape[0] not in (1, b) or (shared and idx.shape[0] != 1):
+        raise ValueError("bf16_gather_scores: idx (B, S), or (1, S) when shared, expected")
+    return 0 if shared or idx.shape[0] != b else idx.shape[1]
+
+
+def bf16_gather_scores_plain(q, x16, aux: dict, idx, slot_keys, metric: Metric, *,
+                             shared: bool = False) -> torch.Tensor:
     """Plain version of :func:`bf16_gather_scores`: the bf16 operands are
     upcast to f32 before the product (JAX's preferred_element_type=f32)."""
+    _gather_stride(idx, q.shape[0], shared)
     ok = idx >= 0
     if slot_keys is not None:
         ok = ok & (slot_keys > float("-inf"))
@@ -616,20 +627,24 @@ def bf16_gather_scores_plain(q, x16, aux: dict, idx, slot_keys, metric: Metric) 
 
 
 def bf16_gather_scores(q: torch.Tensor, x16: torch.Tensor, aux: dict, idx: torch.Tensor,
-                       slot_keys: Optional[torch.Tensor], metric: Metric) -> torch.Tensor:
+                       slot_keys: Optional[torch.Tensor], metric: Metric, *,
+                       shared: bool = False) -> torch.Tensor:
     """Oriented keys (B, S) of f32 queries ``q`` (B, D) against the rows
     ``idx`` of the mean-centred bf16 corpus ``x16``, with K2's corrections
     (``aux`` as for bf16_centered_topc). ``idx`` int32 is (B, S), one list
-    a query, or (1, S), one list shared by every query; a slot is empty
-    (key -inf) where its id is negative or, when ``slot_keys`` (laid out as
-    ``idx``) is given, where its key is -inf."""
+    a query (the kernel's per-query route), or (1, S) with ``shared``, one
+    list for every query (its shared-list tile; a (1, S) list under B > 1 is
+    shared in any case); a slot is empty (key -inf) where its id is negative
+    or, when ``slot_keys`` (laid out as ``idx``) is given, where its key is
+    -inf."""
     if q.device.type == "cpu":
-        return bf16_gather_scores_plain(q, x16, aux, idx, slot_keys, metric)
+        return bf16_gather_scores_plain(q, x16, aux, idx, slot_keys, metric, shared=shared)
     code = _kernel_metric("bf16_gather_scores", metric)
     b, d = q.shape
     s = idx.shape[1]
-    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] not in (1, b):
-        raise ValueError("bf16_gather_scores: idx (B, S) or (1, S) int32 expected")
+    stride = _gather_stride(idx, b, shared)
+    if idx.dtype != torch.int32:
+        raise ValueError("bf16_gather_scores: idx int32 expected")
     if slot_keys is not None and slot_keys.shape != idx.shape:
         raise ValueError("bf16_gather_scores: slot_keys must be shaped like idx")
     if x16.dtype != torch.bfloat16 or x16.shape[1] != d or q.dtype != torch.float32:
@@ -639,8 +654,8 @@ def bf16_gather_scores(q: torch.Tensor, x16: torch.Tensor, aux: dict, idx: torch
                        aux["xsq_true"])
     keys = torch.empty((b, s), dtype=torch.float32, device=q.device)
     _cuda.call(
-        "lt_bf16_gather_scores", qc16.data_ptr(), x16.data_ptr(), idx.data_ptr(),
-        0 if idx.shape[0] == 1 else s, _cuda.ptr(slot_keys), qc_sq.data_ptr(),
+        "lt_bf16_gather_scores", qc16.data_ptr(), x16.data_ptr(), idx.data_ptr(), stride,
+        _cuda.ptr(slot_keys), qc_sq.data_ptr(),
         qm.data_ptr(), q_sq.data_ptr(), aux["xm"].data_ptr(), aux["xc_sq"].data_ptr(),
         aux["xsq_true"].data_ptr(), b, s, d, code, int(metric.ascending), keys.data_ptr(),
         _cuda.stream_of(q),
@@ -1431,7 +1446,8 @@ class DeviceCorpus:
             idx, slot = self.gather_inputs(handle)
             c = min(self._shortlist_size(k, handle.count, oversample), idx.shape[1])
             self.last_scanned = handle.count + c  # the subset + exact rescore rows
-            keys = bf16_gather_scores(qd, self._dev16, self.bf16_aux(), idx, slot, metric)
+            keys = bf16_gather_scores(qd, self._dev16, self.bf16_aux(), idx, slot, metric,
+                                      shared=True)
             top, local = topk_select(keys, c)
             gid = torch.where(top > float("-inf"), idx[0][local.long()], -1)
             del keys

@@ -5,7 +5,7 @@ mode.
     python3 lynsedb_tpu_torch/tools/flat_latency.py [--corpus isotropic mixture]
                                                     [--index FLAT-IP FLAT-IP-SQ8 ...]
                                                     [--nprobe N] [--insert N]
-                                                    [--package-root DIR]
+                                                    [--where FILTER] [--package-root DIR]
 
 Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
@@ -18,13 +18,17 @@ duplicate 1,000 rows. Then 20 more single searches run under torch.profiler
 to read the device time of one search, in all and by kernel. ``--insert N``
 then adds N more rows of the corpus's kind, commits them (an index links or
 posts them in place), reports the commit's seconds and times the mode again.
+``--where FILTER`` runs every timed search under that filter (for example
+``"bucket = 3"``: 100,000 rows, the gather route K11 -> K5 -> K3), after one
+untimed search has resolved it.
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (for example an
 older commit unpacked with ``git archive``), so one script times two trees on
 the same card and data. Prints one JSON line per corpus and mode: p50/p99 ms,
-q/s, device ms per single search (null where the profiler saw no device
-time) and by kernel name, and the seconds the garbage collector took during
-the timed calls.
+q/s, device ms per single search and per B=256 batch (two more batches of
+fresh queries, profiled) (null where the profiler saw no device time) and
+by kernel name, and the seconds the garbage collector took during the timed
+calls.
 """
 
 from __future__ import annotations
@@ -71,14 +75,14 @@ class GcClock:
         return total
 
 
-def device_ms_per_search(torch, coll, queries, nprobe: int) -> tuple[float | None, dict]:
-    """Mean device time of one search: the sum of the kernels torch.profiler
-    saw, and that sum by kernel name (the top 8)."""
+def device_ms_per_call(torch, search, queries) -> tuple[float | None, dict]:
+    """Mean device time of one call ``search(queries[i])``: the sum of the
+    kernels torch.profiler saw, and that sum by kernel name (the top 8)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for qv in queries:
-            coll.search(qv, k=K, nprobe=nprobe)
+            search(qv)
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
@@ -91,14 +95,17 @@ def device_ms_per_search(torch, coll, queries, nprobe: int) -> tuple[float | Non
     return (total if total > 0 else None), top
 
 
-def timed(torch, coll, singles, b16, b256, extra, nprobe: int, clock: GcClock) -> dict:
+def timed(torch, coll, singles, b16, b256, extra, extra256, nprobe: int, where,
+          clock: GcClock) -> dict:
     """p50 / p99 of the single searches, q/s of the batches, the garbage
-    collector's seconds, the device time of one search (torch.profiler)."""
+    collector's seconds, the device time of one search and of one B=256
+    batch (torch.profiler)."""
+    coll.search(singles[0] + 2.0, k=K, nprobe=nprobe, where=where)  # resolves the filter
     clock.read()
     lat = []
     for qv in singles:
         t0 = time.perf_counter()
-        coll.search(qv, k=K, nprobe=nprobe)
+        coll.search(qv, k=K, nprobe=nprobe, where=where)
         lat.append(time.perf_counter() - t0)
     out = {"p50_ms": float(np.percentile(lat, 50) * 1e3),
            "p99_ms": float(np.percentile(lat, 99) * 1e3), "single_gc_s": clock.read()}
@@ -106,17 +113,19 @@ def timed(torch, coll, singles, b16, b256, extra, nprobe: int, clock: GcClock) -
         secs = []
         for blk in blocks:
             t0 = time.perf_counter()
-            coll.batch_search(blk, k=K, nprobe=nprobe)
+            coll.batch_search(blk, k=K, nprobe=nprobe, where=where)
             secs.append(time.perf_counter() - t0)
         out[f"qps_b{b}"] = b * len(blocks) / sum(secs)
         out[f"call_s_b{b}"] = secs
         out[f"gc_s_b{b}"] = clock.read()
-    out["device_ms_single"], out["device_ms_by_kernel"] = device_ms_per_search(
-        torch, coll, extra, nprobe)
+    out["device_ms_single"], out["device_ms_by_kernel"] = device_ms_per_call(
+        torch, lambda qv: coll.search(qv, k=K, nprobe=nprobe, where=where), extra)
+    out["device_ms_b256"], out["device_ms_b256_by_kernel"] = device_ms_per_call(
+        torch, lambda blk: coll.batch_search(blk, k=K, nprobe=nprobe, where=where), extra256)
     return out
 
 
-def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, root: str,
+def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, where, root: str,
         clock: GcClock):
     """Yields one result per index mode on one corpus (two with ``insert``)."""
     rng = np.random.default_rng(SEED)
@@ -125,6 +134,7 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, root: st
     b16 = rng.normal(size=(4, 16, DIM)).astype(np.float32)
     b256 = rng.normal(size=(4, 256, DIM)).astype(np.float32)
     extra = rng.normal(size=(20, DIM)).astype(np.float32)
+    extra256 = rng.normal(size=(2, 256, DIM)).astype(np.float32)
     client = lynse.VectorDBClient(root, device="cuda")
     db = client.create_database(kind, drop_if_exists=True)
     coll = db.require_collection("vectors", dim=DIM)
@@ -132,13 +142,14 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, root: st
     coll.commit()
     coll.prewarm()
     for mode in modes:
-        out = {"corpus": kind, "index": mode, "nprobe": nprobe}
+        out = {"corpus": kind, "index": mode, "nprobe": nprobe, "where": where}
         if mode != "FLAT-IP":
             t0 = time.perf_counter()
             coll.build_index(mode)
             out["build_s"] = time.perf_counter() - t0
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the index
-        yield {**out, **timed(torch, coll, singles, b16, b256, extra, nprobe, clock)}
+        yield {**out, **timed(torch, coll, singles, b16, b256, extra, extra256, nprobe, where,
+                              clock)}
         if insert:
             rows = make_corpus(kind, np.random.default_rng(SEED + 1))[:insert]
             t0 = time.perf_counter()
@@ -147,7 +158,8 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, root: st
             torch.cuda.synchronize()
             out.update({"inserted": insert, "insert_s": time.perf_counter() - t0})
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the grown index
-            yield {**out, **timed(torch, coll, singles, b16, b256, extra, nprobe, clock)}
+            yield {**out, **timed(torch, coll, singles, b16, b256, extra, extra256, nprobe, where,
+                              clock)}
     client.close()
 
 
@@ -161,6 +173,8 @@ def main() -> int:
                     help="the searches' nprobe (IVF probes; HNSW / DiskANN beam width)")
     ap.add_argument("--insert", type=int, default=0,
                     help="rows added and committed after a mode's timings, then timed again")
+    ap.add_argument("--where", default=None,
+                    help='a filter every timed search runs under, e.g. "bucket = 3"')
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
@@ -174,8 +188,8 @@ def main() -> int:
     clock = GcClock()
     for kind in args.corpus:
         with tempfile.TemporaryDirectory(prefix="lynse_flat_") as root:
-            for out in run(lynse, torch, kind, args.index, args.nprobe, args.insert, root,
-                           clock):
+            for out in run(lynse, torch, kind, args.index, args.nprobe, args.insert, args.where,
+                           root, clock):
                 out["package"] = str(Path(lynse.__file__).resolve().parent)
                 print(json.dumps(out), flush=True)
     return 0

@@ -17,7 +17,9 @@ row's two best centroids lie within 1e-5 relative; kmeans_update: sums
 rtol=1e-5, atol=1e-4, counts exact, two runs bit-identical. K14 rtol=1e-6
 (the same additions in the same order); K12 keys rtol=1e-5, atol=1e-5 (the
 integer dot is exact; the epilogue's roundings may contract differently);
-K13 and K11 keys rtol=1e-5, atol=1e-4 (f32 sums in another order). K6b
+K13 and K11's per-query mode keys rtol=1e-5, atol=1e-4 (f32 sums in another
+order); K11's shared-list tile K2's bound (the same bf16 products summed on
+the tensor cores). K6b
 (the binary family) and K6c's Chebyshev equal (integer counts, the same f32
 operations; a max of exact terms); the other K6a / K6c distances rtol=1e-5,
 atol=1e-5 x the largest (Haversine atol 1 m; Hellinger and Jensen-Shannon
@@ -125,6 +127,81 @@ def test_flat_scores_f32_matches_plain(dev, metric):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+_TILE_METRICS = [Metric.IP, Metric.L2, Metric.COSINE, Metric.CORRELATION, Metric.HELLINGER]
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose base lies one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("d,offset", [(1, 0), (7, 0), (48, 0), (128, 0), (130, 0), (128, 1)])
+@pytest.mark.parametrize("b", [1, 2, 15, 16, 17, 64, 65, 256])
+def test_f32_tile_routes_match_plain(dev, b, d, offset):
+    """K1 and K6a's tile mode at the edges of its routes: the bytes route
+    (B <= 16, the batch rounded up to 1, 2 or 16 queries), the FMA route
+    (B = 17, 64, 65, 256: 32-, 64- and 128-query tiles, one and two query
+    groups), 16-byte copies (D = 48, 128) and scalar loads (D = 1, 7, 130,
+    and D = 128 from a base 4 bytes past 16-byte alignment); N = 2,333 (no
+    multiple of a tile or a span), a 30% mask, a zero-norm row and a NaN
+    row, under IP, L2, cosine (K1), correlation and Hellinger (K6a)."""
+    rng = np.random.default_rng(1000 * b + 10 * d + offset)
+    n = 2333
+    x_np = rng.normal(size=(n, d)).astype(np.float32)
+    q_np = rng.normal(size=(b, d)).astype(np.float32)
+    x_np[7] = 0.0
+    x_np[11, 0] = np.nan
+    valid = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    for metric in _TILE_METRICS:
+        hist = metric is Metric.HELLINGER
+        x = torch.from_numpy(np.abs(x_np) if hist else x_np).to(dev)
+        q = torch.from_numpy(np.abs(q_np) if hist else q_np).to(dev)
+        if offset:
+            x = _unaligned(x)
+        qt, ct = D.query_transform(q, metric), D.corpus_transform(x, metric)
+        if metric in METRICS:
+            args = (q, x, qt.get("sq"), ct.get("sq"), valid, metric)
+            got, want = scan.flat_scores_f32(*args), scan.flat_scores_f32_plain(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isinf(got), torch.isinf(want)), metric
+            assert bool(torch.isinf(got[:, 11]).all())
+            fin = torch.isfinite(want)
+            torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+        else:
+            got = scan.gemm_metric_scores(qt, ct, valid, metric)
+            want = scan.metric_keys_plain(qt, ct, valid, metric)
+            torch.cuda.synchronize()
+            _assert_keys_close(metric, got, want)
+
+
+@pytest.mark.parametrize("d", [1, 4, 7, 8, 16])
+@pytest.mark.parametrize("b", [17, 64, 256])
+def test_f32_fma_route_one_stage_tiles(dev, b, d):
+    """K1's FMA route where a row tile is a single stage of dimensions (D <=
+    16 for the 32- and 64-query tiles, D <= 8 for the 128-query tile), so
+    every step ends a tile and the shared score tile is rewritten at the
+    next step: over 1,000,003 rows, so a block's span holds many tiles,
+    under IP, L2 and cosine at rtol 1e-5, atol 1e-4."""
+    rng = np.random.default_rng(10 * b + d)
+    n = 1_000_003
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    for metric in METRICS:
+        qt, ct = D.query_transform(q, metric), D.corpus_transform(x, metric)
+        args = (q, x, qt.get("sq"), ct.get("sq"), valid, metric)
+        got, want = scan.flat_scores_f32(*args), scan.flat_scores_f32_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(got), torch.isinf(want)), metric
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+        del got, want, fin
 
 
 def test_batch_split_on_the_card(dev, monkeypatch):
@@ -807,12 +884,103 @@ def test_bf16_gather_scores_shared_list_with_mask(dev):
     q = torch.from_numpy(rng.normal(size=(16, 64)).astype(np.float32)).to(dev)
     for metric in METRICS:
         args = (q, corpus._dev16, corpus.bf16_aux(), idx, slot, metric)
-        got, want = scan.bf16_gather_scores(*args), scan.bf16_gather_scores_plain(*args)
+        got = scan.bf16_gather_scores(*args, shared=True)
+        want = scan.bf16_gather_scores_plain(*args, shared=True)
         torch.cuda.synchronize()
         assert torch.equal(torch.isinf(got), torch.isinf(want))
         assert bool(torch.isinf(got[:, torch.isinf(slot[0])]).all())
         fin = torch.isfinite(want)
         torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
+def _assert_gather_k2_bound(q, aux, idx, got, want, metric):
+    """K11's shared-list tile against its plain version: the same empty
+    slots, and each key within K2's bound, 1e-5 |q - m| |x - m| + 1e-5
+    (cosine: over its denominator)."""
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    safe = idx.clamp_min(0).long()
+    tol = 1e-5 * (q - aux["mean"][None, :]).norm(dim=1)[:, None] * torch.sqrt(
+        aux["xc_sq"][safe]) + 1e-5
+    if metric is Metric.COSINE:
+        tol = tol / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][safe]).clamp_min(1e-30)
+    fin = torch.isfinite(want)
+    assert bool(((got - want).abs() <= tol.expand_as(got))[fin].all())
+
+
+def _gather_corpus(rng, d: int, dev, n: int = 3000) -> DeviceCorpus:
+    corpus = _aux(rng.normal(size=(n, d)).astype(np.float32) + 0.5, dev)
+    corpus.set_tombstones(np.arange(n) % 7 == 3)
+    return corpus
+
+
+@pytest.mark.parametrize("d", [7, 64, 130])
+@pytest.mark.parametrize("s", [1, 127, 128, 129])
+@pytest.mark.parametrize("b", [1, 8, 9, 32, 33, 256])
+def test_bf16_gather_shared_list_routes(dev, b, s, d):
+    """K11's shared-list tile (one (1, S) list for every query) at the edges
+    of its shapes: one n-tile of 8 queries and two (B = 8, 9), one and two
+    query groups (B = 32, 33, 256), a partial, a whole and a second row tile
+    (S = 127, 128, 129), 16-byte copies (D = 64) and scalar loads (D = 7,
+    130); deleted rows' slots (-inf slot keys) and -1 ids empty."""
+    rng = np.random.default_rng(100 * b + 10 * s + d)
+    corpus = _gather_corpus(rng, d, dev)
+    aux, x16 = corpus.bf16_aux(), corpus._dev16
+    idx = torch.from_numpy(np.sort(rng.choice(3000, s, replace=False)).astype(np.int32))[None]
+    idx = idx.to(dev)
+    if s > 1:
+        idx[0, 5 % s] = -1
+    slot = torch.where(corpus.valid_mask()[idx.clamp_min(0).long()], 0.0, float("-inf"))
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    for metric in METRICS:
+        args = (q, x16, aux, idx, slot, metric)
+        got = scan.bf16_gather_scores(*args, shared=True)
+        want = scan.bf16_gather_scores_plain(*args, shared=True)
+        torch.cuda.synchronize()
+        assert got.shape == (b, s)
+        dead = (idx[0] < 0) | torch.isinf(slot[0])
+        assert bool(torch.isinf(got[:, dead]).all())
+        _assert_gather_k2_bound(q, aux, idx, got, want, metric)
+
+
+@pytest.mark.parametrize("case", ["all_empty", "unaligned", "per_query_4000",
+                                  "per_query_4000_b1"])
+def test_bf16_gather_scores_edges(dev, case):
+    """K11 where every slot of the shared list is empty (-inf keys), the
+    shared list from a corpus base 2 bytes past 16-byte alignment (scalar
+    loads at D = 64), and the per-query mode at the quantized path's
+    S = 4,000 with empty slots, at B = 40 and at B = 1 (a (1, S) list that
+    is not shared: the per-query route, unchanged: rtol 1e-5, atol 1e-4)."""
+    rng = np.random.default_rng(21)
+    corpus = _gather_corpus(rng, 64, dev)
+    aux, x16 = corpus.bf16_aux(), corpus._dev16
+    b = 1 if case == "per_query_4000_b1" else 40
+    q = torch.from_numpy(rng.normal(size=(b, 64)).astype(np.float32)).to(dev)
+    per_query = case.startswith("per_query")
+    if per_query:
+        idx = torch.from_numpy(rng.integers(0, 3000, size=(b, 4000)).astype(np.int32)).to(dev)
+        idx[:, :9] = -1
+        slot = torch.from_numpy(rng.normal(size=(b, 4000)).astype(np.float32)).to(dev)
+        slot[:, -11:] = float("-inf")
+    else:
+        idx = torch.from_numpy(np.arange(0, 3000, 5).astype(np.int32))[None].to(dev)
+        slot = torch.zeros(idx.shape, device=dev)
+        if case == "all_empty":
+            slot[:] = float("-inf")
+        else:
+            x16 = _unaligned(x16)
+    for metric in METRICS:
+        args = (q, x16, aux, idx, slot, metric)
+        got = scan.bf16_gather_scores(*args, shared=not per_query)
+        want = scan.bf16_gather_scores_plain(*args, shared=not per_query)
+        torch.cuda.synchronize()
+        if case == "all_empty":
+            assert bool((got == float("-inf")).all())
+        elif case == "unaligned":
+            _assert_gather_k2_bound(q, aux, idx, got, want, metric)
+        else:
+            assert torch.equal(torch.isinf(got), torch.isinf(want))
+            fin = torch.isfinite(want)
+            torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("metric", OTHER_METRICS, ids=[m.value for m in OTHER_METRICS])

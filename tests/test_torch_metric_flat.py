@@ -224,12 +224,17 @@ def test_approx_matches_jax(collections, monkeypatch, mode):
             assert hits >= 9, (r, hits)  # tests/test_approx.py's 0.90 floor
 
 
+@pytest.mark.parametrize("b", [6, 1, 8, 9, 32, 33, 256])
 @pytest.mark.parametrize("mode", ["IP", "L2", "COS"])
-def test_gather_route_matches_jax(collections, mode):
+def test_gather_route_matches_jax(collections, mode, b):
     """A filter of at most 100,000 rows and a quarter of the corpus takes
     the gather route (K11 over the filter's rows, K5, K3) in both packages:
-    the same ids and distances, and scanned_vectors = count + the shortlist."""
+    the same ids and distances, and scanned_vectors = count + the shortlist.
+    B at the edges of K11's shared-list tile: one n-tile of 8 queries and
+    two (8, 9), one and two query groups of 32 (32, 33, 256)."""
     x, q, pair = collections["real"]
+    if b != len(q):
+        q = _mixture(np.random.default_rng(b), b, x.shape[1])
     for _, coll in pair.values():
         coll.build_index(f"FLAT-{mode}")
     (_, jc), (_, tc) = pair[lynsedb_tpu], pair[lynsedb_tpu_torch]

@@ -256,6 +256,26 @@ def test_bf16_gather_scores_shared_list(corpora, metric):
     torch.testing.assert_close(a[:, 5:], full[:, ids[5:]], rtol=1e-5, atol=1e-5)
 
 
+def test_bf16_gather_scores_list_layout(corpora):
+    """K11's list layout: a (1, S) list at B = 1 gives the same keys whether
+    it is one query's list or marked ``shared`` (the two routes of the
+    kernel); ``shared`` with a list a query, or a list count that is
+    neither 1 nor B, is refused."""
+    x, q, _, tc = corpora
+    ids = torch.from_numpy(np.arange(1, 2 * 300, 2, dtype=np.int32))[None]
+    qt = torch.from_numpy(q)
+    args = (tc._dev16, tc.bf16_aux(), ids, None, Metric.IP)
+    one = scan.bf16_gather_scores(qt[:1], *args)
+    assert torch.equal(one, scan.bf16_gather_scores(qt[:1], *args, shared=True))
+    assert torch.equal(one, scan.bf16_gather_scores(qt, *args)[:1])
+    per_query = ids.expand(len(q), -1).contiguous()
+    with pytest.raises(ValueError):
+        scan.bf16_gather_scores(qt, tc._dev16, tc.bf16_aux(), per_query, None, Metric.IP,
+                                shared=True)
+    with pytest.raises(ValueError):
+        scan.bf16_gather_scores(qt, tc._dev16, tc.bf16_aux(), per_query[:2], None, Metric.IP)
+
+
 @pytest.mark.parametrize("metric", METRICS)
 def test_host_rescore_matches_jax(corpora, metric):
     x, q, jc, tc = corpora

@@ -124,9 +124,48 @@ def test_search_matches_jax(corpora, n, metric, k, filt):
         assert np.all(masks[filt][ids[ids >= 0]])
 
 
+# (B, D) of the exact plan: the batch edges of K1's routes (B <= 16 streams
+# the rows for the real queries; 17, 64, 65, 256 take 32-, 64- and 128-query
+# tiles) on the 20,000-row corpus, and the width edges (16-byte copies at
+# D = 48 and 128; scalar loads at 1, 7, 130) on 2,333 rows
+EXACT_EDGES = [(16, DIM), (1, DIM), (2, DIM), (15, DIM), (17, DIM), (64, DIM), (65, DIM),
+               (256, DIM), (17, 1), (17, 7), (17, 48), (17, 128), (17, 130), (1, 130), (256, 7)]
+
+
+@pytest.fixture(scope="module")
+def edge_corpora():
+    """d -> (jax corpus, port corpus) of 2,333 seeded rows (tombstones,
+    duplicated rows, a zero row), built on first use."""
+    out = {}
+
+    def get(d: int):
+        if d not in out:
+            rng = np.random.default_rng(d)
+            x = rng.normal(size=(2333, d)).astype(np.float32) + 0.25
+            x[1000:1020] = x[:20]
+            x[7] = 0.0
+            jc, tc = jax_scan.DeviceCorpus(d), DeviceCorpus(d, device="cpu")
+            for c in (jc, tc):
+                c.append(x)
+                c.set_tombstones(np.arange(2333) % 19 == 4)
+                c.finalize()
+            out[d] = (jc, tc)
+        return out[d]
+
+    return get
+
+
+@pytest.mark.parametrize("b,d", EXACT_EDGES)
 @pytest.mark.parametrize("metric", METRICS)
-def test_exact_mode_matches_jax(corpora, metric):
-    jc, tc, q, _ = corpora[20000]
+def test_exact_mode_matches_jax(corpora, edge_corpora, metric, b, d):
+    """The exact plan (K1 -> K5) of both packages at K1's route edges."""
+    if d == DIM:
+        jc, tc, q16, _ = corpora[20000]
+        extra = np.random.default_rng(b).normal(size=(max(b - 16, 0), d)).astype(np.float32)
+        q = np.concatenate([q16, extra])[:b]
+    else:
+        jc, tc = edge_corpora(d)
+        q = np.random.default_rng(b + d).normal(size=(b, d)).astype(np.float32)
     jd, ji = jc.search(q, 10, JaxMetric(metric), mode="exact")
     td, ti = tc.search(q, 10, Metric(metric), mode="exact")
     assert_same_ids(ti, ji, tc._host, q, metric)
