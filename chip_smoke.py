@@ -25,8 +25,9 @@ Phases (each prints its seconds):
      fields {"bucket": i % 10} -> commit -> 100 single searches and batch
      searches at B=16 and B=256, each unfiltered and with where="bucket = 3"
      (100,000 rows: the gather route, K11 -> K5 -> K3, scanned_vectors
-     100,000 + the shortlist); then a 2,000-row collection (the exact K1
-     plan). K11 against its plain version on the route's own (1, 100,000)
+     100,000 + the shortlist); the engine's batch_search_submit at B=16,
+     unfiltered and bucket = 3, against batch_search; then a 2,000-row
+     collection (the exact K1 plan). K11 against its plain version on the route's own (1, 100,000)
      row list and slot keys, B in {1, 16, 256, 33}, its bound at the bf16
      peak and the two calls qc16 @ x16.index_select(0, idx).T beside it.
   5. large k: search(k=1000) and search_range(max_results=1000) on the 1M
@@ -144,8 +145,9 @@ from lynsedb_tpu_torch.ops import graph
 from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 from lynsedb_tpu_torch.tools.flat_latency import GcClock
-from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, F32_OPS, HBM_BPS, INT8_OPS, SFU_OPS,
-                                              bound, bound_t, f32_tile_bound, shared_list_bound)
+from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, F32_OPS, HBM_BPS, SFU_OPS,
+                                              binary_tile_bound, bound, bound_t, code_scan_bound,
+                                              f32_tile_bound, shared_list_bound)
 
 N, DIM, K, C = 1_000_000, 128, 10, 256
 BATCHES = (1, 16, 256)
@@ -715,8 +717,7 @@ def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
                 stats.time("K12 int8_code_scores", f"{kind} IP B={b}",
                            lambda: quantize.int8_code_scores(*args_t),
                            lambda: quantize.int8_code_scores_plain(*args_t), library,
-                           bound(n_live * (DIM + row_bytes) + N + b * DIM * 4 + b * N * 4,
-                                 2 * b * n_live * DIM, INT8_OPS))
+                           code_scan_bound(b, DIM, codes.shape[1], n_live, N, row_bytes))
         del st, codes
         print(f"   K12 {kind}: agrees with its plain version (IP, L2, cosine; B in "
               f"{QUANT_BATCHES})", flush=True)
@@ -853,6 +854,23 @@ def run_queries(coll, singles, b16, b256, where, **kw):
             calls[b]["gc_s"].append(GC.read())
             calls[b]["mallocs"].append(device_mallocs() - m0)
     return views, np.array(lat), calls
+
+
+def submit_phase(coll, rng) -> None:
+    """The engine's async flat-path dispatch (the server's micro-batcher):
+    batch_search_submit at B = 16, unfiltered and bucket = 3, resolved, with
+    the ids and distances of batch_search on the same queries."""
+    eng = coll._engine
+    q = rng.normal(size=(16, DIM)).astype(np.float32)
+    for where in (None, "bucket = 3"):
+        resolve = eng.batch_search_submit(q, K, where=where)
+        check(resolve is not None, f"batch_search_submit({where!r}): None on a FLAT collection")
+        got, want = resolve(), eng.batch_search(q, K, where=where)
+        check(np.array_equal(np.asarray(got.ids), np.asarray(want.ids))
+              and np.array_equal(np.asarray(got.distances), np.asarray(want.distances)),
+              f"batch_search_submit({where!r}) differs from batch_search")
+    print("   batch_search_submit at B=16 (unfiltered, bucket = 3): batch_search's ids and "
+          "distances", flush=True)
 
 
 def ivf_scan_phase(coll, q_sets, stats: Stats, mode: str) -> None:
@@ -1384,7 +1402,7 @@ def metric_kernel_phase(corpus: DeviceCorpus, metric: Metric, qs: np.ndarray, st
         if name == "K6b binary_scores":
             q01 = D.unpack_bits(qt["bits"]).to(torch.bfloat16)
             library = lambda: q01 @ x01.T  # noqa: E731
-            bd = bound_t(n_live * (w * 4 + 4) + keys_bytes, b * n_live * w / SFU_OPS)
+            bd = binary_tile_bound(b, w, n_live, rows)
         elif name == "K6a gemm_metric_scores":
             lead = scan._gemm_rows(ct, metric)
             ql = scan._gemm_rows(qt, metric)
@@ -2380,6 +2398,7 @@ def main() -> int:
             print(f"   add+commit {N} rows: {t_add:.2f} s; first search (staging): {t_warm:.2f} s")
             flat_out = {where: run_queries(coll, singles, b16, b256, where)
                         for where in (None, "bucket = 3")}
+            submit_phase(coll, np.random.default_rng(SEED + 3))
             sc = db.require_collection("small", dim=DIM)
             sc.add(vectors=small)
             sc.commit()

@@ -10,72 +10,43 @@
 // _pw_jaccard / _pw_dice (:182-197), a bf16 product of the {0, 1} rows, inside
 // scan.py flat_topk (:190) and rescore_rows (:744, the gather mode).
 //
-// Bound: at 1M x 1,024 bits the packed rows are 128 MB (2 GB as bf16 rows).
-// At B = 1 and 16 the bytes bound it; at B = 256 the 8.2e9 popcounts do
-// (132 SMs x 16 popcounts a clock at 1.98 GHz, about 2 ms), where a bf16
-// tensor-core product of the unpacked rows would be bounded near 0.6 ms.
-// Design: a block of 128 threads holds 128 rows x 32 words (1,024 bits) in
-// shared memory, loaded coalesced, a row a thread (stride 33 words: no bank
-// conflicts), and TQ queries' words, read as broadcasts; a thread ANDs and
-// popcounts its row against each query and accumulates integer counts, 32
-// words at a time for any width. The gather mode scores explicit rows, a
-// thread a (query, slot).
-#include "common.cuh"
+// Bound: bytes. At 1M x 1,024 bits the packed rows are 128 MB (2 GB as bf16
+// rows) and the keys 4 * B * N bytes (1 GB at B = 256); the 2 * B * N * W * 32
+// bit-operations take a few percent of that time on the integer tensor
+// cores (the data sheet gives no b1 rate; at its int8 rate 0.27 ms at B =
+// 256), where a thread's __popc of a word a query would take about 2 ms.
+// Design: the tile mode is mma_int.cuh's tile with mma.sync m16n8k256
+// .b1 .and.popc (a k-step is 256 bits): the batch's query bits held in
+// shared memory, the rows streamed once through a cp.async ring (4-byte
+// copies where W % 4 != 0: a row is then not 16-byte aligned), the keys
+// staged through shared memory into row-contiguous 16-byte stores. The
+// gather mode scores explicit rows, a thread a (query, slot).
+#include "mma_int.cuh"
 
 namespace {
 
 using lt::binary_distance;
 
-constexpr int kRows = 128;  // rows a block, one a thread
-constexpr int kChunk = 32;  // words staged at a time
+constexpr int kRows = 128;  // slots a block of the gather mode
 
-template <int TQ>
-__global__ void __launch_bounds__(kRows)
-    binary_tile_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
-                       const float* __restrict__ qcnt, const float* __restrict__ xcnt,
-                       const uint8_t* __restrict__ valid, int B, int N, int W, int metric,
-                       float* __restrict__ keys) {
-  __shared__ uint32_t xs[kRows][kChunk + 1];
-  __shared__ uint32_t qs[TQ][kChunk];
-  const int t = threadIdx.x;
-  const int64_t n0 = (int64_t)blockIdx.x * kRows;
-  const int q0 = blockIdx.y * TQ;
-  int acc[TQ];
-#pragma unroll
-  for (int i = 0; i < TQ; ++i) acc[i] = 0;
-  for (int w0 = 0; w0 < W; w0 += kChunk) {
-    const int wc = min(kChunk, W - w0);
-    // the tile's rows are contiguous runs of wc words: consecutive threads
-    // read consecutive words
-    for (int e = t; e < kRows * wc; e += kRows) {
-      const int r = e / wc, c = e % wc;
-      const int64_t n = n0 + r;
-      xs[r][c] = n < N ? __ldg(x + n * W + w0 + c) : 0u;
-    }
-    for (int e = t; e < TQ * wc; e += kRows) {
-      const int r = e / wc, c = e % wc;
-      qs[r][c] = q0 + r < B ? __ldg(q + (int64_t)(q0 + r) * W + w0 + c) : 0u;
-    }
-    __syncthreads();
-    for (int c = 0; c < wc; ++c) {
-      const uint32_t xw = xs[t][c];
-#pragma unroll
-      for (int i = 0; i < TQ; ++i) acc[i] += __popc(xw & qs[i][c]);
-    }
-    __syncthreads();
+// The tile's epilogue: the distance of the intersection count and the two
+// bit counts, negated (every binary metric is ascending), -inf where masked.
+struct BinaryEpilogue {
+  static constexpr int kTerms = 1;
+  const float* term[kTerms];  // (N,) the rows' bit counts
+  const uint8_t* valid;       // (N,) 1 = live row
+  const float* qcnt;          // (B,)
+  int metric;
+
+  struct Query {
+    float cnt = 0.f;
+  };
+  __device__ __forceinline__ Query query(int b) const { return {__ldg(qcnt + b)}; }
+  __device__ __forceinline__ float key(const Query& q, float cnt, float, float, bool live,
+                                       int inter) const {
+    return lt::to_key(binary_distance(metric, (float)inter, q.cnt, cnt), true, live);
   }
-  const int64_t n = n0 + t;
-  if (n >= N) return;
-  const bool live = valid[n] != 0;
-  const float cx = xcnt[n];
-#pragma unroll
-  for (int i = 0; i < TQ; ++i) {
-    const int b = q0 + i;
-    if (b >= B) break;
-    const float d = binary_distance(metric, (float)acc[i], qcnt[b], cx);
-    keys[(int64_t)b * N + n] = lt::to_key(d, true, live);
-  }
-}
+};
 
 // keys[b, c] for the row ids[b, c] (negative: an empty slot, -inf); a thread
 // a slot.
@@ -103,8 +74,9 @@ __global__ void __launch_bounds__(kRows)
 
 // q (B, W) and x (N, W) uint32 words of the bits (column j of a row is bit
 // j % 32 of word j / 32, pad bits zero), qcnt (B,) and xcnt (N,) their bit
-// counts. Tile mode (ids null): keys (B, N) over every row, masked by valid.
-// Gather mode: keys (B, C) over the rows ids (B, C) int32.
+// counts. Tile mode (ids null): keys (B, N) over every row, masked by valid;
+// W at most 4,092 words (130,944 bits: a group of 8 queries fits in shared
+// memory). Gather mode: keys (B, C) over the rows ids (B, C) int32.
 extern "C" int lt_binary_scores(const uint32_t* q, const uint32_t* x, const float* qcnt,
                                 const float* xcnt, const uint8_t* valid, const int* ids, int B,
                                 int N, int W, int C, int metric, float* keys,
@@ -117,15 +89,9 @@ extern "C" int lt_binary_scores(const uint32_t* q, const uint32_t* x, const floa
     binary_gather_kernel<<<grid, kRows, 0, stream>>>(q, x, qcnt, xcnt, ids, C, W, metric, keys);
     return (int)cudaGetLastError();
   }
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  const unsigned row_blocks = (unsigned)((N + kRows - 1) / kRows);
-  if (B == 1) {
-    binary_tile_kernel<1><<<dim3(row_blocks, 1), kRows, 0, stream>>>(q, x, qcnt, xcnt, valid, B,
-                                                                     N, W, metric, keys);
-  } else {
-    if ((B + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
-    binary_tile_kernel<16><<<dim3(row_blocks, (unsigned)((B + 15) / 16)), kRows, 0, stream>>>(
-        q, x, qcnt, xcnt, valid, B, N, W, metric, keys);
-  }
-  return (int)cudaGetLastError();
+  if (W > 4092) return (int)cudaErrorInvalidValue;
+  const BinaryEpilogue epi{{xcnt}, valid, qcnt, metric};
+  return lt::int_tile_scores<true>(reinterpret_cast<const uint8_t*>(q),
+                                   reinterpret_cast<const uint8_t*>(x), B, N, 4 * W, epi, keys,
+                                   stream);
 }

@@ -2,7 +2,8 @@
 // distances, the selection order, a bitonic sort, the span threshold select
 // (WarpTopk), the cp.async copies and the f32 tile product of K19. The other
 // metrics' formulas are in metrics.cuh; the pipelined f32 tile of K1 / K6a
-// is in f32_tile.cuh, the bf16 tensor-core stage of K2 / K11 in mma_bf16.cuh.
+// is in f32_tile.cuh, the bf16 tensor-core stage of K2 / K11 in mma_bf16.cuh,
+// the integer tensor-core tile of K6b / K12 in mma_int.cuh.
 //
 // Every entry point of the library is a plain C function that launches on the
 // caller's stream, allocates nothing and returns the cudaError_t of its launch

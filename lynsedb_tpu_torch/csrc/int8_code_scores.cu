@@ -20,23 +20,26 @@
 //
 // Bound: bytes. The codes are N * Dp bytes (128 MB at 1M x 128) and the keys
 // 4 * B * N (256 MB at B = 64); the 2 * B * N * Dp integer operations take a
-// tenth of that time at the int8 tensor-core rate. The kernel does not use the
-// tensor cores: __dp4a (four int8 products into an int32 a lane) on the CUDA
-// cores.
-// Design: a prologue kernel quantizes the B query rows into a (B, Dp) int8
-// scratch. The scan kernel's block holds a tile of code rows (256 rows at
-// B <= 16, else 64) and up to 64 queries; it stages 128-code chunks of the
-// rows with 16-byte loads and the queries' chunks into shared memory, and
-// each thread accumulates one row against its queries with __dp4a, the row's
-// word kept in a register and the queries' words read four at a time.
-#include "common.cuh"
+// tenth of that time at the int8 tensor-core rate.
+// Design: a prologue kernel, a block a query, quantizes the B query rows into
+// a (B, Dp) int8 scratch and their scales. The per-query terms the epilogue
+// reads (|q|^2, SQ8's q . (lo + 128 scale), PolarVec's sum of the rotated
+// query) come from the caller's PyTorch ops, the plain version's own: formed
+// here as f32 block sums in another order, they moved near-cancelling L2
+// keys by up to 3e-5 (four ulps of |q|^2 ~ 100), past the kernel's 1e-5
+// tolerance against the plain version. The scan is mma_int.cuh's tile with
+// mma.sync m16n8k32 .s8 .s8 .s32 (code rows on M, queries on N): the batch's
+// quantized queries held in shared memory, the codes streamed once through a
+// cp.async ring of 16-byte copies (a Dp with Dp % 32 == 16 zero-filled to
+// the k-step), the keys staged through shared memory into row-contiguous
+// 16-byte stores.
+#include "mma_int.cuh"
 
 namespace {
 
 enum Kind : int { kSQ8 = 0, kRaBitQ = 1, kPolarVec = 2 };
 
 constexpr int kThreads = 256;
-constexpr int kWords = 32;  // 4-byte code words a shared-memory chunk (128 codes)
 
 // One block a query row: codes (B, Dp) int8 of a[b] (times dim_scale where
 // given) over its D columns, zero beyond them, and each row's scale.
@@ -70,138 +73,81 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) q_scale[blockIdx.x] = scale;
 }
 
+// The tile's epilogue: dot = float(acc) * scale, the quantizer's inner
+// product, the metric, the orientation and the mask.
 struct CodeEpilogue {
-  const float* q_base;  // (B,) SQ8: q . (lo + 128 scale)
-  const float* q_sq;    // (B,) |q|^2 of the unrotated query (L2, cosine)
-  const float* q_sum;   // (B,) PolarVec: sum of the rotated query
-  const float* row_a;   // (N,) RaBitQ alpha, PolarVec scale
-  const float* row_b;   // (N,) PolarVec lo
-  const float* row_sq;  // (N,) the rows' squared norms (L2, cosine)
-  const uint8_t* valid; // (N,) 1 = live row
+  static constexpr int kTerms = 3;
+  const float* term[kTerms];  // (N,) RaBitQ alpha / PolarVec scale, PolarVec lo,
+                              // the rows' squared norms (L2, cosine); null: unread
+  const uint8_t* valid;       // (N,) 1 = live row
+  const float* q_scale;       // (B,) the quantized queries' scales
+  const float* q_base;        // (B,) SQ8: q . (lo + 128 scale)
+  const float* q_sq;          // (B,) |q|^2 of the unrotated query (L2, cosine)
+  const float* q_sum;         // (B,) PolarVec: sum of the rotated query
   int kind;
   int metric;
   bool ascending;
 
+  struct Query {
+    float scale = 1.f, base = 0.f, sq = 0.f, sum = 0.f;
+  };
+  __device__ __forceinline__ Query query(int b) const {
+    Query q;
+    q.scale = __ldg(q_scale + b);
+    if (kind == kSQ8) q.base = __ldg(q_base + b);
+    if (metric != lt::kIP) q.sq = __ldg(q_sq + b);
+    if (kind == kPolarVec) q.sum = __ldg(q_sum + b);
+    return q;
+  }
   // the products and the sum stay separate roundings (no FMA contraction),
   // as in the JAX expressions
-  __device__ __forceinline__ float operator()(int b, int64_t n, float dot) const {
+  __device__ __forceinline__ float key(const Query& q, float ta, float tb, float row_sq,
+                                       bool live, int acc) const {
+    const float dot = __fmul_rn((float)acc, q.scale);
     float ip;
     if (kind == kSQ8) {
-      ip = __fadd_rn(q_base[b], dot);
+      ip = __fadd_rn(q.base, dot);
     } else if (kind == kRaBitQ) {
-      ip = __fmul_rn(row_a[n], dot);
+      ip = __fmul_rn(ta, dot);
     } else {
-      ip = __fadd_rn(__fmul_rn(row_b[n], q_sum[b]), __fmul_rn(row_a[n], dot));
+      ip = __fadd_rn(__fmul_rn(tb, q.sum), __fmul_rn(ta, dot));
     }
     float s;
     if (metric == lt::kIP) {
       s = ip;
     } else if (metric == lt::kL2) {
-      s = lt::clamp_nonneg(q_sq[b] + row_sq[n] - 2.f * ip);
+      s = lt::clamp_nonneg(q.sq + row_sq - 2.f * ip);
     } else {
-      s = lt::cosine_distance(ip, sqrtf(__fmul_rn(q_sq[b], row_sq[n])));
+      s = lt::cosine_distance(ip, sqrtf(__fmul_rn(q.sq, row_sq)));
     }
-    return lt::to_key(s, ascending, valid[n] != 0);
+    return lt::to_key(s, ascending, live);
   }
 };
-
-// Block: ROWS code rows x TQ queries; thread (r, lane) accumulates row r
-// against queries lane, lane + LANES, ... of the tile.
-template <int ROWS, int TQ>
-__global__ void __launch_bounds__(kThreads)
-    int8_scores_kernel(const int8_t* __restrict__ q_i8, const float* __restrict__ q_scale,
-                       const int8_t* __restrict__ codes, int B, int N, int Dp, CodeEpilogue epi,
-                       float* __restrict__ keys) {
-  constexpr int LANES = kThreads / ROWS < TQ ? kThreads / ROWS : TQ;
-  constexpr int QPT = TQ / LANES;  // queries a thread accumulates
-  __shared__ int rows_s[ROWS][kWords + 1];
-  __shared__ __align__(16) int qs[TQ][kWords];
-  const int r = threadIdx.x % ROWS, lane = threadIdx.x / ROWS;
-  const int64_t n0 = (int64_t)blockIdx.x * ROWS;
-  const int b0 = blockIdx.y * TQ;
-  const int words = Dp / 4;
-  int acc[QPT];
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) acc[j] = 0;
-  for (int w0 = 0; w0 < words; w0 += kWords) {
-    const int cw = min(kWords, words - w0);  // a multiple of 4: Dp % 16 == 0
-    const int vecs = cw / 4;
-    for (int e = threadIdx.x; e < ROWS * vecs; e += kThreads) {
-      const int rr = e / vecs, v = e % vecs;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (n0 + rr < N) val = __ldg(reinterpret_cast<const int4*>(codes + (n0 + rr) * Dp) + w0 / 4 + v);
-      rows_s[rr][4 * v] = val.x;
-      rows_s[rr][4 * v + 1] = val.y;
-      rows_s[rr][4 * v + 2] = val.z;
-      rows_s[rr][4 * v + 3] = val.w;
-    }
-    for (int e = threadIdx.x; e < TQ * cw; e += kThreads) {
-      const int qq = e / cw, w = e % cw;
-      qs[qq][w] = b0 + qq < B
-                      ? reinterpret_cast<const int*>(q_i8 + (int64_t)(b0 + qq) * Dp)[w0 + w]
-                      : 0;
-    }
-    __syncthreads();
-    if (lane < LANES) {
-      for (int w = 0; w < cw; w += 4) {
-        const int x0 = rows_s[r][w], x1 = rows_s[r][w + 1], x2 = rows_s[r][w + 2],
-                  x3 = rows_s[r][w + 3];
-#pragma unroll
-        for (int j = 0; j < QPT; ++j) {
-          const int4 qv = *reinterpret_cast<const int4*>(&qs[lane + j * LANES][w]);
-          acc[j] = __dp4a(x0, qv.x, acc[j]);
-          acc[j] = __dp4a(x1, qv.y, acc[j]);
-          acc[j] = __dp4a(x2, qv.z, acc[j]);
-          acc[j] = __dp4a(x3, qv.w, acc[j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const int64_t n = n0 + r;
-  if (n >= N || lane >= LANES) return;
-#pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    const int b = b0 + lane + j * LANES;
-    if (b < B) keys[(int64_t)b * N + n] = epi(b, n, __fmul_rn((float)acc[j], q_scale[b]));
-  }
-}
-
-template <int ROWS, int TQ>
-void launch_scan(const int8_t* q_i8, const float* q_scale, const int8_t* codes, int B, int N,
-                 int Dp, const CodeEpilogue& epi, float* keys, cudaStream_t stream) {
-  const dim3 grid((unsigned)((N + ROWS - 1) / ROWS), (unsigned)((B + TQ - 1) / TQ));
-  int8_scores_kernel<ROWS, TQ><<<grid, kThreads, 0, stream>>>(q_i8, q_scale, codes, B, N, Dp, epi,
-                                                              keys);
-}
 
 }  // namespace
 
 // a (B, D) f32 rows to quantize (SQ8: the query, multiplied by dim_scale (D,)
 // first; RaBitQ / PolarVec: the rotated query, dim_scale null); codes (N, Dp)
-// int8, Dp a multiple of 16 and >= D, the columns past D zero; q_i8 (B, Dp)
-// int8 and q_scale (B,) f32 scratch -> keys (B, N) f32. Per-query and per-row
-// arrays as CodeEpilogue; those the kind and metric do not read may be null.
+// int8, Dp a multiple of 16 and >= D (at most 16,368), the columns past D
+// zero; q_i8 (B, Dp) int8 and q_scale (B,) f32 scratch -> keys (B, N) f32.
+// Per-query and per-row arrays as CodeEpilogue; those the kind and metric do
+// not read may be null.
 extern "C" int lt_int8_code_scores(const float* a, const float* dim_scale, const int8_t* codes,
                                    const float* q_base, const float* q_sq, const float* q_sum,
                                    const float* row_a, const float* row_b, const float* row_sq,
                                    const uint8_t* valid, int B, int N, int D, int Dp, int kind,
                                    int metric, int ascending, int8_t* q_i8, float* q_scale,
                                    float* keys, cudaStream_t stream) {
-  if (B < 1 || B > 65535 * 16 || N < 1 || D < 1 || Dp < D || Dp % 16 != 0 || kind < 0 || kind > 2 ||
-      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+  if (B < 1 || N < 1 || D < 1 || Dp < D || Dp % 16 != 0 || kind < 0 || kind > 2 ||
+      !lt::aligned16(codes) || !lt::aligned16(q_i8))
     return (int)cudaErrorInvalidValue;
   quantize_queries_kernel<<<B, kThreads, 0, stream>>>(a, dim_scale, D, Dp, q_i8, q_scale);
-  const CodeEpilogue epi{q_base, q_sq, q_sum, row_a, row_b, row_sq, valid, kind, metric,
-                         ascending != 0};
-  if (B == 1) {
-    launch_scan<256, 1>(q_i8, q_scale, codes, B, N, Dp, epi, keys, stream);
-  } else if (B <= 4) {
-    launch_scan<256, 4>(q_i8, q_scale, codes, B, N, Dp, epi, keys, stream);
-  } else if (B <= 16) {
-    launch_scan<256, 16>(q_i8, q_scale, codes, B, N, Dp, epi, keys, stream);
-  } else {
-    launch_scan<64, 64>(q_i8, q_scale, codes, B, N, Dp, epi, keys, stream);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const CodeEpilogue epi{{kind != kSQ8 ? row_a : nullptr, kind == kPolarVec ? row_b : nullptr,
+                          metric != lt::kIP ? row_sq : nullptr},
+                         valid, q_scale, q_base, q_sq, q_sum, kind, metric, ascending != 0};
+  return lt::int_tile_scores<false>(reinterpret_cast<const uint8_t*>(q_i8),
+                                    reinterpret_cast<const uint8_t*>(codes), B, N, Dp, epi, keys,
+                                    stream);
 }

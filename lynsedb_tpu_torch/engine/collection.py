@@ -781,6 +781,38 @@ class Collection:
                 self._search_cache.put(cache_key, out)
             return out
 
+    def batch_search_submit(self, vectors, k: int = 10, *, where: Optional[str] = None):
+        """Async flat-path batched dispatch: returns a zero-arg resolver
+        producing the same SearchResult as :meth:`batch_search`, or None
+        when an index/aux path (or empty collection) requires the
+        synchronous path. The kernels are enqueued on the card before this
+        returns; the resolver waits for them and fetches the rows, so a
+        caller keeps two dispatches in flight and one's fetch overlaps the
+        next one's scan (the server's micro-batcher)."""
+        self._check_open()
+        if self._index is not None or self._aux_index is not None or self.n_rows == 0:
+            return None
+        with self._lock:
+            q = np.ascontiguousarray(np.atleast_2d(vectors), dtype=np.float32)
+            if self.dim is not None and q.shape[1] != self.dim:
+                raise DimensionMismatch(f"query dim {q.shape[1]} != collection dim {self.dim}")
+            metric = self.metric
+            if not metric.accepts_dimension(q.shape[1]):
+                raise InvalidArgument(f"metric {metric.value} rejects dim {q.shape[1]}")
+            handle = self.resolve_filter(where)
+            resolver = self.corpus().search_submit(q, k, metric, filter_mask=handle)
+
+        def resolve() -> SearchResult:
+            dists, ids = resolver()
+            return SearchResult(
+                ids=ids,
+                distances=dists,
+                distance_metric=metric.display_name,
+                index_type=self.index_type,
+            )
+
+        return resolve
+
     def prewarm(self) -> float:
         """Build the kernels and stage the corpus with one dummy search, so
         the first live query pays neither. Returns seconds spent. Safe no-op

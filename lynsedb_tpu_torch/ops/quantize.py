@@ -44,6 +44,9 @@ _KIND_CODE = {"sq8": 0, "rabitq": 1, "polarvec": 2}
 # the int8 codes' row width on the card: a multiple of 16 bytes (the K12
 # kernel reads them 16 bytes at a time); the padded columns are zero
 CODE_ALIGN = 16
+# the widest code row K12 takes: a group of 8 quantized queries fits in the
+# tile's 128 KB of shared memory (csrc/mma_int.cuh)
+CODE_MAX_BYTES = 16_368
 # rows a PQ encode step assigns (M kmeans_assign launches each)
 PQ_ENCODE_CHUNK = 1 << 18
 # rows of the plain scans' (B, rows) products at a time
@@ -133,7 +136,10 @@ def quantize_queries(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The query side of :func:`_int8_dot`: each row quantized to int8
     (symmetric, 127 levels). Returns (codes (B, D) int8, scale (B, 1))."""
     amax = a.abs().amax(dim=-1, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by the scalar's rounded reciprocal, an ulp off the true quotient that
+    # JAX, the CPU and the K12 kernel take for about 4% of the rows
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), 1.0)
     return torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8), scale
 
 
@@ -221,6 +227,8 @@ def int8_code_scores(kind: str, q: torch.Tensor, q_rot: torch.Tensor | None, sta
         raise ValueError("int8_code_scores: codes (N, Dc) int8 with Dc a multiple of 16 expected")
     if a.dtype != torch.float32 or valid.dtype != torch.bool or valid.shape[0] < n:
         raise ValueError("int8_code_scores: float32 queries and a (>= N,) bool mask expected")
+    if dc > CODE_MAX_BYTES:
+        raise ValueError(f"int8_code_scores: at most {CODE_MAX_BYTES} code columns on the card")
     q_sq = (q * q).sum(-1)
     dim_scale = q_base = q_sum = row_a = row_b = None
     if kind == "sq8":

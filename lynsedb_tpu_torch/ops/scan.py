@@ -121,6 +121,9 @@ RESIDENT, HOST_RESCORE, STREAMING = "resident", "host_rescore", "streaming"
 # The kernels' metric codes (csrc/common.cuh lt::Metric, lt::BinaryMetric).
 _METRIC_CODE = {Metric.IP: 0, Metric.L2: 1, Metric.COSINE: 2}
 _GEMM_CODE = {**_METRIC_CODE, Metric.CORRELATION: 3, Metric.HELLINGER: 4}
+# the widest bit rows K6b's tile mode takes (130,944 bits): a group of 8
+# queries fits in the tile's 128 KB of shared memory (csrc/mma_int.cuh)
+BINARY_TILE_WORDS = 4092
 _BINARY_CODE = {Metric.HAMMING: 0, Metric.JACCARD: 1, Metric.TANIMOTO: 1, Metric.DICE: 2}
 _ELEM_CODE = {Metric.L1: 5, Metric.CHEBYSHEV: 6, Metric.CANBERRA: 7, Metric.BRAY_CURTIS: 8,
               Metric.WASSERSTEIN: 9, Metric.JENSEN_SHANNON: 10, Metric.HAVERSINE: 11}
@@ -349,6 +352,8 @@ def binary_scores(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Met
                        valid if ids is None else None, ids)
     if q.dtype != torch.int32 or x.dtype != torch.int32 or x.shape[1] != w:
         raise ValueError("binary_scores: bits (B, W) and (N, W) int32 words expected")
+    if ids is None and w > BINARY_TILE_WORDS:
+        raise ValueError(f"binary_scores: the tile mode takes at most {BINARY_TILE_WORDS} words")
     if ids is None and (valid is None or valid.shape != (n,) or valid.dtype != torch.bool):
         raise ValueError("binary_scores: valid (N,) bool expected")
     c = 0 if ids is None else ids.shape[1]

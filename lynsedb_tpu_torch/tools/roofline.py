@@ -34,6 +34,25 @@ def f32_tile_bound(b: int, d: int, n_live: int, rows: int, row_bytes: int = 0):
                  2 * b * n_live * d)
 
 
+def binary_tile_bound(b: int, w: int, n_live: int, rows: int):
+    """K6b's tile mode over W-word bit rows: each live row's words and bit
+    count read once, every row's valid byte, the queries' words and counts
+    read and the (B, rows) keys written; 2 B n_live 32 W bit-operations (an
+    AND and a count a bit pair) on the integer tensor cores. The data sheet
+    gives no b1 rate; its int8 rate is the nearest one it gives."""
+    return bound(n_live * (w * 4 + 4) + rows + b * (w * 4 + 4) + b * rows * 4,
+                 2 * b * n_live * 32 * w, INT8_OPS)
+
+
+def code_scan_bound(b: int, d: int, dp: int, n_live: int, rows: int, row_bytes: int):
+    """K12 over (rows, dp) int8 codes: each live row's codes and its
+    ``row_bytes`` of epilogue terms read once, every row's valid byte, the
+    (B, d) f32 queries read and the (B, rows) keys written; 2 B n_live dp
+    operations at the int8 tensor-core rate."""
+    return bound(n_live * (dp + row_bytes) + rows + b * d * 4 + b * rows * 4,
+                 2 * b * n_live * dp, INT8_OPS)
+
+
 def shared_list_bound(b: int, d: int, s: int):
     """K11 over a (1, S) list shared by every query: each gathered bf16 row,
     its m . (x - m) word, its id and slot key read once, the queries read

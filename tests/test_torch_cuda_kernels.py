@@ -524,6 +524,38 @@ def test_int8_code_scores_matches_plain(dev, kind, metric):
         torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dp", [16, 112, 128, 784])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("kind", ["sq8", "rabitq", "polarvec"])
+def test_int8_code_tile_routes(dev, kind, metric, dp):
+    """K12's tensor-core tile at the edges of its routes: Dp = 16 (one half
+    k-step), 112 (Dp % 32 == 16: the last k-step zero-filled), 128 and 784
+    (several 128-byte stages a row; 160 queries a group, so B = 200 takes
+    two); B in {1, 9, 64, 65, 200} across the tile's query configurations;
+    a zero query and a zero-norm row; N = 30,000 rows (16-byte key stores,
+    several row tiles a block)."""
+    rng = np.random.default_rng(dp)
+    n, d = 30_000, {16: 13, 112: 100, 128: 128, 784: 784}[dp]
+    st = _code_state(kind, rng, n, d, dev)
+    assert st["bits" if kind == "rabitq" else "codes"].shape[1] == dp
+    valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    for b in (1, 9, 64, 65, 200):
+        q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+        q_rot = None if kind == "sq8" else torch.from_numpy(
+            rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+        if b > 1:
+            q[0] = 0.0  # a zero query: scale 1, every code 0
+            if q_rot is not None:
+                q_rot[0] = 0.0
+        got = quantize.int8_code_scores(kind, q, q_rot, st, valid, metric)
+        want = quantize.int8_code_scores_plain(kind, q, q_rot, st, valid, metric)
+        torch.cuda.synchronize()
+        assert got.shape == (b, n)
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("m,ds", [(16, 8), (12, 4), (64, 2), (240, 1)])
 def test_pq_adc_scores_matches_plain(dev, metric, m, ds):
@@ -855,6 +887,65 @@ def test_metric_kernels_match_plain(dev, metric, b, d):
     want = scan.metric_keys_plain(qt, ct, None, metric, ids=ids)
     torch.cuda.synchronize()
     _assert_keys_close(metric, got, want)
+
+
+BINARY = [Metric.HAMMING, Metric.JACCARD, Metric.TANIMOTO, Metric.DICE]
+
+
+@pytest.mark.parametrize("w", [1, 2, 7, 8, 9, 32, 35])
+@pytest.mark.parametrize("metric", BINARY, ids=[m.value for m in BINARY])
+def test_binary_tile_routes(dev, metric, w):
+    """K6b's b1 tensor-core tile equal to its plain version: W in {1, 2, 7,
+    8, 9, 32, 35} words (a partial 256-bit k-step below 8 and at 9 and 35;
+    the 4-byte copy route where W % 4 != 0), B in {1, 7, 8, 9, 33, 256} and
+    300, past the 256 queries a group; N = 100,003 rows, so a block walks
+    several row tiles, the last one ragged, and the keys leave in 4-byte
+    stores. Rows at 10% density with pad bits, empty rows and queries
+    (Jaccard's and Dice's empty-union policy), a query's own row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(w)
+    n, d = 100_003, 32 * w - (w % 3)
+    x = (torch.rand((n, d), generator=gen, device=dev) < 0.1).float()
+    x[:3] = 0.0
+    ct = D.corpus_transform(x, metric)
+    valid = torch.rand(n, generator=gen, device=dev) < 0.8
+    for b in (1, 7, 8, 9, 33, 256, 300):
+        q = (torch.rand((b, d), generator=gen, device=dev) < 0.1).float()
+        if b > 1:
+            q[0] = 0.0
+            q[1] = x[7]
+        qt = D.query_transform(q, metric)
+        got = scan.binary_scores(qt, ct, valid, metric)
+        want = scan.metric_keys_plain(qt, ct, valid, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_binary_tile_unaligned_terms(dev, offset):
+    """K6b's tile with its per-row terms at unaligned addresses: the bit
+    counts 4 bytes off a 16-byte boundary (4-byte copies) and the mask
+    ``offset`` bytes off (1: plain byte loads; 4: 4-byte copies), as views of
+    larger tensors; equal to the plain version on the same views."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(offset)
+    n, d = 20_011, 1024
+    x = (torch.rand((n, d), generator=gen, device=dev) < 0.1).float()
+    ct = D.corpus_transform(x, Metric.JACCARD)
+    cnt = torch.zeros(n + 1, device=dev)
+    cnt[1:] = ct["cnt"]
+    ct = {"bits": ct["bits"], "cnt": cnt[1:]}
+    valid = torch.zeros(n + offset, dtype=torch.bool, device=dev)
+    valid[offset:] = torch.rand(n, generator=gen, device=dev) < 0.8
+    valid = valid[offset:]
+    assert ct["cnt"].data_ptr() % 16 == 4 and valid.data_ptr() % 4 == offset % 4
+    for b in (1, 9):
+        qt = D.query_transform((torch.rand((b, d), generator=gen, device=dev) < 0.1).float(),
+                               Metric.JACCARD)
+        got = scan.binary_scores(qt, ct, valid, Metric.JACCARD)
+        want = scan.metric_keys_plain(qt, ct, valid, Metric.JACCARD)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), b
 
 
 @pytest.mark.parametrize("metric", [Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA,
