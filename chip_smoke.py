@@ -147,7 +147,7 @@ from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 from lynsedb_tpu_torch.tools.flat_latency import GcClock
 from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, F32_OPS, HBM_BPS, SFU_OPS,
                                               binary_tile_bound, bound, bound_t, code_scan_bound,
-                                              f32_tile_bound, shared_list_bound)
+                                              f32_tile_bound, shared_list_bound, topl_bound)
 
 N, DIM, K, C = 1_000_000, 128, 10, 256
 BATCHES = (1, 16, 256)
@@ -1013,10 +1013,11 @@ def entry_scan_phase(eng, q_sets, report) -> None:
           "its plain version at B in [1, 16, 256]", flush=True)
 
 
-def build_kernel_phase(eng, x: np.ndarray, rng, stats: Stats) -> None:
+def build_kernel_phase(eng, x: np.ndarray, rng, stats: Stats, build_phases: dict) -> None:
     """K19 on one 4,096-query chunk (the HNSW-L2 build's L=64 over all 1M
     rows) and K20 on one 4,096-node chunk of pass A (64 exact + 8 random
-    candidates), each against its plain version on the card."""
+    candidates), each against its plain version on the card; K19's time
+    printed beside the build's knn_candidates seconds (``build_phases``)."""
     corpus = eng.corpus()
     xd = corpus._data[:N]
     xsq = (xd * xd).sum(-1)
@@ -1039,12 +1040,14 @@ def build_kernel_phase(eng, x: np.ndarray, rng, stats: Stats) -> None:
             torch.topk(2.0 * (xd[:chunk] @ xd[lo : lo + 131072].T) - xsq[None, lo : lo + 131072],
                        l, dim=1)
 
-    stats.time("K19 topl_scan", f"L2 chunk={chunk} N={N} L={l}", lambda: graph.topl_scan(*args),
-               lambda: graph.topl_scan_plain(*args), library,
-               bound(N * DIM * 4 + N * 4 + chunk * (DIM + 1) * 4 + chunk * l * 8,
-                     2 * chunk * N * DIM), reps=3)
+    label = f"L2 chunk={chunk} N={N} L={l}"
+    stats.time("K19 topl_scan", label, lambda: graph.topl_scan(*args),
+               lambda: graph.topl_scan_plain(*args), library, topl_bound(chunk, DIM, N, l), reps=3)
     print(f"   K19 topl_scan: a {chunk}-query chunk over {N} rows agrees with its plain "
-          f"version (ids equal but at near-ties: {int((gi_np != wi_np).sum())} slots)", flush=True)
+          f"version (ids equal but at near-ties: {int((gi_np != wi_np).sum())} slots); "
+          f"{stats.rows['K19 topl_scan'][label]['ms']:.4f} ms a chunk, the build's "
+          f"knn_candidates phase {build_phases.get('knn_candidates', float('nan')):.3f} s",
+          flush=True)
 
     extra = rng.integers(0, N, size=(chunk, 8)).astype(np.int32)
     cands = torch.cat([gi, torch.from_numpy(extra).to(DEV)], dim=1).contiguous()
@@ -1097,7 +1100,7 @@ def graph_path(db, coll, x, centers, rng, q_sets, report, stats):
         beam_phase(eng, ("f32", "bf16"), "l2", 100, [q_sets[0][:1], q_sets[1][0], q_sets[2][0]],
                    stats, "HNSW-L2")
         entry_scan_phase(eng, [q_sets[0][:1], q_sets[1][0], q_sets[2][0]], report)
-        build_kernel_phase(eng, x, rng, stats)
+        build_kernel_phase(eng, x, rng, stats, report["HNSW-L2 build_phases_s"])
 
     extra = mixture_queries(rng, centers, GRAPH_INSERT)
     t0 = time.perf_counter()
@@ -1647,13 +1650,15 @@ def binary_ivf_phase(coll, qs: np.ndarray, stats: Stats, mode: str) -> None:
     print(f"   K16b {mode}: equal to its plain version at B in {list(BATCHES)}", flush=True)
 
 
-def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool) -> None:
+def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool,
+                       build_phases: dict) -> None:
     """K17's metric tier (beam 100, B in {1, 16, 256}) and K20's pair tables
     (1,024 nodes of pass A's shape) equal to their plain versions to the
     bit, and K19's metric mode (256 queries of the build's L = 64 over every
     row) within the distance tolerance, on the built index. ``timed``: K19
-    on a TOPL_CHUNK-query chunk beside the library's top-L, K20 on 4,096
-    nodes, every one against its bound."""
+    on a TOPL_CHUNK-query chunk beside the library's top-L and the build's
+    knn_candidates seconds (``build_phases``), K20 on 4,096 nodes, every one
+    against its bound."""
     idx, corpus = eng._index, eng.corpus()
     metric = idx.metric
     dev = idx._device(corpus)
@@ -1703,11 +1708,14 @@ def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool
                     for lo in range(0, n, 131072):
                         torch.topk(-torch.cdist(qx, x32[lo : min(lo + 131072, n)], p=1), l, dim=1)
 
-                stats.time("K6g topl_scan", f"{mode} chunk={chunk} N={n} L={l}",
+                label = f"{mode} chunk={chunk} N={n} L={l}"
+                stats.time("K6g topl_scan", label,
                            lambda: graph.topl_scan(*args), lambda: graph.topl_scan_plain(*args),
                            accepted(library) if metric is Metric.L1 else None,
-                           bound_t(n * row_bytes + chunk * l * 8,
-                                   chunk * n * elem_ops / F32_OPS), reps=1)
+                           topl_bound(chunk, d, n, l, elem_ops, row_bytes), reps=1)
+                print(f"   K19 {mode}: {stats.rows['K6g topl_scan'][label]['ms']:.4f} ms a "
+                      f"{chunk}-query chunk, the build's knn_candidates phase "
+                      f"{build_phases.get('knn_candidates', float('nan')):.3f} s", flush=True)
         print(f"   K6g {mode}: K17's metric tier equal to its plain version, K19's metric mode "
               f"within the distance tolerance", flush=True)
 
@@ -1807,7 +1815,8 @@ def index_metrics_path(db, sets: dict, prefix_coll, centers, rng, report, stats)
                         if ivf_mode:
                             binary_ivf_phase(c, qs, stats, mode)
                         else:
-                            metric_graph_phase(c._engine, mode, qs, stats, mode == "HNSW-L1")
+                            metric_graph_phase(c._engine, mode, qs, stats, mode == "HNSW-L1",
+                                               phases)
                 gt = brute64(metric, q64, rows_d, masks, K)
                 probe = probed_kth(c._engine._index, qs, rows_d, masks) if ivf_mode else {}
                 for where, (views, lat, calls) in out.items():

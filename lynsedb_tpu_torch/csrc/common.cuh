@@ -1,9 +1,9 @@
 // Shared pieces of the kernels: the metric codes and keys, the binary
 // distances, the selection order, a bitonic sort, the span threshold select
-// (WarpTopk), the cp.async copies and the f32 tile product of K19. The other
-// metrics' formulas are in metrics.cuh; the pipelined f32 tile of K1 / K6a
-// is in f32_tile.cuh, the bf16 tensor-core stage of K2 / K11 in mma_bf16.cuh,
-// the integer tensor-core tile of K6b / K12 in mma_int.cuh.
+// (WarpTopk), the cp.async copies and the tile sizes of K6c. The other
+// metrics' formulas are in metrics.cuh; the pipelined f32 tile of K1 / K6a /
+// K19 is in f32_tile.cuh, the bf16 tensor-core stage of K2 / K11 in
+// mma_bf16.cuh, the integer tensor-core tile of K6b / K12 in mma_int.cuh.
 //
 // Every entry point of the library is a plain C function that launches on the
 // caller's stream, allocates nothing and returns the cudaError_t of its launch
@@ -143,11 +143,14 @@ __device__ __forceinline__ void warp_sort256(uint64_t (&v)[8]) {
 }
 
 // The span threshold select shared by K2's fused first pass
-// (bf16_centered_topc.cu) and K5 (topk_select.cu): the running exact top k
-// of the entries one warp offers, for one list (a query's, or a span of a
-// key row's). The list's memory, shared or device, holds kp packed entries
-// kept (kp = k rounded up to a power of two, at least 8), largest first,
-// padded with kPadEntry past `kept`, then kPend pending entries.
+// (bf16_centered_topc.cu), K5 (topk_select.cu) and K19 (topl_scan.cu): the
+// running exact top k of the entries one warp offers, for one list (a
+// query's, or a span of a key row's). The list's memory, shared or device,
+// holds kp packed entries kept (kp = k rounded up to a power of two, at
+// least 8), largest first, padded with kPadEntry past `kept`, then kPend
+// pending entries (at most 256: 256 for K2 and K5, whose rounds offer 128
+// keys; 192 for K19, whose threads append a tile's 128 keys through a shared
+// counter rather than offer()).
 //
 // An entry joins the pending ones only if it is larger than the k-th kept
 // so far (or than the caller's start value while fewer than k are kept), so
@@ -165,8 +168,10 @@ __device__ __forceinline__ void warp_sort256(uint64_t (&v)[8]) {
 // the test is a strict `key > threshold`, since a later equal key loses the
 // tie to the kept one. Every lane holds the same counts and threshold; no
 // block barrier is used.
-struct WarpTopk {
-  static constexpr int kPend = 256;
+template <int kPend_>
+struct WarpTopkT {
+  static constexpr int kPend = kPend_;
+  static_assert(kPend >= 32 && kPend <= 256 && kPend % 32 == 0, "a flush sorts 256 at most");
 
   uint64_t* list;
   int kept, pend;
@@ -277,7 +282,8 @@ struct WarpTopk {
     } else {
       __syncwarp();
 #pragma unroll
-      for (int e = 0; e < 8; ++e) pending[lane * 8 + e] = v[e];
+      for (int e = 0; e < 8; ++e)
+        if (lane * 8 + e < kPend) pending[lane * 8 + e] = v[e];  // the rest are pads
       __syncwarp();
       merge_path(kp);
     }
@@ -286,6 +292,8 @@ struct WarpTopk {
     if (kept == k) thr = list[k - 1];
   }
 };
+
+using WarpTopk = WarpTopkT<256>;
 
 // kp of a list of k: k rounded up to a power of two, at least 8.
 __host__ __device__ inline int list_kp(int k) {
@@ -379,51 +387,9 @@ __device__ __forceinline__ float to_key(float score, bool ascending, bool valid)
   return (valid && !isnan(key)) ? key : -INFINITY;
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
+// K6c's tile (metrics.cuh elem_tile_accumulate, elementwise_scores.cu)
 constexpr int kTile = 64;          // corpus rows per block (and queries, for B > 16)
 constexpr int kTileK = 16;         // depth of one shared-memory stage
 constexpr int kTileThreads = 256;  // 16 x 16 threads, (TQ / 16) x 4 outputs each
-
-// acc[i][j] += q[q0 + ty * RQ + i] . x[n0 + tx * 4 + j] over all D dimensions
-// (tx = thread % 16, ty = thread / 16, RQ = TQ / 16), staged kTileK dimensions
-// at a time through qs and xs; queries >= B and rows >= n_end read as 0. The
-// products and sums are f32 FMA in dimension order. All kTileThreads threads
-// of the block call it.
-template <int TQ, typename T>
-__device__ __forceinline__ void tile_accumulate(const T* __restrict__ q, const T* __restrict__ x,
-                                                int B, int64_t n_end, int D, int q0, int64_t n0,
-                                                float (&qs)[kTileK][TQ + 4],
-                                                float (&xs)[kTileK][kTile + 4],
-                                                float (&acc)[TQ / 16][4]) {
-  constexpr int RQ = TQ / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int k0 = 0; k0 < D; k0 += kTileK) {
-    for (int e = threadIdx.x; e < kTile * kTileK; e += kTileThreads) {
-      const int r = e / kTileK, c = e % kTileK, d = k0 + c;
-      if (r < TQ) {
-        const int qi = q0 + r;
-        qs[c][r] = (qi < B && d < D) ? load_f32(q + (int64_t)qi * D + d) : 0.f;
-      }
-      const int64_t ni = n0 + r;
-      xs[c][r] = (ni < n_end && d < D) ? load_f32(x + ni * D + d) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[RQ], b[4];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = qs[kk][ty * RQ + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = xs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
 
 }  // namespace lt

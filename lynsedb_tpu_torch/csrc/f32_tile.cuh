@@ -1,6 +1,9 @@
-// The exact f32 score tile of K1 and K6a (flat_scores_f32.cu): each query's
-// dot product with each corpus row as one f32 FMA chain over the dimensions
-// in order (no TF32, no tensor cores).
+// The exact f32 score tile of K1 and K6a (flat_scores_f32.cu) and K19
+// (topl_scan.cu): each query's dot product with each corpus row as one f32
+// FMA chain over the dimensions in order (no TF32, no tensor cores); on the
+// FMA route the inner step may instead be an elementwise metric's
+// accumulate<M> (metrics.cuh), one rounded operation at a time in the same
+// order (K19's metric mode).
 //
 // A block takes a span of corpus rows for a group of queries and walks it in
 // tiles of rows, a stage of dimensions at a time; the stages run on across
@@ -25,7 +28,7 @@
 // loads on the same route (a route by shape).
 #pragma once
 
-#include "common.cuh"
+#include "metrics.cuh"
 
 namespace lt {
 
@@ -229,41 +232,85 @@ __device__ __forceinline__ void fma_store(float* st, const float4 (&pf)[Tile::kL
   }
 }
 
-template <class Tile>
-__device__ __forceinline__ void fma_stage(const float* st, float (&acc)[Tile::RM][Tile::RN]) {
+// The FMA route's inner step, acc op= (row value x, query value q) for one
+// dimension: FmaStep the dot product's FMA (K1, K6a, K19's product modes);
+// ElemStep<M> an elementwise metric's term, whose accumulator is one float
+// (L1, Chebyshev, Wasserstein, Jensen-Shannon: no Bray-Curtis denominator);
+// NoStep nothing (K19's Haversine keys come from the rows in its epilogue).
+// Dimensions past D are zeros on both sides, which leave each accumulator's
+// bits as they are (an accumulator that starts at +0 is never -0). kRolled:
+// the stage's dimensions in a loop rather than unrolled (Jensen-Shannon's
+// logarithm makes an unrolled stage too long for the instruction cache).
+struct FmaStep {
+  static constexpr bool kRolled = false;
+  __device__ __forceinline__ void operator()(float& acc, float x, float q) const {
+    acc = fmaf(x, q, acc);
+  }
+};
+
+template <int M>
+struct ElemStep {
+  static_assert(M == kL1 || M == kChebyshev || M == kWasserstein || M == kJensenShannon,
+                "a metric with one running value");
+  static constexpr bool kRolled = M == kJensenShannon;
+  __device__ __forceinline__ void operator()(float& acc, float x, float q) const {
+    Acc a{acc, 0.f};
+    accumulate<M>(a, q, x);
+    acc = a.a;
+  }
+};
+
+struct NoStep {
+  static constexpr bool kRolled = false;
+  __device__ __forceinline__ void operator()(float&, float, float) const {}
+};
+
+// One dimension k of a stage: the thread's 8 rows and RN queries, 8 RN steps.
+template <class Tile, class Step>
+__device__ __forceinline__ void fma_dim(const float* xs, const float* qs, int k,
+                                        float (&acc)[Tile::RM][Tile::RN], const Step& step) {
+  float xv[Tile::RM], qv[Tile::RN];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const float4 v = *reinterpret_cast<const float4*>(xs + k * Tile::kXStride + 64 * g);
+    xv[4 * g] = v.x;
+    xv[4 * g + 1] = v.y;
+    xv[4 * g + 2] = v.z;
+    xv[4 * g + 3] = v.w;
+  }
+#pragma unroll
+  for (int g = 0; g < Tile::QG; ++g) {
+    const float* src = qs + k * Tile::kQStride + g * (Tile::TN / Tile::QG);
+    if constexpr (Tile::QV == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src);
+      qv[4 * g] = v.x;
+      qv[4 * g + 1] = v.y;
+      qv[4 * g + 2] = v.z;
+      qv[4 * g + 3] = v.w;
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(src);
+      qv[2 * g] = v.x;
+      qv[2 * g + 1] = v.y;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Tile::RM; ++i)
+#pragma unroll
+    for (int j = 0; j < Tile::RN; ++j) step(acc[i][j], xv[i], qv[j]);
+}
+
+template <class Tile, class Step>
+__device__ __forceinline__ void fma_stage(const float* st, float (&acc)[Tile::RM][Tile::RN],
+                                          const Step& step) {
   const int tr = Tile::tr(), tq = Tile::tq();
   const float* xs = st + 4 * tr;
   const float* qs = st + Tile::KC * Tile::kXStride + Tile::QV * tq;
+  if constexpr (Step::kRolled) {
+#pragma unroll 1
+    for (int k = 0; k < Tile::KC; ++k) fma_dim<Tile>(xs, qs, k, acc, step);
+  } else {
 #pragma unroll
-  for (int k = 0; k < Tile::KC; ++k) {
-    float xv[Tile::RM], qv[Tile::RN];
-#pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      const float4 v = *reinterpret_cast<const float4*>(xs + k * Tile::kXStride + 64 * g);
-      xv[4 * g] = v.x;
-      xv[4 * g + 1] = v.y;
-      xv[4 * g + 2] = v.z;
-      xv[4 * g + 3] = v.w;
-    }
-#pragma unroll
-    for (int g = 0; g < Tile::QG; ++g) {
-      const float* src = qs + k * Tile::kQStride + g * (Tile::TN / Tile::QG);
-      if constexpr (Tile::QV == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(src);
-        qv[4 * g] = v.x;
-        qv[4 * g + 1] = v.y;
-        qv[4 * g + 2] = v.z;
-        qv[4 * g + 3] = v.w;
-      } else {
-        const float2 v = *reinterpret_cast<const float2*>(src);
-        qv[2 * g] = v.x;
-        qv[2 * g + 1] = v.y;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < Tile::RM; ++i)
-#pragma unroll
-      for (int j = 0; j < Tile::RN; ++j) acc[i][j] = fmaf(xv[i], qv[j], acc[i][j]);
+    for (int k = 0; k < Tile::KC; ++k) fma_dim<Tile>(xs, qs, k, acc, step);
   }
 }
 
@@ -284,18 +331,19 @@ __device__ __forceinline__ void fma_scores_to_smem(float* sc, float (&acc)[Tile:
     }
 }
 
-// The FMA route over the block's span: after each tile's last stage the
-// dot products go to a shared score tile sc[query][row] (sc[j * (TM + 4) +
-// r]: row tile_row + r, query q0 + j) and epi(tile_row, sc) runs, every
-// thread of the block, after the stage's barrier, so an epilogue of any
-// cost holds no accumulator registers and its stores can coalesce. `smem`
-// is Tile::kSmem bytes: two stages, one computed while the next is stored
-// from registers, then the score tile; one barrier a stage. The score tile
-// is rewritten at the next tile's last stage: when a tile has two stages or
-// more, that step's barrier lies between; when it has one (D <= KC), every
-// step is a last one, and a barrier after the epilogue keeps a fast warp
-// from overwriting scores that others still read.
-template <class Tile, class Epi>
+// The FMA route over the block's span (Step: the inner step, FmaStep's dot
+// product unless given): after each tile's last stage the accumulated values
+// go to a shared score tile sc[query][row] (sc[j * (TM + 4) + r]: row
+// tile_row + r, query q0 + j) and epi(tile_row, sc) runs, every thread of the
+// block, after the stage's barrier, so an epilogue of any cost holds no
+// accumulator registers and its stores can coalesce. `smem` is Tile::kSmem
+// bytes: two stages, one computed while the next is stored from registers,
+// then the score tile; one barrier a stage. The score tile is rewritten at
+// the next tile's last stage: when a tile has two stages or more, that step's
+// barrier lies between; when it has one (D <= KC), every step is a last one,
+// and a barrier after the epilogue keeps a fast warp from overwriting scores
+// that others still read.
+template <class Tile, class Step = FmaStep, class Epi>
 __device__ __forceinline__ void fma_span_scores(const F32Span& sp, float* smem, const Epi& epi) {
   const int kchunks = (sp.D + Tile::KC - 1) / Tile::KC;
   const int tiles = (int)((sp.row_end - sp.row0 + Tile::TM - 1) / Tile::TM);
@@ -308,7 +356,7 @@ __device__ __forceinline__ void fma_span_scores(const F32Span& sp, float* smem, 
   float acc[Tile::RM][Tile::RN] = {};
   for (int s = 0; s < steps; ++s) {
     if (s + 1 < steps) fma_load<Tile>(sp, s + 1, kchunks, pf);
-    fma_stage<Tile>(smem + (s & 1) * Tile::kStageFloats, acc);
+    fma_stage<Tile>(smem + (s & 1) * Tile::kStageFloats, acc, Step{});
     const bool last = s % kchunks == kchunks - 1;
     if (last) fma_scores_to_smem<Tile>(sc, acc);
     if (s + 1 < steps) fma_store<Tile>(smem + ((s + 1) & 1) * Tile::kStageFloats, pf);

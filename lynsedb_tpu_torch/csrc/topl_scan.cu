@@ -10,215 +10,384 @@
 // _knn_block under HNSW-L1, -CHEBYSHEV, -CORRELATION, -HELLINGER,
 // -WASSERSTEIN, -JENSEN-SHANNON and -HAVERSINE: the same scan over the
 // metric's transform (ops/distance.py), keys -distance with metrics.cuh's
-// formulas. Correlation and Hellinger take the FMA tile below over the
-// centred or square-rooted rows; the elementwise metrics take K6c's
-// accumulation tile (lt::elem_tile_accumulate); Haversine (D = 2) computes each
-// pair from the rows.
+// formulas.
 //
-// Bound: the f32 product, 2 * B * N * D flops (true f32 FMA outside the tensor
-// cores, as Precision.HIGHEST asks): about 2.6e14 flops for every row of a
-// 1M x 128 corpus, some 4 s at 67 TFLOP/s. Under L1 the same pairs cost two
-// f32 instructions an element (a subtraction, an add of its absolute value):
-// 2.6e14 instructions, some 8 s at 33.5e12 a second; Jensen-Shannon adds a
-// logarithm an element (the special-function units); Haversine two sines, two
-// cosines, an arcsine and a square root a pair.
+// Bound (tools/roofline.py topl_bound): the f32 product, 2 * B * N * D flops
+// (true f32 FMA outside the tensor cores, as Precision.HIGHEST asks): about
+// 1.07e15 flops for 4,096 queries over a 1M x 128 corpus, some 16 ms at 67
+// TFLOP/s. Under L1 the same pairs cost two f32 instructions an element (a
+// subtraction, an add of its absolute value); Jensen-Shannon adds a logarithm
+// an element (the special-function units); Haversine two sines, two cosines,
+// an arcsine and a square root a pair.
 //
-// Design: a block owns 64 queries and one stripe of corpus rows. It computes
-// 64 x 64 key tiles with the tiled FMA of common.cuh and keeps each query's
-// running top L (key desc, row id asc) in shared memory: after a tile, one
-// warp a query admits only keys above its current L-th best, inserting them in
-// row order, so the (chunk, N) key matrix never reaches device memory. Each
-// block writes its L best per query; K5 then merges the stripes' lists with
-// the row id as the tie-break.
-#include "metrics.cuh"
+// Design: a block owns 64 queries and one span of rows (the query group the
+// fastest grid index, so the groups of a span read it from L2 together;
+// spans are sized so the grid is one wave of the blocks the card holds). It
+// walks the span with the FMA route of f32_tile.cuh (128-row tiles,
+// register-staged k-major stages of 16 dimensions, an 8 x 4 register tile a
+// thread, the values leaving through a shared score tile): the inner step is
+// the FMA in dimension order (modes 0-3; mode 4 under correlation and
+// Hellinger over the centred or square-rooted rows), metrics.cuh's
+// accumulate<M> under L1, Chebyshev, Wasserstein and Jensen-Shannon, and
+// nothing under Haversine (D = 2), whose keys come from the rows. After each
+// tile every thread forms the keys of its own 8 rows x 4 queries and tests
+// each against its query's threshold, the L-th best (key, id) kept so far
+// (from a start of (-inf, INT_MAX), so -inf entries are kept in id order);
+// the few that beat it join the query's pending entries (a shared counter
+// gives the slot). After a barrier, the warp that owns a query merges its
+// pending entries into the kept ones (common.cuh WarpTopk: a register sort
+// and a bitonic merge) when another tile could overflow them, and raises the
+// threshold. The lists live in a device buffer (L2), so shared memory holds
+// only the tile, and L does not limit the query group. Each block writes its
+// span's L best a query, (-inf, INT_MAX) where the span has fewer rows; K5
+// then merges the spans' lists with the row id as the tie-break. The keys
+// are the parent design's to the bit: the same operations in the same order,
+// only tiled differently; packed (key, id) entries compare exactly, so the
+// order in which a tile's entries join does not change the result.
+// (Measured on an H100 against the shapes tried: a warp a query offering the
+// score tile's keys 32 at a time, lists in shared memory, 32- or 128-query
+// tiles, 8-dimension stages and keys formed in the loop's registers were
+// each 4-87% slower at 4,096 queries x 1M rows.)
+#include <algorithm>
+#include <type_traits>
+
+#include "f32_tile.cuh"
 
 namespace {
 
-constexpr int kTQ = lt::kTile;  // queries a block
-constexpr int kTN = lt::kTile;  // rows a tile
-constexpr int kThreads = lt::kTileThreads;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPend = 192;  // pending entries a list: a tile's 128 keys on top of 64 held
+using List = lt::WarpTopkT<kPend>;
+constexpr int kMetricMode = 4;  // -(the distance of `metric`), metrics.cuh
+using Tile = lt::FmaTile<64, 4, 16>;  // 64 queries x 128 rows a tile, 8 x 4 a thread
 
 // modes: 0 -(|q|^2 + |x|^2 - 2 q.x); 1 q.x; 2 -max(|q|^2 + |x|^2 - 2 q.x, 0);
 // 3 -(cosine distance)
-__device__ __forceinline__ float topl_key(float ip, const float* qsq, const float* xsq, int b,
-                                          int64_t n, int mode) {
+__device__ __forceinline__ float topl_key(float ip, float qs, float xs, int mode) {
   if (mode == 1) return ip;
-  if (mode == 3) return -lt::cosine_distance(ip, sqrtf(qsq[b] * xsq[n]));
-  const float d = (qsq[b] + xsq[n]) - 2.f * ip;
+  if (mode == 3) return -lt::cosine_distance(ip, sqrtf(qs * xs));
+  const float d = (qs + xs) - 2.f * ip;
   return mode == 0 ? -d : -lt::clamp_nonneg(d);
 }
 
-constexpr int kMetricMode = 4;  // -(the distance of `metric`), metrics.cuh
+struct Args {
+  const float* q;      // (B, D)
+  const int* q_ids;    // (B,) each query's own row
+  const float* x;      // (N, D)
+  const float* qsq;    // (B,) modes 0, 2, 3
+  const float* xsq;    // (N,)
+  const float* qterms;  // (3, B) mode 4: [a; b; inv], null for L1, Chebyshev, Haversine
+  const float* xterms;  // (3, N)
+  int B, N, D, n_real, L, kp, mode, metric;
+  bool vec;  // 16-byte loads of q and x
+  int groups;
+  int64_t span_rows;
+  uint64_t* lists;  // (blocks, TN, kp + kPend) the lists' entries
+  float* out_keys;  // (B, spans * L)
+  int* out_ids;
+};
 
-// MET is how a tile's keys are formed: lt::kIP the FMA tile (modes 0-3, and
-// mode 4 under correlation and Hellinger), an elementwise metric K6c's
-// accumulation tile, lt::kHaversine each pair from its two (lon, lat) rows.
+// MET is how a pair's key is formed: lt::kIP from the dot product (modes 0-3,
+// and mode 4 under correlation and Hellinger), an elementwise metric from
+// its accumulated value, lt::kHaversine from the two (lon, lat) rows.
 template <int MET>
-__global__ void __launch_bounds__(kThreads)
-    topl_kernel(const float* __restrict__ q, const int* __restrict__ q_ids,
-                const float* __restrict__ x, const float* __restrict__ qsq,
-                const float* __restrict__ xsq, const float* __restrict__ qterms,
-                const float* __restrict__ xterms, int B, int N, int D, int n_real, int L,
-                int stripe, int mode, int metric, float* __restrict__ out_keys,
-                int* __restrict__ out_ids) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* lk = reinterpret_cast<float*>(smem);   // [kTQ][L] running best keys
-  int* li = reinterpret_cast<int*>(lk + kTQ * L);  // [kTQ][L] their row ids
-  float* kt = reinterpret_cast<float*>(li + kTQ * L);  // [kTQ][kTN + 1] the key tile
-  __shared__ float qs[lt::kTileK][kTQ + 4];
-  __shared__ float xs[lt::kTileK][kTN + 4];
-  __shared__ int lcnt[kTQ];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.y * kTQ;
-  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * stripe;
-  const int64_t s1 = min(static_cast<int64_t>(N), s0 + stripe);
-  if (tid < kTQ) lcnt[tid] = 0;
+using StepOf = std::conditional_t<MET == lt::kIP, lt::FmaStep,
+                                  std::conditional_t<MET == lt::kHaversine, lt::NoStep,
+                                                     lt::ElemStep<MET>>>;
 
-  for (int64_t n0 = s0; n0 < s1; n0 += kTN) {
-    float acc[4][4] = {};
-    lt::Acc eacc[4][4];
-    if constexpr (MET == lt::kIP) {
-      lt::tile_accumulate<kTQ>(q, x, B, s1, D, q0, n0, qs, xs, acc);
-    } else if constexpr (MET != lt::kHaversine) {
-      lt::elem_tile_accumulate<MET, kTQ>(q, x, static_cast<const float*>(nullptr), B, s1, D, q0,
-                                         n0, qs, xs, eacc);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = ty * 4 + i, b = q0 + qi;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nj = tx * 4 + j;
-        const int64_t n = n0 + nj;
-        float key = -INFINITY;
-        if (b < B && n < s1) {
-          if constexpr (MET == lt::kHaversine) {
-            key = -lt::haversine(__ldg(q + 2 * b), __ldg(q + 2 * b + 1), __ldg(x + 2 * n),
-                                 __ldg(x + 2 * n + 1));
-          } else if constexpr (MET == lt::kIP) {
-            key = mode < kMetricMode
-                      ? topl_key(acc[i][j], qsq, xsq, b, n, mode)
-                      : -lt::gemm_distance(metric, acc[i][j], lt::row_term(qterms, B, b),
-                                           lt::row_term(xterms, N, n));
-          } else {
-            key = -lt::elem_distance<MET>(eacc[i][j], lt::row_term(qterms, B, b),
-                                          lt::row_term(xterms, N, n));
-          }
-          if (isnan(key) || n == q_ids[b] || n >= n_real) key = -INFINITY;
-        }
-        kt[qi * (kTN + 1) + nj] = key;
-      }
-    }
-    __syncthreads();
+// What the epilogue reads and keeps of each query of the group, in shared
+// memory: its own row, its squared norm (modes 0, 2, 3), its terms (mode 4;
+// Haversine: lon, lat), and its list's state: the threshold (an entry joins
+// only if it is larger), the kept and the pending counts.
+struct Queries {
+  uint64_t thr[Tile::TN];
+  int pend[Tile::TN], kept[Tile::TN], self[Tile::TN];
+  float sq[Tile::TN];
+  lt::RowTerm term[Tile::TN];
+};
 
-    // one warp a query: admit the tile's keys above the L-th best, in row order
-    for (int qi = warp; qi < kTQ; qi += kThreads / 32) {
-      if (q0 + qi >= B) continue;
-      float* K = lk + qi * L;
-      int* I = li + qi * L;
-      int cnt = lcnt[qi];
-      for (int half = 0; half < kTN / 32; ++half) {
-        const int nj = half * 32 + lane;
-        const float key = kt[qi * (kTN + 1) + nj];
-        unsigned m = __ballot_sync(kFull, n0 + nj < s1 && (cnt < L || key > K[L - 1]));
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const float v = __shfl_sync(kFull, key, src);
-          if (cnt == L && !(v > K[L - 1])) continue;
-          int pos = 0;  // entries with a key >= v stay ahead (they have lower ids)
-          for (int p0 = 0; p0 < cnt; p0 += 32) {
-            const int p = p0 + lane;
-            pos += __popc(__ballot_sync(kFull, p < cnt && K[p] >= v));
-          }
-          const int end = min(cnt, L - 1);  // [pos, end) moves one down
-          for (int top = end; top > pos; top -= 32) {
-            const int p = top - 1 - lane;
-            const bool mv = p >= pos;
-            float kv = 0.f;
-            int iv = 0;
-            if (mv) {
-              kv = K[p];
-              iv = I[p];
-            }
-            __syncwarp();
-            if (mv) {
-              K[p + 1] = kv;
-              I[p + 1] = iv;
-            }
-            __syncwarp();
-          }
-          if (lane == 0) {
-            K[pos] = v;
-            I[pos] = static_cast<int>(n0 + half * 32 + src);
-          }
-          __syncwarp();
-          cnt = min(cnt + 1, L);
-        }
-      }
-      if (lane == 0) lcnt[qi] = cnt;
-    }
-    __syncthreads();
+// The epilogue of a tile. Each thread reads back the values it stored to the
+// score tile (its 8 rows x 4 queries of the FMA route: the accumulators are
+// cleared by then, so the keys' registers do not add to the loop's), forms
+// their keys and appends any that beats its query's threshold to the
+// query's pending entries (a shared counter gives the slot). After a
+// barrier, each warp merges the pending entries of its queries (j = warp + 8
+// m) that could not take another tile.
+template <int MET>
+struct TopLKeys {
+  Args a;
+  Queries* qs;
+  uint64_t* lists;  // the block's lists, kp + kPend entries a query
+  int nq;
+  int64_t row_end;
+
+  __device__ __forceinline__ uint64_t* list(int j) const {
+    return lists + (int64_t)j * (a.kp + kPend);
   }
 
-  const int64_t width = static_cast<int64_t>(gridDim.x) * L;
-  for (int e = tid; e < kTQ * L; e += kThreads) {
-    const int qi = e / L, p = e % L, b = q0 + qi;
-    if (b >= B) continue;
-    const bool has = p < lcnt[qi];
-    const int64_t at = b * width + static_cast<int64_t>(blockIdx.x) * L + p;
-    out_keys[at] = has ? lk[e] : -INFINITY;
-    out_ids[at] = has ? li[e] : -1;
+  // The key of row n for query qj, masked, then the threshold test (tk, ti:
+  // the query's threshold): an entry that beats it joins the pending ones.
+  __device__ __forceinline__ void append(int qj, int64_t n, float key, float tk, int ti) const {
+    if (isnan(key) || n == qs->self[qj] || n >= a.n_real) key = -INFINITY;
+    if (key > tk || (key == tk && (int)n < ti)) {
+      const int slot = atomicAdd(&qs->pend[qj], 1);
+      list(qj)[a.kp + slot] = lt::pack_entry(key, (int)n);
+    }
+  }
+
+  // Query qj's threshold: (key, id) beats it iff key > tk, or key == tk and
+  // id < ti; nothing beats a query past the group's.
+  __device__ __forceinline__ void threshold(int qj, float& tk, int& ti) const {
+    tk = qj < nq ? lt::entry_key(qs->thr[qj]) : INFINITY;
+    ti = qj < nq ? lt::entry_id(qs->thr[qj]) : INT_MIN;
+  }
+
+  __device__ __forceinline__ void operator()(int64_t tile_row, const float* sc) const {
+    const int tr = Tile::tr(), tq = Tile::tq();
+    if constexpr (MET == lt::kHaversine) {
+      // the keys from the (lon, lat) rows alone; rolled loops keep the sines,
+      // cosines and arcsine to one copy, within the instruction cache
+#pragma unroll 1
+      for (int i = 0; i < Tile::RM; ++i) {
+        const int64_t n = tile_row + Tile::row(tr, i);
+        if (n >= row_end) continue;
+        const float lon = __ldg(a.x + 2 * n), lat = __ldg(a.x + 2 * n + 1);
+#pragma unroll 1
+        for (int j = 0; j < Tile::RN; ++j) {
+          const int qj = Tile::query(tq, j);
+          float tk;
+          int ti;
+          threshold(qj, tk, ti);
+          append(qj, n, -lt::haversine(qs->term[qj].a, qs->term[qj].b, lon, lat), tk, ti);
+        }
+      }
+    } else {
+      float tk[Tile::RN];
+      int ti[Tile::RN];
+#pragma unroll
+      for (int j = 0; j < Tile::RN; ++j) threshold(Tile::query(tq, j), tk[j], ti[j]);
+#pragma unroll
+      for (int g = 0; g < Tile::RM / 4; ++g) {
+        float v[Tile::RN][4];
+#pragma unroll
+        for (int j = 0; j < Tile::RN; ++j) {
+          const float4 f = *reinterpret_cast<const float4*>(
+              sc + Tile::query(tq, j) * Tile::kScoreStride + Tile::row(tr, 4 * g));
+          v[j][0] = f.x;
+          v[j][1] = f.y;
+          v[j][2] = f.z;
+          v[j][3] = f.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int64_t n = tile_row + Tile::row(tr, 4 * g + e);
+          if (n >= row_end) continue;
+          float xs = 0.f;
+          lt::RowTerm xt{};
+          if constexpr (MET == lt::kIP) {
+            if (a.mode < kMetricMode && a.xsq != nullptr) xs = __ldg(a.xsq + n);
+            if (a.mode == kMetricMode) xt = lt::row_term(a.xterms, a.N, n);
+          } else {
+            xt = lt::row_term(a.xterms, a.N, n);
+          }
+#pragma unroll
+          for (int j = 0; j < Tile::RN; ++j) {
+            const int qj = Tile::query(tq, j);
+            float key;
+            if constexpr (MET == lt::kIP) {
+              key = a.mode < kMetricMode
+                        ? topl_key(v[j][e], qs->sq[qj], xs, a.mode)
+                        : -lt::gemm_distance(a.metric, v[j][e], qs->term[qj], xt);
+            } else {
+              key = -lt::elem_distance<MET>(lt::Acc{v[j][e], 0.f}, qs->term[qj], xt);
+            }
+            append(qj, n, key, tk[j], ti[j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every entry appended
+    for (int j = threadIdx.x >> 5; j < nq; j += Tile::kThreads / 32)
+      if (qs->pend[j] > kPend - Tile::TM) merge(j);
+  }
+
+  // One warp: query j's pending entries merged into its kept ones.
+  __device__ __forceinline__ void merge(int j) const {
+    List t;
+    t.list = list(j);
+    t.kept = qs->kept[j];
+    t.pend = qs->pend[j];
+    t.thr = qs->thr[j];
+    t.flush(a.kp, a.L);
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      qs->kept[j] = t.kept;
+      qs->pend[j] = 0;
+      qs->thr[j] = t.thr;
+    }
+    __syncwarp();
+  }
+};
+
+// A block: query group blockIdx.x % groups over row span blockIdx.x / groups.
+template <int MET>
+__global__ void __launch_bounds__(Tile::kThreads, 2) topl_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];  // the tile's two stages and score tile
+  __shared__ Queries qs;
+  const int group = blockIdx.x % a.groups, span = blockIdx.x / a.groups;
+  const int q0 = group * Tile::TN, nq = min(Tile::TN, a.B - q0);
+  const int64_t row0 = (int64_t)span * a.span_rows;
+  const int64_t row_end = min((int64_t)a.N, row0 + a.span_rows);
+  uint64_t* lists = a.lists + (int64_t)blockIdx.x * Tile::TN * (a.kp + kPend);
+  for (int j = threadIdx.x; j < nq; j += Tile::kThreads) {
+    const int b = q0 + j;
+    qs.thr[j] = lt::kPadEntry;  // (-inf, INT_MAX): -inf entries join, in id order
+    qs.pend[j] = qs.kept[j] = 0;
+    qs.self[j] = a.q_ids[b];
+    qs.sq[j] = a.qsq != nullptr ? a.qsq[b] : 0.f;
+    if constexpr (MET == lt::kHaversine) {
+      qs.term[j] = lt::RowTerm{a.q[2 * b], a.q[2 * b + 1], false};
+    } else {
+      qs.term[j] = lt::row_term(a.qterms, a.B, b);
+    }
+  }
+  for (int e = threadIdx.x; e < nq * a.kp; e += Tile::kThreads)
+    lists[(int64_t)(e / a.kp) * (a.kp + kPend) + e % a.kp] = lt::kPadEntry;
+  // the loop's first barrier orders these stores before the first tile
+  const lt::F32Span sp{a.q, a.x, a.D, a.vec, q0, nq, row0, row_end};
+  const TopLKeys<MET> epi{a, &qs, lists, nq, row_end};
+  lt::fma_span_scores<Tile, StepOf<MET>>(sp, smem, epi);
+  // the last pending entries, then the span's best L a query
+  const int64_t ld = (int64_t)(gridDim.x / a.groups) * a.L;
+  for (int j = threadIdx.x >> 5; j < nq; j += Tile::kThreads / 32) {
+    epi.merge(j);
+    const uint64_t* l = epi.list(j);
+    const int64_t o = (int64_t)(q0 + j) * ld + (int64_t)span * a.L;
+    for (int p = threadIdx.x & 31; p < a.L; p += 32) {
+      a.out_keys[o + p] = lt::entry_key(l[p]);
+      a.out_ids[o + p] = lt::entry_id(l[p]);
+    }
   }
 }
 
+struct Plan {
+  int groups, spans;
+  int64_t span_rows;
+  long long scratch;  // list entries (uint64) in device memory
+};
+
+// The grid: one wave of the blocks the card holds at once (a partial second
+// wave would cost a whole one, and longer spans restart fewer lists), spans
+// a whole number of tiles; every list in device memory, so the shared
+// memory holds only the tile's stages and score tile, and L does not limit
+// the query group.
 template <int MET>
-int launch(const float* q, const int* q_ids, const float* x, const float* qsq, const float* xsq,
-           const float* qterms, const float* xterms, int B, int N, int D, int n_real, int L,
-           int stripe, int mode, int metric, float* out_keys, int* out_ids,
-           cudaStream_t stream) {
-  const unsigned stripes = (unsigned)((N + (int64_t)stripe - 1) / stripe);
-  const unsigned qblocks = (unsigned)((B + kTQ - 1) / kTQ);
-  if (qblocks > 65535) return (int)cudaErrorInvalidValue;
-  const int smem = kTQ * L * 8 + kTQ * (kTN + 1) * 4;
-  cudaError_t err =
-      cudaFuncSetAttribute(topl_kernel<MET>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int plan_for(const Args& a, Plan& p) {
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        topl_kernel<MET>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    raised = true;
+  }
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, topl_kernel<MET>, Tile::kThreads, Tile::kSmem);
   if (err != cudaSuccess) return (int)err;
-  topl_kernel<MET><<<dim3(stripes, qblocks), kThreads, smem, stream>>>(
-      q, q_ids, x, qsq, xsq, qterms, xterms, B, N, D, n_real, L, stripe, mode, metric, out_keys,
-      out_ids);
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  p.groups = (a.B + Tile::TN - 1) / Tile::TN;
+  const int64_t tiles = ((int64_t)a.N + Tile::TM - 1) / Tile::TM;
+  const int64_t spans =
+      std::max<int64_t>(1, std::min<int64_t>(tiles, (int64_t)per_sm * lt::sm_count() / p.groups));
+  p.span_rows = (tiles + spans - 1) / spans * Tile::TM;
+  p.spans = (int)((a.N + p.span_rows - 1) / p.span_rows);
+  if ((int64_t)p.groups * p.spans > INT_MAX) return (int)cudaErrorInvalidValue;
+  p.scratch = (long long)p.groups * p.spans * Tile::TN * (a.kp + kPend);
+  return 0;
+}
+
+// Plans (plan set: writes the plan and launches nothing) or launches.
+template <int MET>
+int run(Args a, int spans, Plan* plan, cudaStream_t stream) {
+  Plan p{};
+  const int err = plan_for<MET>(a, p);
+  if (err != 0) return err;
+  if (plan != nullptr) {
+    *plan = p;
+    return 0;
+  }
+  if (spans != p.spans || a.lists == nullptr) return (int)cudaErrorInvalidValue;
+  a.groups = p.groups;
+  a.span_rows = p.span_rows;
+  topl_kernel<MET><<<(unsigned)(p.groups * p.spans), Tile::kThreads, Tile::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+int dispatch(const Args& a, int spans, Plan* plan, cudaStream_t stream) {
+  if (a.B < 1 || a.N < 1 || a.D < 1 || a.L < 1 || a.L > 256 || a.L > a.N || a.mode < 0 ||
+      a.mode > kMetricMode)
+    return (int)cudaErrorInvalidValue;
+  if (a.mode < kMetricMode) return run<lt::kIP>(a, spans, plan, stream);
+  switch (a.metric) {
+    case lt::kCorrelation:
+    case lt::kHellinger: return run<lt::kIP>(a, spans, plan, stream);
+    case lt::kL1: return run<lt::kL1>(a, spans, plan, stream);
+    case lt::kChebyshev: return run<lt::kChebyshev>(a, spans, plan, stream);
+    case lt::kWasserstein: return run<lt::kWasserstein>(a, spans, plan, stream);
+    case lt::kJensenShannon: return run<lt::kJensenShannon>(a, spans, plan, stream);
+    case lt::kHaversine:
+      return a.D == 2 ? run<lt::kHaversine>(a, spans, plan, stream) : (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+Args make_args(const float* q, const int* q_ids, const float* x, const float* qsq,
+               const float* xsq, const float* qterms, const float* xterms, int B, int N, int D,
+               int n_real, int L, int mode, int metric, uint64_t* lists, float* out_keys,
+               int* out_ids) {
+  const bool vec = D % 4 == 0 && lt::aligned16(q) && lt::aligned16(x);
+  return Args{q, q_ids, x, qsq, xsq, qterms, xterms, B, N, D, n_real, L, lt::list_kp(L), mode,
+              metric, vec, 0, 0, lists, out_keys, out_ids};
+}
+
+long long plan_of(int B, int N, int D, int L, int mode, int metric, bool scratch) {
+  Plan p{};
+  const Args a = make_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B, N,
+                           D, 0, L, mode, metric, nullptr, nullptr, nullptr);
+  if (dispatch(a, 0, &p, nullptr) != 0) return -1;
+  return scratch ? p.scratch : p.spans;
+}
+
 }  // namespace
+
+extern "C" {
+
+// The span count of lt_topl_scan's output for these shapes (-1: refused).
+// The plan reads only the shapes, L and the kernel's occupancy.
+long long lt_topl_spans(int B, int N, int D, int L, int mode, int metric) {
+  return plan_of(B, N, D, L, mode, metric, false);
+}
+
+// The uint64 entries of the device list buffer lt_topl_scan needs (-1:
+// refused).
+long long lt_topl_scratch(int B, int N, int D, int L, int mode, int metric) {
+  return plan_of(B, N, D, L, mode, metric, true);
+}
 
 // q (B, D) and x (N, D) f32 rows (mode 4: the lead rows of the metric's
 // transform), q_ids (B,) each query's own row, rows >= n_real masked. Modes
 // 0-3 read qsq (B,) and xsq (N,) (not mode 1); mode 4 reads `metric`'s
 // per-row terms qterms (3, B) and xterms (3, N), [a; b; inv] (null for L1,
-// Chebyshev and Haversine). Writes each stripe's best L (key, id) a query into
-// out_keys / out_ids (B, stripes * L), -inf and -1 where a stripe has fewer.
-extern "C" int lt_topl_scan(const float* q, const int* q_ids, const float* x, const float* qsq,
-                            const float* xsq, const float* qterms, const float* xterms, int B,
-                            int N, int D, int n_real, int L, int stripe, int mode, int metric,
-                            float* out_keys, int* out_ids, cudaStream_t stream) {
-  if (B < 1 || N < 1 || D < 1 || L < 1 || stripe < kTN || stripe % kTN || mode < 0 ||
-      mode > kMetricMode)
-    return (int)cudaErrorInvalidValue;
-#define LT_TOPL(MET)                                                                          \
-  launch<MET>(q, q_ids, x, qsq, xsq, qterms, xterms, B, N, D, n_real, L, stripe, mode, metric, \
-              out_keys, out_ids, stream)
-  if (mode < kMetricMode) return LT_TOPL(lt::kIP);
-  switch (metric) {
-    case lt::kCorrelation:
-    case lt::kHellinger: return LT_TOPL(lt::kIP);
-    case lt::kL1: return LT_TOPL(lt::kL1);
-    case lt::kChebyshev: return LT_TOPL(lt::kChebyshev);
-    case lt::kWasserstein: return LT_TOPL(lt::kWasserstein);
-    case lt::kJensenShannon: return LT_TOPL(lt::kJensenShannon);
-    case lt::kHaversine: return D == 2 ? LT_TOPL(lt::kHaversine) : (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LT_TOPL
+// Chebyshev and Haversine). Writes each span's best L (key, id) a query into
+// out_keys / out_ids (B, spans * L), best first, (-inf, INT_MAX) where a span
+// has fewer rows; `spans` must be lt_topl_spans of the same shapes, `lists`
+// a buffer of lt_topl_scratch entries.
+int lt_topl_scan(const float* q, const int* q_ids, const float* x, const float* qsq,
+                 const float* xsq, const float* qterms, const float* xterms, int B, int N, int D,
+                 int n_real, int L, int spans, int mode, int metric, uint64_t* lists,
+                 float* out_keys, int* out_ids, cudaStream_t stream) {
+  const Args a = make_args(q, q_ids, x, qsq, xsq, qterms, xterms, B, N, D, n_real, L, mode,
+                           metric, lists, out_keys, out_ids);
+  return dispatch(a, spans, nullptr, stream);
 }
+
+}  // extern "C"

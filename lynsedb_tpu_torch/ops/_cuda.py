@@ -60,7 +60,8 @@ _SIGNATURES = {
                               _P),
     "lt_beam_search": (_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                        _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
-    "lt_topl_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "lt_topl_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                     _P),
     "lt_robust_prune": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P),
     "lt_ivf_binary_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P),
 }
@@ -131,6 +132,9 @@ def library() -> ctypes.CDLL:
                 getattr(lib, name).restype = ctypes.c_longlong
             for name in ("lt_topc_spans", "lt_topc_scratch"):
                 getattr(lib, name).argtypes = [_I, _I, _I, _I]
+                getattr(lib, name).restype = ctypes.c_longlong
+            for name in ("lt_topl_spans", "lt_topl_scratch"):
+                getattr(lib, name).argtypes = [_I, _I, _I, _I, _I, _I]
                 getattr(lib, name).restype = ctypes.c_longlong
             lib.lt_error_string.argtypes = [_I]
             lib.lt_error_string.restype = ctypes.c_char_p

@@ -11,8 +11,11 @@ device work, each beside its plain PyTorch version:
     visited bitmap in device memory. Four guidance tiers (exact f32, centred
     bf16, SQ8 codes, PQ tables) differ only in how a node is scored.
   * K19 :func:`topl_scan` (csrc/topl_scan.cu) — the exact top-L of a query
-    chunk over the whole corpus, self-matches masked; it feeds the Vamana
-    build (L = l_build) and wires the HNSW upper layers (L = m).
+    chunk over the whole corpus, self-matches masked: K1's pipelined f32
+    tile over a span of rows a block, each query's running top L in a list
+    in device memory (K2's WarpTopk merges), K5 merging the spans' lists; it
+    feeds the Vamana build (L = l_build) and wires the HNSW upper layers
+    (L = m).
   * K20 :func:`robust_prune` (csrc/robust_prune.cu) — gathers a node's
     candidate rows, forms the point and pair keys in f32 and runs the alpha
     prune; a second mode writes only the keys for the host prune.
@@ -67,9 +70,10 @@ _TIERS = {"f32": 0, "bf16": 1, "sq8": 2, "pq": 3, "metric": 4}
 SMEM_LIMIT = 232_448
 # fresh-candidate slots a K17 block scores per merge (also its start chunk)
 _FRESH_MIN = 256
-# K19's corpus rows per block: each block keeps its queries' running top L
-# over one stripe and writes L candidates; K5 merges the stripes
-TOPL_STRIPE = 8192
+# K19's longest list: each block keeps its queries' running top L over one
+# span of rows and writes L candidates a query; K5 merges the spans (their
+# count and the lists' device buffer are the kernel's plan, lt_topl_spans
+# and lt_topl_scratch)
 TOPL_MAX_L = 256
 # K19 epilogues: -(|q|^2 + |x|^2 - 2 q.x) unclamped (_topl_scan's L2), the
 # dot product, the oriented pairwise keys of L2 (clamped) and cosine, and
@@ -780,34 +784,45 @@ def candidate_pair_keys(x, cand_ids: torch.Tensor, metric: Metric) -> torch.Tens
 # ── K19: the exact top-L scan ────────────────────────────────────────────
 
 
+def topl_keys_plain(q, q_ids, x, qsq, xsq, n_real: int, mode: int, lo: int,
+                    hi: int) -> torch.Tensor:
+    """The keys (B, hi - lo) of rows [lo, hi) that :func:`topl_scan_plain`
+    selects from: the product's (or, in the metric mode, the metric's plain
+    distances over the transform, as the FLAT scan's plain version forms
+    them), NaN, each query's own row and rows >= ``n_real`` at -inf."""
+    blk = x[lo:hi]
+    dev = q.device
+    if mode == TOPL_METRIC:
+        ok = torch.ones(len(blk), dtype=torch.bool, device=dev)
+        kb = metric_keys_plain(q.transform(), blk.transform(), ok, q.metric)
+    else:
+        ip = q @ blk.T
+        if mode == TOPL_DOT:
+            kb = ip
+        elif mode == TOPL_COS:
+            kb = _pairwise_key(ip, qsq[:, None], xsq[None, lo:hi], 2)
+        else:
+            d2 = (qsq[:, None] + xsq[None, lo:hi]) - 2.0 * ip
+            kb = -d2 if mode == TOPL_L2_RAW else -torch.clamp_min(d2, 0.0)
+    bids = torch.arange(lo, lo + len(blk), device=dev)
+    return torch.where((bids[None, :] == q_ids.long()[:, None]) | (bids[None, :] >= n_real),
+                       NEG_INF, _nan_to_neg_inf(kb))
+
+
 def topl_scan_plain(q, q_ids, x, qsq, xsq, n_real: int, l: int, mode: int,
                     block: int = 131072):
-    """Plain version of :func:`topl_scan`: a blocked product (or, in the
-    metric mode, the metric's plain distances over the transform, as the
-    FLAT scan's plain version forms them) with a carried top-L merge (the
-    lower row id first between equal keys)."""
+    """Plain version of :func:`topl_scan`: the keys a block of rows at a
+    time (:func:`topl_keys_plain`) with a carried top-L merge (the lower row
+    id first between equal keys)."""
     b = len(q)
     dev = q.device
     keys = torch.full((b, 0), NEG_INF, dtype=torch.float32, device=dev)
     ids = torch.zeros((b, 0), dtype=torch.long, device=dev)
     for lo in range(0, len(x), block):
-        blk = x[lo : lo + block]
-        if mode == TOPL_METRIC:
-            ok = torch.ones(len(blk), dtype=torch.bool, device=dev)
-            kb = metric_keys_plain(q.transform(), blk.transform(), ok, q.metric)
-        else:
-            ip = q @ blk.T
-            if mode == TOPL_DOT:
-                kb = ip
-            elif mode == TOPL_COS:
-                kb = _pairwise_key(ip, qsq[:, None], xsq[None, lo : lo + block], 2)
-            else:
-                d2 = (qsq[:, None] + xsq[None, lo : lo + block]) - 2.0 * ip
-                kb = -d2 if mode == TOPL_L2_RAW else -torch.clamp_min(d2, 0.0)
-        bids = torch.arange(lo, lo + len(blk), device=dev)
-        kb = torch.where((bids[None, :] == q_ids.long()[:, None]) | (bids[None, :] >= n_real),
-                         NEG_INF, _nan_to_neg_inf(kb))
+        hi = min(lo + block, len(x))
+        kb = topl_keys_plain(q, q_ids, x, qsq, xsq, n_real, mode, lo, hi)
         keys, pos = _stable_top(torch.cat([keys, kb], 1), l)
+        bids = torch.arange(lo, hi, device=dev)
         ids = torch.cat([ids, bids[None, :].expand(b, -1)], 1).gather(1, pos)
     return keys, ids.to(torch.int32)
 
@@ -839,12 +854,17 @@ def topl_scan(q, q_ids: torch.Tensor, x, qsq: Optional[torch.Tensor],
     if mode in (TOPL_DOT, TOPL_METRIC):
         qsq = xsq = None
     _cuda.require_cuda("topl_scan", q, q_ids, x, qsq, xsq, qterms, xterms)
-    stripes = (n + TOPL_STRIPE - 1) // TOPL_STRIPE
-    part_keys = torch.empty((b, stripes * l), dtype=torch.float32, device=q.device)
-    part_ids = torch.empty((b, stripes * l), dtype=torch.int32, device=q.device)
+    lib = _cuda.library()
+    spans = int(lib.lt_topl_spans(b, n, d, l, mode, code))
+    entries = int(lib.lt_topl_scratch(b, n, d, l, mode, code))
+    if spans < 1 or entries < 1:
+        raise RuntimeError(f"topl_scan: no plan for B={b}, N={n}, D={d}, L={l}")
+    lists = torch.empty(entries, dtype=torch.int64, device=q.device)  # the lists' entries
+    part_keys = torch.empty((b, spans * l), dtype=torch.float32, device=q.device)
+    part_ids = torch.empty((b, spans * l), dtype=torch.int32, device=q.device)
     _cuda.call("lt_topl_scan", q.data_ptr(), q_ids.data_ptr(), x.data_ptr(), _cuda.ptr(qsq),
                _cuda.ptr(xsq), _cuda.ptr(qterms), _cuda.ptr(xterms), b, n, d, n_real, l,
-               TOPL_STRIPE, mode, code, part_keys.data_ptr(), part_ids.data_ptr(),
+               spans, mode, code, lists.data_ptr(), part_keys.data_ptr(), part_ids.data_ptr(),
                _cuda.stream_of(q))
     topl_scan.launches += 1
     return topk_select(part_keys, l, ids=part_ids)

@@ -10,7 +10,8 @@ mode.
 Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
 ``--index`` mode (default FLAT-IP; any other mode, such as FLAT-IP-SQ8 or
-HNSW-L2, is built first, and its build seconds reported) 100 distinct single
+HNSW-L2, is built first, and its build seconds reported, with the seconds of
+each build phase where the index records them) 100 distinct single
 searches, then 4 batch searches at B=16 and 4 at B=256 (k=10, ``--nprobe``,
 the client's default 10 unless given; host clock around each call). The corpora are seeded numpy: ``isotropic`` is gaussian rows,
 ``mixture`` chip_smoke.py's mixture of 2,000 gaussian clusters; both
@@ -147,6 +148,7 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, where, r
             t0 = time.perf_counter()
             coll.build_index(mode)
             out["build_s"] = time.perf_counter() - t0
+            out["build_phases_s"] = getattr(coll._engine._index, "last_build_phases", None)
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the index
         yield {**out, **timed(torch, coll, singles, b16, b256, extra, extra256, nprobe, where,
                               clock)}

@@ -59,3 +59,18 @@ def shared_list_bound(b: int, d: int, s: int):
     and the (B, S) keys written; 2 B S d flops at the bf16 peak (the same
     products run on the tensor cores)."""
     return bound(s * (d * 2 + 4 + 8) + b * s * 4 + b * d * 4, 2 * b * s * d, BF16_FLOPS)
+
+
+def topl_bound(b: int, d: int, n: int, l: int, ops_per_pair: float | None = None,
+               row_bytes: int | None = None, sfu_per_pair: float = 0.0):
+    """K19 over n rows for b queries: each row read once (``row_bytes``: by
+    default d f32 and a squared norm), the queries and their norms read, the
+    (b, l) lists written as key and id; the pairs' work 2 b n d flops at the
+    f32 peak, or under an elementwise metric ``ops_per_pair`` f32
+    instructions and ``sfu_per_pair`` special-function operations a pair at
+    F32_OPS and SFU_OPS, the slower of the two."""
+    row_bytes = d * 4 + 4 if row_bytes is None else row_bytes
+    moved = n * row_bytes + b * (d + 1) * 4 + b * l * 8
+    if ops_per_pair is None:
+        return bound(moved, 2 * b * n * d)
+    return bound_t(moved, max(b * n * ops_per_pair / F32_OPS, b * n * sfu_per_pair / SFU_OPS))

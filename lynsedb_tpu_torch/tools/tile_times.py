@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Device times of the exact f32 tile (K1, K6a), K11's shared-list tile and
-the integer tensor-core tiles (K6b, K12) on one CUDA card, at chip_smoke.py's
-shapes.
+"""Device times of the exact f32 tile (K1, K6a), K11's shared-list tile, the
+integer tensor-core tiles (K6b, K12) and the exact top-L scan (K19) on one
+CUDA card, at chip_smoke.py's shapes.
 
     python3 lynsedb_tpu_torch/tools/tile_times.py [--package-root DIR] [--reps N]
-                                                  [--only K1 K6a K11 K6b K12]
+                                                  [--only K1 K6a K11 K6b K12 K19]
+                                                  [--dump PREFIX] [--compare PREFIX]
 
 K1 under IP over 1,000,000 x 128 f32 rows at B = 1, 16, 17, 64 and 256, beside
 ``q @ x.T`` (one f32 matmul, the same function without the mask); K6a under
@@ -18,11 +19,21 @@ and 256 and under Jaccard, Dice and Hamming at B = 16, beside the bf16
 matmul of the {0, 1} rows; K12 over 1,000,000 x 128 int8 codes (SQ8, RaBitQ,
 PolarVec under IP) at B = 1, 16 and 64, beside ``torch._int_mm`` of the
 quantized queries and the codes at B = 64 (the dot alone; it takes no fewer
-than 17 rows). Each time is
-the mean of ``--reps`` launches between CUDA events after a warm-up; each
-bound is chip_smoke.py's, from the same formulas (``roofline.py`` beside
-this file: the bytes moved over 3.35 TB/s against the operations over the
-f32 (K1, K6a), bf16 (K11) or int8 (K6b, K12) peak). Beside the
+than 17 rows); K19 (``graph.topl_scan``, its K5 merge included in ``ms``)
+under L2 on a 4,096-query chunk of 1,000,000 x 128 rows at L = 64 (the
+HNSW-L2 build's), beside ``torch.topk`` of ``2 q @ x.T - |x|^2`` a block of
+131,072 rows at a time, and in its metric mode on 1,024 queries of
+1,010,000 x 128 rows at L = 64 under L1 (the HNSW-L1 build's), beside
+``torch.cdist(p=1)`` and ``torch.topk`` a block at a time, under
+Jensen-Shannon over the rows exponentiated, and under Haversine on 1,024
+queries of 1,000,000 points uniform on the sphere (no library call for
+either). Each time is
+the mean of ``--reps`` launches (K19's library calls: 3) between CUDA events
+after a warm-up; each bound is chip_smoke.py's, from the same formulas
+(``roofline.py`` beside this file: the bytes moved over 3.35 TB/s against
+the operations over the f32 (K1, K6a, K19), bf16 (K11) or int8 (K6b, K12)
+peak, K19's metric modes over the f32 instruction and special-function
+rates). Beside the
 event time (which includes the wrapper's own small PyTorch ops and, where the
 host enqueues slower than the card runs, the host), ``kernel_ms`` is the
 device time of the hand-written kernel alone per launch, from torch.profiler.
@@ -31,8 +42,11 @@ on the same inputs.
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (an older commit
 unpacked with ``git archive``), so parent and change are timed on one card
-in one call. Prints the card's name and power limit, then one JSON line per
-kernel and shape.
+in one call. ``--dump PREFIX`` writes K19's keys and ids at each shape to
+PREFIX_<shape>.npz; ``--compare PREFIX`` reads another tree's and adds to
+each K19 row whether the keys are equal to the bit and the ids equal (or
+differ only between equal keys). Prints the card's name and power limit,
+then one JSON line per kernel and shape.
 """
 
 from __future__ import annotations
@@ -48,16 +62,21 @@ import numpy as np
 
 # roofline.py sits beside this script (sys.path[0]), so this tree's formulas
 # hold whichever --package-root is timed
-from roofline import binary_tile_bound, code_scan_bound, f32_tile_bound, shared_list_bound
+from roofline import (binary_tile_bound, code_scan_bound, f32_tile_bound, shared_list_bound,
+                      topl_bound)
 
 N, DIM, SHARED_EVERY = 1_000_000, 128, 10
 BITS_DIM, BITS_DENSITY = 1024, 0.1
-KERNELS = ("K1", "K6a", "K11", "K6b", "K12")
+TOPL_CHUNK, TOPL_L, TOPL_METRIC_CHUNK, TOPL_METRIC_N = 4096, 64, 1024, 1_010_000
+# Haversine's f32 instructions and special-function operations a pair (chip_smoke.py ELEM_OPS)
+HAVERSINE_OPS = (12, 6)
+KERNELS = ("K1", "K6a", "K11", "K6b", "K12", "K19")
 # the kernels' names, this tree's and earlier ones' (torch.profiler keys)
 K1_NAMES, K11_NAMES = ("f32_tile_kernel", "tile_scores_kernel"), ("shared_list_kernel",
                                                                   "bf16_gather_kernel")
 K6B_NAMES = ("int_tile_kernel", "binary_tile_kernel")
 K12_NAMES = ("int_tile_kernel", "int8_scores_kernel", "quantize_queries_kernel")
+K19_NAMES = ("topl_kernel",)
 
 
 def main() -> int:
@@ -65,6 +84,8 @@ def main() -> int:
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", nargs="+", choices=KERNELS, default=list(KERNELS))
+    ap.add_argument("--dump", help="write K19's keys and ids to PREFIX_<shape>.npz")
+    ap.add_argument("--compare", help="hold K19's keys and ids to PREFIX_<shape>.npz")
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
     import torch
@@ -78,16 +99,17 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card.strip().splitlines()[0] if card.strip() else "nvidia-smi: no output", flush=True)
 
-    def ms(fn) -> float:
+    def ms(fn, reps: int | None = None) -> float:
+        reps = args.reps if reps is None else reps
         fn()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(args.reps):
+        for _ in range(reps):
             fn()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.reps
+        return start.elapsed_time(end) / reps
 
     def kernel_ms(fn, names: tuple) -> float | None:
         from torch.profiler import ProfilerActivity, profile
@@ -100,12 +122,12 @@ def main() -> int:
                  if any(n in ev.key for n in names))
         return us / 1e3 / args.reps if us else None
 
-    def row(kernel, shape, fn, library, bnd, err, names):
+    def row(kernel, shape, fn, library, bnd, err, names, library_reps=None, **extra):
         print(json.dumps({"package": str(args.package_root), "kernel": kernel, "shape": shape,
                           "ms": ms(fn), "kernel_ms": kernel_ms(fn, names),
-                          "library_ms": None if library is None else ms(library),
+                          "library_ms": None if library is None else ms(library, library_reps),
                           "bound_ms": bnd[0], "bound_by": bnd[1],
-                          "max_abs_err": err}), flush=True)
+                          "max_abs_err": err, **extra}), flush=True)
 
     if {"K1", "K6a", "K11"} & set(args.only):
         float_rows(args.only, row, dev)
@@ -113,6 +135,8 @@ def main() -> int:
         binary_rows(row, dev)
     if "K12" in args.only:
         code_rows(row, dev)
+    if "K19" in args.only:
+        topl_rows(row, dev, args.dump, args.compare)
     return 0
 
 
@@ -244,6 +268,79 @@ def code_rows(row, dev) -> None:
             row("K12 int8_code_scores", f"{kind} IP 1M x {DIM} B={b}",
                 lambda: quantize.int8_code_scores(*args), library,
                 code_scan_bound(b, DIM, DIM, N, N, row_bytes), err, K12_NAMES)
+
+
+def against(prefix: str, tag: str, keys: np.ndarray, ids: np.ndarray) -> dict:
+    """K19's output held to another tree's at the same shape: the keys equal
+    to the bit, the ids equal, or different only where the two keys at that
+    position are equal (a tie between rows of equal keys)."""
+    other = np.load(f"{prefix}_{tag}.npz")
+    same_keys = bool(np.array_equal(keys.view(np.uint32), other["keys"].view(np.uint32)))
+    diff = ids != other["ids"]
+    return {"keys_equal_to_parent": same_keys, "ids_equal_to_parent": not bool(diff.any()),
+            "ids_differ_only_at_equal_keys": bool((keys[diff] == other["keys"][diff]).all())}
+
+
+def topl_rows(row, dev, dump, compare) -> None:
+    """K19 under L2 over 1M x 128 rows (4,096 queries) and in its metric mode
+    under L1 and Jensen-Shannon over 1.01M x 128 rows and Haversine over 1M
+    points (1,024 queries), L = 64, each query its own row of the corpus
+    (masked, as the build does)."""
+    import torch
+
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import graph
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(TOPL_METRIC_N, DIM)).astype(np.float32)).to(dev)
+    xd = x[:N]
+    xsq = (xd * xd).sum(-1)
+
+    def l2_library():
+        q = xd[:TOPL_CHUNK]
+        for lo in range(0, N, 131072):
+            torch.topk(2.0 * (q @ xd[lo : lo + 131072].T) - xsq[None, lo : lo + 131072],
+                       TOPL_L, dim=1)
+
+    q_ids = torch.arange(TOPL_CHUNK, dtype=torch.int32, device=dev)
+    cases = [("L2", (xd[:TOPL_CHUNK], q_ids, xd, xsq[:TOPL_CHUNK], xsq, N, TOPL_L,
+                     graph.TOPL_L2_RAW), l2_library, topl_bound(TOPL_CHUNK, DIM, N, TOPL_L),
+              f"L2 chunk={TOPL_CHUNK} N={N} L={TOPL_L}")]
+    b, n = TOPL_METRIC_CHUNK, TOPL_METRIC_N
+    for metric, rows, ops in ((Metric.L1, x, (2, 0)),
+                              (Metric.JENSEN_SHANNON, torch.exp(0.5 * x), (3, 1))):
+        space = graph.graph_space(rows, metric)
+
+        def cdist_library(space=space):
+            q = space.rows[:b]
+            for lo in range(0, n, 131072):
+                torch.topk(-torch.cdist(q, space.rows[lo : lo + 131072], p=1), TOPL_L, dim=1)
+
+        row_bytes = DIM * 4 + (12 if space.terms is not None else 0)
+        cases.append((metric.value, (space[:b], q_ids[:b], space, None, None, n, TOPL_L,
+                                     graph.TOPL_METRIC),
+                      cdist_library if metric is Metric.L1 else None,
+                      topl_bound(b, DIM, n, TOPL_L, DIM * ops[0], row_bytes, DIM * ops[1]),
+                      f"{metric.value} chunk={b} N={n} L={TOPL_L}"))
+    lon = rng.uniform(-180.0, 180.0, N)
+    lat = np.degrees(np.arcsin(rng.uniform(-1.0, 1.0, N)))
+    geo = graph.graph_space(torch.from_numpy(np.stack([lon, lat], 1).astype(np.float32)).to(dev),
+                            Metric.HAVERSINE)
+    cases.append(("haversine", (geo[:b], q_ids[:b], geo, None, None, N, TOPL_L, graph.TOPL_METRIC),
+                  None, topl_bound(b, 2, N, TOPL_L, HAVERSINE_OPS[0], 8, HAVERSINE_OPS[1]),
+                  f"haversine chunk={b} N={N} L={TOPL_L}"))
+    for tag, a, library, bnd, shape in cases:
+        gk, gi = graph.topl_scan(*a)
+        wk, _ = graph.topl_scan_plain(*a)
+        fin = torch.isfinite(wk)
+        err = float((gk[fin] - wk[fin]).abs().max()) if bool(fin.any()) else 0.0
+        keys, ids = gk.cpu().numpy(), gi.cpu().numpy()
+        del gk, gi, wk, fin
+        if dump:
+            np.savez(f"{dump}_{tag}.npz", keys=keys, ids=ids)
+        extra = against(compare, tag, keys, ids) if compare else {}
+        row("K19 topl_scan", shape, lambda: graph.topl_scan(*a), library, bnd, err, K19_NAMES,
+            library_reps=3, **extra)
 
 
 if __name__ == "__main__":

@@ -734,6 +734,27 @@ def _keys64(q, x, ids, mode):
     return -(qsq + xsq - 2 * ip)
 
 
+def _check_topl_chunk(x, xd, sq, lo, hi, n_real, l, mode):
+    """K19 on queries [lo, hi) of the corpus against its plain version: keys
+    within rtol 1e-5 + atol 1e-4, no self-match, no row >= n_real, ids
+    swapped only between rows whose float64 keys agree within 1e-5 of the
+    row's largest key + 1e-4."""
+    dev = xd.device
+    q_ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+    args = (xd[lo:hi], q_ids, xd, sq[lo:hi], sq, n_real, l, mode)
+    gk, gi = graph_ops.topl_scan(*args)
+    wk, wi = graph_ops.topl_scan_plain(*args)
+    torch.cuda.synchronize()
+    gi, wi = gi.cpu().numpy(), wi.cpu().numpy()
+    assert not (gi == np.arange(lo, hi)[:, None]).any()  # self-matches masked
+    assert (gi < n_real).all()
+    np.testing.assert_allclose(gk.cpu().numpy(), wk.cpu().numpy(), rtol=1e-5, atol=1e-4)
+    exact = _keys64(x[lo:hi], x, gi, mode)
+    want = _keys64(x[lo:hi], x, wi, mode)
+    tol = 1e-5 * np.abs(want).max(axis=1, keepdims=True) + 1e-4
+    assert (np.abs(exact - want) <= tol).all()  # ids differ only at near-ties
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])
 @pytest.mark.parametrize("l", [16, 64, 96])
 def test_topl_scan_matches_plain(dev, l, mode):
@@ -744,19 +765,31 @@ def test_topl_scan_matches_plain(dev, l, mode):
     xd = torch.from_numpy(x).to(dev)
     sq = (xd * xd).sum(-1)
     for lo, hi in ((0, 4096), (4096, 4096 + 37), (n - 300, n)):  # ragged chunks
-        q_ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
-        args = (xd[lo:hi], q_ids, xd, sq[lo:hi], sq, n - 7, l, mode)  # 7 rows past n_real
-        gk, gi = graph_ops.topl_scan(*args)
-        wk, wi = graph_ops.topl_scan_plain(*args)
-        torch.cuda.synchronize()
-        gi, wi = gi.cpu().numpy(), wi.cpu().numpy()
-        assert not (gi == np.arange(lo, hi)[:, None]).any()  # self-matches masked
-        assert (gi < n - 7).all()
-        np.testing.assert_allclose(gk.cpu().numpy(), wk.cpu().numpy(), rtol=1e-5, atol=1e-4)
-        exact = _keys64(x[lo:hi], x, gi, mode)
-        want = _keys64(x[lo:hi], x, wi, mode)
-        tol = 1e-5 * np.abs(want).max(axis=1, keepdims=True) + 1e-4
-        assert (np.abs(exact - want) <= tol).all()  # ids differ only at near-ties
+        _check_topl_chunk(x, xd, sq, lo, hi, n - 7, l, mode)  # 7 rows past n_real
+
+
+# (N, D, L): D = 1 and 7 the one-stage tiles of the scalar-load route (a
+# barrier after each epilogue), D = 130 a ragged last stage, L = 256 the
+# 32-query tile, N = 300,000 spans of many tiles and many list flushes,
+# N = 1,000 at L = 256 spans shorter than L (a chunk of one query spreads
+# over every SM: (-inf, INT_MAX) pads that K5's merge must drop)
+_TOPL_EDGES = [(20_000, 1, 64), (20_000, 7, 64), (20_000, 130, 64), (20_000, 48, 256),
+               (300_000, 48, 64), (300_000, 128, 256), (1_000, 16, 256)]
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("n,d,l", _TOPL_EDGES)
+def test_topl_scan_plan_edges(dev, n, d, l, mode):
+    """K19 at its plan's edges, on chunks of 1, 37 and 300 queries (one
+    query group, a ragged one, the corpus's last rows) against its plain
+    version."""
+    rng = np.random.default_rng(n + d + l)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[100:110] = x[5]
+    xd = torch.from_numpy(x).to(dev)
+    sq = (xd * xd).sum(-1)
+    for lo, hi in ((0, 1), (n // 2, n // 2 + 37), (n - 300, n)):
+        _check_topl_chunk(x, xd, sq, lo, hi, n - 7, l, mode)
 
 
 @pytest.mark.parametrize("metric", [Metric.L2, Metric.COSINE, Metric.IP])
@@ -1189,6 +1222,37 @@ def test_topl_scan_metric_matches_plain(dev, metric, l):
         ct = space.transform()
         rekeyed = scan.metric_keys_plain(qt, ct, None, metric, ids=gi.clamp_min(0))
         _assert_keys_close(metric, torch.where(fin, rekeyed, wk), wk)
+
+
+_INVALID_ROWS = [Metric.HELLINGER, Metric.WASSERSTEIN, Metric.JENSEN_SHANNON, Metric.HAVERSINE]
+
+
+@pytest.mark.parametrize("l", [64, 256])
+@pytest.mark.parametrize("metric", _INVALID_ROWS, ids=[m.value for m in _INVALID_ROWS])
+def test_topl_scan_metric_invalid_rows(dev, metric, l):
+    """Rows 0-2 of ``_metric_rows`` are invalid (a negative probability,
+    |lat| > 90): such a query has no finite distance, and its list is the
+    rows in id order at -inf, exactly as the plain version's (its own row
+    among them). Chunks of one and 37 queries over 300,000 rows, so each
+    span holds many tiles."""
+    n = 300_000
+    _, _, space = _domain_space(metric, dev, 31, n, 48)
+    for lo, hi in ((0, 1), (0, 37)):
+        q_ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        args = (space[lo:hi], q_ids, space, None, None, n, l, graph_ops.TOPL_METRIC)
+        gk, gi = graph_ops.topl_scan(*args)
+        wk, wi = graph_ops.topl_scan_plain(*args)
+        torch.cuda.synchronize()
+        dead = torch.isneginf(wk).all(1)
+        assert bool(dead[:3].all())
+        assert torch.equal(gk[dead], wk[dead]) and torch.equal(gi[dead], wi[dead])
+        assert torch.equal(gi[dead][0].long().cpu(), torch.arange(l))
+        if bool(dead.all()):  # a chunk of one invalid query: nothing finite to compare
+            continue
+        _assert_keys_close(metric, gk, wk)
+        rekeyed = scan.metric_keys_plain(space[lo:hi].transform(), space.transform(), None,
+                                         metric, ids=gi.clamp_min(0))
+        _assert_keys_close(metric, torch.where(torch.isfinite(wk), rekeyed, wk), wk)
 
 
 @pytest.mark.parametrize("metric", GRAPH_DOMAIN, ids=[m.value for m in GRAPH_DOMAIN])
