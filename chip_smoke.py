@@ -147,7 +147,8 @@ from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 from lynsedb_tpu_torch.tools.flat_latency import GcClock
 from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, F32_OPS, HBM_BPS, SFU_OPS,
                                               binary_tile_bound, bound, bound_t, code_scan_bound,
-                                              f32_tile_bound, shared_list_bound, topl_bound)
+                                              f32_tile_bound, prune_bound, shared_list_bound,
+                                              topl_bound)
 
 N, DIM, K, C = 1_000_000, 128, 10, 256
 BATCHES = (1, 16, 256)
@@ -1060,15 +1061,12 @@ def build_kernel_phase(eng, x: np.ndarray, rng, stats: Stats, build_phases: dict
     wpk, wpp = graph.robust_prune_plain(xd, q_ids[:1024], link, metric=Metric.L2, keys_only=True)
     check(torch.equal(pk, wpk) and torch.equal(pp, wpp), "K20 keys mode differs")
     stats.error("K20 robust_prune", 0.0)
-    # bound: a node's m = L + 1 rows and L candidate ids read, r ids written;
-    # the symmetric half of the m x m Gram, m (m + 1) / 2 dot products
     m = cands.shape[1] + 1
     rows = xd[torch.cat([cands, q_ids[:, None]], 1).long()]
     stats.time("K20 robust_prune", f"L2 nodes={chunk} L={m - 1} r=32",
                lambda: graph.robust_prune(xd, q_ids, cands, **kw),
                lambda: graph.robust_prune_plain(xd, q_ids, cands, **kw),
-               lambda: torch.bmm(rows, rows.transpose(1, 2)),
-               bound(chunk * (m * DIM * 4 + (m - 1) * 4 + 32 * 4), chunk * m * (m + 1) * DIM),
+               lambda: torch.bmm(rows, rows.transpose(1, 2)), prune_bound(chunk, m, DIM, r=32),
                reps=3)
     print(f"   K20 robust_prune: {chunk} nodes x {m - 1} candidates equal to its plain version "
           f"(both modes)", flush=True)
@@ -1742,8 +1740,8 @@ def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool
                            lambda: graph.robust_prune_plain(space, q_ids, cands, **pkw),
                            accepted(lambda: torch.cdist(rows, rows, p=1))
                            if metric is Metric.L1 else None,
-                           bound_t(nodes * (m * row_bytes + (m - 1) * 4 + 32 * 4),
-                                   nodes * m * (m + 1) / 2 * elem_ops / F32_OPS), reps=3)
+                           prune_bound(nodes, m, d, metric.value, r=32, row_bytes=row_bytes),
+                           reps=3)
         print(f"   K6g {mode}: K20's pair tables equal to their plain version (both modes)",
               flush=True)
 

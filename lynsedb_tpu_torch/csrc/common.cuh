@@ -333,6 +333,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
                "r"(bytes));
 }
 
+// A 4-byte copy (through L1): `bytes` 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>

@@ -119,19 +119,33 @@ __device__ __forceinline__ float elem_distance(Acc acc, RowTerm q, RowTerm x) {
 
 // Haversine over (lon, lat) rows in degrees, in the JAX package's order of f32
 // operations, IUGG mean radius; +inf where either row is non-finite or
-// |lat| > 90.
-__device__ __forceinline__ float haversine(float qlon, float qlat, float xlon, float xlat) {
-  const bool bad = !isfinite(qlon) || !isfinite(qlat) || !isfinite(xlon) || !isfinite(xlat) ||
-                   fabsf(qlat) > 90.f || fabsf(xlat) > 90.f;
-  if (bad) return INFINITY;
-  const float deg2rad = 0.017453292519943295f, r = 6371008.8f;
-  const float lon1 = __fmul_rn(qlon, deg2rad), lat1 = __fmul_rn(qlat, deg2rad);
-  const float lon2 = __fmul_rn(xlon, deg2rad), lat2 = __fmul_rn(xlat, deg2rad);
-  const float sin_lat = sinf(__fmul_rn(__fsub_rn(lat2, lat1), 0.5f));
-  const float sin_lon = sinf(__fmul_rn(__fsub_rn(lon2, lon1), 0.5f));
-  const float cc = __fmul_rn(__fmul_rn(__fmul_rn(cosf(lat1), cosf(lat2)), sin_lon), sin_lon);
+// |lat| > 90. A row's own part (radians, cos(lat), validity) is GeoRow, so a
+// kernel that meets a row many times (K20's pair table) forms it once: the
+// same operations on the same inputs, the same bits.
+struct GeoRow {
+  float lon, lat, cos_lat;
+  bool ok;
+};
+
+__device__ __forceinline__ GeoRow geo_row(float lon, float lat) {
+  const float deg2rad = 0.017453292519943295f;
+  const float lat_r = __fmul_rn(lat, deg2rad);
+  return GeoRow{__fmul_rn(lon, deg2rad), lat_r, cosf(lat_r),
+                isfinite(lon) && isfinite(lat) && !(fabsf(lat) > 90.f)};
+}
+
+__device__ __forceinline__ float haversine(GeoRow q, GeoRow x) {
+  if (!q.ok || !x.ok) return INFINITY;
+  const float r = 6371008.8f;
+  const float sin_lat = sinf(__fmul_rn(__fsub_rn(x.lat, q.lat), 0.5f));
+  const float sin_lon = sinf(__fmul_rn(__fsub_rn(x.lon, q.lon), 0.5f));
+  const float cc = __fmul_rn(__fmul_rn(__fmul_rn(q.cos_lat, x.cos_lat), sin_lon), sin_lon);
   const float h = clip_keep_nan(__fadd_rn(__fmul_rn(sin_lat, sin_lat), cc), 0.f, 1.f);
   return __fmul_rn(__fmul_rn(2.f, r), asinf(sqrtf(h)));
+}
+
+__device__ __forceinline__ float haversine(float qlon, float qlat, float xlon, float xlat) {
+  return haversine(geo_row(qlon, qlat), geo_row(xlon, xlat));
 }
 
 // The terms of row i from a (3, stride) array [a; b; inv] (null: no terms).

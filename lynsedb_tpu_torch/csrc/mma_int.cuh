@@ -60,11 +60,6 @@ struct IntTileArgs {
   float* keys;       // (B, N)
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes));
-}
-
 // Bytes [k0, k0 + kc) of rows first .. first + rows - 1 of src (row_bytes a
 // row) into dst (dst_stride a row): zero past row_bytes and for rows at or
 // past `live`. Every thread of the block calls it.

@@ -11,7 +11,8 @@ Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
 ``--index`` mode (default FLAT-IP; any other mode, such as FLAT-IP-SQ8 or
 HNSW-L2, is built first, and its build seconds reported, with the seconds of
-each build phase where the index records them) 100 distinct single
+each build phase where the index records them and, for a graph, a SHA-256 of
+its built adjacency) 100 distinct single
 searches, then 4 batch searches at B=16 and 4 at B=256 (k=10, ``--nprobe``,
 the client's default 10 unless given; host clock around each call). The corpora are seeded numpy: ``isotropic`` is gaussian rows,
 ``mixture`` chip_smoke.py's mixture of 2,000 gaussian clusters; both
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
 import json
 import sys
 import tempfile
@@ -126,6 +128,13 @@ def timed(torch, coll, singles, b16, b256, extra, extra256, nprobe: int, where,
     return out
 
 
+def adjacency_sha256(index) -> str | None:
+    """SHA-256 of a graph index's built adjacency (HNSW's layer 0, DiskANN's
+    graph), so two trees' builds compare in one call; None for other modes."""
+    adj = getattr(index, "layer0_np", getattr(index, "graph_np", None))
+    return None if adj is None else hashlib.sha256(np.ascontiguousarray(adj).tobytes()).hexdigest()
+
+
 def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, where, root: str,
         clock: GcClock):
     """Yields one result per index mode on one corpus (two with ``insert``)."""
@@ -148,7 +157,9 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, where, r
             t0 = time.perf_counter()
             coll.build_index(mode)
             out["build_s"] = time.perf_counter() - t0
-            out["build_phases_s"] = getattr(coll._engine._index, "last_build_phases", None)
+            index = coll._engine._index
+            out["build_phases_s"] = getattr(index, "last_build_phases", None)
+            out["adjacency_sha256"] = adjacency_sha256(index)
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the index
         yield {**out, **timed(torch, coll, singles, b16, b256, extra, extra256, nprobe, where,
                               clock)}

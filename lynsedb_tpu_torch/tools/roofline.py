@@ -74,3 +74,40 @@ def topl_bound(b: int, d: int, n: int, l: int, ops_per_pair: float | None = None
     if ops_per_pair is None:
         return bound(moved, 2 * b * n * d)
     return bound_t(moved, max(b * n * ops_per_pair / F32_OPS, b * n * sfu_per_pair / SFU_OPS))
+
+
+# K20's table work (metric by its Metric value): the f32 instructions and
+# special-function operations of a (pair, dimension) of metrics.cuh's
+# accumulate<M>; any other graph metric (IP, L2, cosine, correlation and
+# Hellinger over their lead rows) runs the Gram, whose multiply and add count
+# as two, since the bit contract forbids an FMA
+PRUNE_DIM_OPS = {"l1": (2, 0), "chebyshev": (2, 0), "wasserstein": (2, 0),
+                 "jensen_shannon": (3, 1)}
+# Haversine's whole m x m table: a pair's f32 instructions (two differences,
+# two halvings, five products, a sum, a two-sided clip) and special-function
+# operations (two sines, a square root, an arcsine), and a row's, formed once
+# (metrics.cuh GeoRow: two products to radians, one cosine)
+HAVERSINE_PAIR_OPS, HAVERSINE_ROW_OPS = (12, 4), (2, 1)
+
+
+def prune_bound(nodes: int, m: int, d: int, metric: str = "l2", *, r: int = 0,
+                row_bytes: int | None = None):
+    """K20 over ``nodes`` nodes of m table rows each (L = m - 1 candidates
+    and the node) under ``metric`` (a Metric's value): each node's m rows
+    read once (``row_bytes``: by default d f32), its L candidate ids and node
+    id read, and its r pruned ids written (``r`` 0: the keys mode's L point
+    keys and (L, L) pair keys); the table's work at F32_OPS and SFU_OPS, the
+    slower of the two: the symmetric half's m (m + 1) / 2 pairs over d
+    dimensions at PRUNE_DIM_OPS, or Haversine's m x m pairs and m rows."""
+    l = m - 1
+    row_bytes = d * 4 if row_bytes is None else row_bytes
+    out = r * 4 if r else (l * l + l) * 4
+    moved = nodes * (m * row_bytes + l * 4 + 4 + out)
+    if metric == "haversine":
+        (f, s), (rf, rs) = HAVERSINE_PAIR_OPS, HAVERSINE_ROW_OPS
+        f32, sfu = nodes * (m * m * f + m * rf), nodes * (m * m * s + m * rs)
+    else:
+        work = nodes * m * (m + 1) // 2 * d
+        f, s = PRUNE_DIM_OPS.get(metric, (2, 0))
+        f32, sfu = work * f, work * s
+    return bound_t(moved, max(f32 / F32_OPS, sfu / SFU_OPS))

@@ -4,7 +4,7 @@ integer tensor-core tiles (K6b, K12) and the exact top-L scan (K19) on one
 CUDA card, at chip_smoke.py's shapes.
 
     python3 lynsedb_tpu_torch/tools/tile_times.py [--package-root DIR] [--reps N]
-                                                  [--only K1 K6a K11 K6b K12 K19]
+                                                  [--only K1 K6a K11 K6b K12 K19 K20]
                                                   [--dump PREFIX] [--compare PREFIX]
 
 K1 under IP over 1,000,000 x 128 f32 rows at B = 1, 16, 17, 64 and 256, beside
@@ -27,7 +27,13 @@ HNSW-L2 build's), beside ``torch.topk`` of ``2 q @ x.T - |x|^2`` a block of
 ``torch.cdist(p=1)`` and ``torch.topk`` a block at a time, under
 Jensen-Shannon over the rows exponentiated, and under Haversine on 1,024
 queries of 1,000,000 points uniform on the sphere (no library call for
-either). Each time is
+either); K20 (``graph.robust_prune``) in its prune mode on 4,096 nodes of
+those 1,000,000 x 128 rows, each with its top 64 by K19 and 8 random
+candidates (L = 72, r = 32, alpha 1.2: pass A of the HNSW build) under L2,
+beside ``torch.bmm`` of the gathered rows (the Gram alone), under L1 (beside
+``torch.cdist(p=1)`` of the gathered rows) and Jensen-Shannon over the same
+rows (exponentiated) and under Haversine over the 1M points, and in its keys
+mode on 1,024 nodes at L = 64 (an insert's shape) under L2. Each time is
 the mean of ``--reps`` launches (K19's library calls: 3) between CUDA events
 after a warm-up; each bound is chip_smoke.py's, from the same formulas
 (``roofline.py`` beside this file: the bytes moved over 3.35 TB/s against
@@ -42,11 +48,13 @@ on the same inputs.
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (an older commit
 unpacked with ``git archive``), so parent and change are timed on one card
-in one call. ``--dump PREFIX`` writes K19's keys and ids at each shape to
-PREFIX_<shape>.npz; ``--compare PREFIX`` reads another tree's and adds to
-each K19 row whether the keys are equal to the bit and the ids equal (or
-differ only between equal keys). Prints the card's name and power limit,
-then one JSON line per kernel and shape.
+in one call. ``--dump PREFIX`` writes K19's keys and ids, and K20's
+candidates and outputs, at each shape to PREFIX_<shape>.npz; ``--compare
+PREFIX`` reads another tree's and adds to each K19 row whether the keys are
+equal to the bit and the ids equal (or differ only between equal keys), and
+to each K20 row whether its candidates and its pruned lists or keys are
+equal to the bit. Prints the card's name and power limit, then one JSON line
+per kernel and shape.
 """
 
 from __future__ import annotations
@@ -62,21 +70,23 @@ import numpy as np
 
 # roofline.py sits beside this script (sys.path[0]), so this tree's formulas
 # hold whichever --package-root is timed
-from roofline import (binary_tile_bound, code_scan_bound, f32_tile_bound, shared_list_bound,
-                      topl_bound)
+from roofline import (binary_tile_bound, code_scan_bound, f32_tile_bound, prune_bound,
+                      shared_list_bound, topl_bound)
 
 N, DIM, SHARED_EVERY = 1_000_000, 128, 10
 BITS_DIM, BITS_DENSITY = 1024, 0.1
 TOPL_CHUNK, TOPL_L, TOPL_METRIC_CHUNK, TOPL_METRIC_N = 4096, 64, 1024, 1_010_000
 # Haversine's f32 instructions and special-function operations a pair (chip_smoke.py ELEM_OPS)
 HAVERSINE_OPS = (12, 6)
-KERNELS = ("K1", "K6a", "K11", "K6b", "K12", "K19")
+PRUNE_NODES, PRUNE_EXTRA, PRUNE_R, KEYS_NODES = 4096, 8, 32, 1024
+KERNELS = ("K1", "K6a", "K11", "K6b", "K12", "K19", "K20")
 # the kernels' names, this tree's and earlier ones' (torch.profiler keys)
 K1_NAMES, K11_NAMES = ("f32_tile_kernel", "tile_scores_kernel"), ("shared_list_kernel",
                                                                   "bf16_gather_kernel")
 K6B_NAMES = ("int_tile_kernel", "binary_tile_kernel")
 K12_NAMES = ("int_tile_kernel", "int8_scores_kernel", "quantize_queries_kernel")
 K19_NAMES = ("topl_kernel",)
+K20_NAMES = ("prune_kernel",)
 
 
 def main() -> int:
@@ -84,8 +94,8 @@ def main() -> int:
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", nargs="+", choices=KERNELS, default=list(KERNELS))
-    ap.add_argument("--dump", help="write K19's keys and ids to PREFIX_<shape>.npz")
-    ap.add_argument("--compare", help="hold K19's keys and ids to PREFIX_<shape>.npz")
+    ap.add_argument("--dump", help="write K19's and K20's outputs to PREFIX_<shape>.npz")
+    ap.add_argument("--compare", help="hold K19's and K20's outputs to PREFIX_<shape>.npz")
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
     import torch
@@ -137,6 +147,8 @@ def main() -> int:
         code_rows(row, dev)
     if "K19" in args.only:
         topl_rows(row, dev, args.dump, args.compare)
+    if "K20" in args.only:
+        prune_rows(row, dev, args.dump, args.compare)
     return 0
 
 
@@ -341,6 +353,89 @@ def topl_rows(row, dev, dump, compare) -> None:
         extra = against(compare, tag, keys, ids) if compare else {}
         row("K19 topl_scan", shape, lambda: graph.topl_scan(*a), library, bnd, err, K19_NAMES,
             library_reps=3, **extra)
+
+
+def bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal to the bit, every NaN counted equal to any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind != "f":
+        return bool(np.array_equal(a, b))
+    nan = np.isnan(a)
+    return bool((nan == np.isnan(b)).all() and np.array_equal(a[~nan].view(np.uint32),
+                                                              b[~nan].view(np.uint32)))
+
+
+def prune_rows(row, dev, dump, compare) -> None:
+    """K20 in its prune mode on 4,096 nodes (each its top 64 by K19 and 8
+    random candidates) under L2 and L1 over 1M x 128 rows, Jensen-Shannon
+    over them exponentiated and Haversine over 1M points; its keys mode on
+    1,024 nodes at L = 64 under L2. Each output is held to the plain
+    version's to the bit (max_abs_err 0, else inf)."""
+    import torch
+
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import graph
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(N, DIM)).astype(np.float32)).to(dev)
+    lon = rng.uniform(-180.0, 180.0, N)
+    lat = np.degrees(np.arcsin(rng.uniform(-1.0, 1.0, N)))
+    geo = torch.from_numpy(np.stack([lon, lat], 1).astype(np.float32)).to(dev)
+    extra = torch.from_numpy(rng.integers(0, N, size=(PRUNE_NODES, PRUNE_EXTRA))
+                             .astype(np.int32)).to(dev)
+    q_ids = torch.arange(PRUNE_NODES, dtype=torch.int32, device=dev)
+    m = TOPL_L + PRUNE_EXTRA + 1
+    for metric, rows in ((Metric.L2, x), (Metric.L1, x),
+                         (Metric.JENSEN_SHANNON, torch.exp(0.5 * x)), (Metric.HAVERSINE, geo)):
+        space = graph.graph_space(rows, metric)
+        if metric is Metric.L2:
+            sq = (x * x).sum(-1)
+            near = graph.topl_scan(x[:PRUNE_NODES], q_ids, x, sq[:PRUNE_NODES], sq, N, TOPL_L,
+                                   graph.TOPL_L2_RAW)[1]
+            lead, row_bytes = x, DIM * 4
+        else:
+            near = graph.topl_scan(space[:PRUNE_NODES], q_ids, space, None, None, N, TOPL_L,
+                                   graph.TOPL_METRIC)[1]
+            lead = space.rows
+            row_bytes = lead.shape[1] * 4 + (12 if space.terms is not None else 0)
+        cands = torch.cat([near, extra], 1).contiguous()
+        kw = dict(metric=metric, r=PRUNE_R, alpha=1.2, descending=False)
+        got = graph.robust_prune(space, q_ids, cands, **kw)
+        err = 0.0 if torch.equal(got, graph.robust_prune_plain(space, q_ids, cands, **kw)) \
+            else float("inf")
+        bnd = prune_bound(PRUNE_NODES, m, lead.shape[1], metric.value, r=PRUNE_R,
+                          row_bytes=row_bytes)
+        gathered = lead[torch.cat([cands, q_ids[:, None]], 1).long()]
+        library = {Metric.L2: lambda: torch.bmm(gathered, gathered.transpose(1, 2)),
+                   Metric.L1: lambda: torch.cdist(gathered, gathered, p=1)}.get(metric)
+        outs = {"cands": cands.cpu().numpy(), "out": got.cpu().numpy()}
+        runs = [(f"{metric.value} nodes={PRUNE_NODES} L={m - 1} r={PRUNE_R}", f"K20_{metric.value}",
+                 lambda: graph.robust_prune(space, q_ids, cands, **kw), library, bnd, err, outs)]
+        if metric is Metric.L2:  # the keys mode at an insert's shape
+            link, k_ids = cands[:KEYS_NODES, :TOPL_L].contiguous(), q_ids[:KEYS_NODES]
+            gp, gq = graph.robust_prune(x, k_ids, link, metric=metric, keys_only=True)
+            wp, wq = graph.robust_prune_plain(x, k_ids, link, metric=metric, keys_only=True)
+            outs_k = {"cands": link.cpu().numpy(), "point": gp.cpu().numpy(),
+                      "pair": gq.cpu().numpy()}
+            same = bits_equal(outs_k["point"], wp.cpu().numpy()) and \
+                bits_equal(outs_k["pair"], wq.cpu().numpy())
+            runs.append((f"L2 keys nodes={KEYS_NODES} L={TOPL_L}", "K20_keys",
+                          lambda: graph.robust_prune(x, k_ids, link, metric=metric,
+                                                     keys_only=True), None,
+                          prune_bound(KEYS_NODES, TOPL_L + 1, DIM), 0.0 if same else float("inf"),
+                          outs_k))
+            del gp, gq, wp, wq
+        for shape, tag, fn, lib, bnd_, err_, arrays in runs:
+            if dump:
+                np.savez(f"{dump}_{tag}.npz", **arrays)
+            extra_cols = {}
+            if compare:
+                other = np.load(f"{compare}_{tag}.npz")
+                extra_cols = {"equal_to_other_tree": all(bits_equal(v, other[k])
+                                                         for k, v in arrays.items())}
+            row("K20 robust_prune", shape, fn, lib, bnd_, err_, K20_NAMES, **extra_cols)
+        del got, gathered, near, cands
 
 
 if __name__ == "__main__":

@@ -792,30 +792,67 @@ def test_topl_scan_plan_edges(dev, n, d, l, mode):
         _check_topl_chunk(x, xd, sq, lo, hi, n - 7, l, mode)
 
 
-@pytest.mark.parametrize("metric", [Metric.L2, Metric.COSINE, Metric.IP])
-def test_robust_prune_matches_plain(dev, metric):
-    rng = np.random.default_rng(3)
-    n, d, l, r = 5000, 40, 72, 32
-    x = rng.normal(size=(n, d)).astype(np.float32)
-    x[200:210] = x[3]
-    xd = torch.from_numpy(x).to(dev)
-    nodes = torch.from_numpy(rng.choice(n, 700, replace=False).astype(np.int32)).to(dev)
-    cands = rng.integers(0, n, size=(700, l)).astype(np.int32)
+# K20's shapes, (L, D, nodes): M = L + 1 table rows with node ids, L in the
+# keys mode without; 64 / 65 an insert's keys, 73 pass A (at 700 nodes the
+# shape these tests first took), 97 a delete repair, 201 several rounds of
+# tiles, 215 and 221 the shallower stages a large M takes to fit its shared
+# memory (16 and 8 dimensions in both modes), L = 37 and M = 73 not multiples
+# of the 4-row tile, D = 1 and 130 a ragged last stage, one node
+_PRUNE_SHAPES = [(72, 40, 700), (64, 40, 300), (72, 128, 300), (96, 130, 200), (200, 40, 60),
+                 (215, 130, 40), (221, 40, 20), (37, 1, 300), (72, 128, 1)]
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit, every NaN counted equal to any NaN."""
+    nan = torch.isnan(a)
+    if a.shape != b.shape or not torch.equal(nan, torch.isnan(b)):
+        return False
+    return torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _prune_both_modes(dev, space, metric: Metric, n: int, l: int, bs: int, seed: int):
+    """K20 against its plain version to the bit in its prune mode and both
+    keys modes, on candidates with -1s, self candidates, duplicates and the
+    rows 0-8 (the corner rows) among them."""
+    rng = np.random.default_rng(seed)
+    nodes = rng.choice(n, bs, replace=False).astype(np.int32)
+    cands = rng.integers(0, n, size=(bs, l)).astype(np.int32)
     cands[rng.random(cands.shape) < 0.1] = -1
-    cands[:, 5] = nodes.cpu().numpy()  # self candidates are dropped
+    cands[:, min(5, l - 1)] = nodes  # self candidates are dropped
+    if l > 12:
+        cands[:, 9] = cands[:, 10]  # duplicate candidates: equal keys
+        cands[:, 11] = np.arange(bs) % 9  # the corner rows
+        cands[:, 12] = (np.arange(bs) + 4) % 9
     cands = torch.from_numpy(cands).to(dev)
+    nodes = torch.from_numpy(nodes).to(dev)
     desc = metric is Metric.IP
-    got = graph_ops.robust_prune(xd, nodes, cands, metric=metric, r=r, alpha=1.2, descending=desc)
-    want = graph_ops.robust_prune_plain(xd, nodes, cands, metric=metric, r=r, alpha=1.2,
-                                        descending=desc)
+    kw = dict(metric=metric, r=32, alpha=1.2, descending=desc)
+    got = graph_ops.robust_prune(space, nodes, cands, **kw)
+    want = graph_ops.robust_prune_plain(space, nodes, cands, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert (got >= 0).sum() > 700
+    # more than one id a node kept; a lone node may keep one (under L2 its
+    # zero corner row is nearer than every other candidate and prunes them)
+    assert (got >= 0).sum() > (bs if bs > 1 else 0)
     for node_ids in (nodes, None):  # the keys mode, with and without point keys
-        gp, gq = graph_ops.robust_prune(xd, node_ids, cands, metric=metric, keys_only=True)
-        wp, wq = graph_ops.robust_prune_plain(xd, node_ids, cands, metric=metric, keys_only=True)
-        assert torch.equal(gq, wq)
-        assert (gp is None) == (wp is None) and (gp is None or torch.equal(gp, wp))
+        gp, gq = graph_ops.robust_prune(space, node_ids, cands, metric=metric, keys_only=True)
+        wp, wq = graph_ops.robust_prune_plain(space, node_ids, cands, metric=metric,
+                                              keys_only=True)
+        torch.cuda.synchronize()
+        assert _bits_equal(gq, wq)
+        assert (gp is None) == (wp is None) and (gp is None or _bits_equal(gp, wp))
+
+
+@pytest.mark.parametrize("l,d,bs", _PRUNE_SHAPES)
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.COSINE, Metric.IP])
+def test_robust_prune_matches_plain(dev, metric, l, d, bs):
+    n = 5000
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[200:210] = x[3]
+    x[:3] = 0.0  # zero rows: cosine's zero-norm policy
+    x[6, 0], x[7, 0], x[8, 0] = np.nan, np.inf, -np.inf  # NaN keys
+    _prune_both_modes(dev, torch.from_numpy(x).to(dev), metric, n, l, bs, l + d)
 
 
 @pytest.mark.parametrize("mode", ["HNSW-L2", "HNSW-IP", "DISKANN-L2", "DISKANN-IP", "DISKANN-COS"])
@@ -1255,29 +1292,33 @@ def test_topl_scan_metric_invalid_rows(dev, metric, l):
         _assert_keys_close(metric, torch.where(torch.isfinite(wk), rekeyed, wk), wk)
 
 
-@pytest.mark.parametrize("metric", GRAPH_DOMAIN, ids=[m.value for m in GRAPH_DOMAIN])
-def test_robust_prune_metric_matches_plain(dev, metric):
+_METRIC_PRUNE_CASES = [(m, l, 2 if m is Metric.HAVERSINE else d, bs, "corners")
+                       for m in GRAPH_DOMAIN for l, d, bs in _PRUNE_SHAPES]
+_METRIC_PRUNE_CASES.append((Metric.HAVERSINE, 72, 2, 300, "poles"))
+
+
+@pytest.mark.parametrize("metric,l,d,bs,data", _METRIC_PRUNE_CASES,
+                         ids=[f"{c[0].value}-{c[1]}-{c[2]}-{c[3]}-{c[4]}"
+                              for c in _METRIC_PRUNE_CASES])
+def test_robust_prune_metric_matches_plain(dev, metric, l, d, bs, data):
     """K20's pair tables under a domain metric equal to the plain version's
-    to the bit: the prune and both keys modes."""
-    n, l, r = 5000, 72, 32
-    x, xd, space = _domain_space(metric, dev, 3, n)
-    rng = np.random.default_rng(4)
-    nodes = torch.from_numpy(rng.choice(n, 700, replace=False).astype(np.int32)).to(dev)
-    cands = rng.integers(0, n, size=(700, l)).astype(np.int32)
-    cands[rng.random(cands.shape) < 0.1] = -1
-    cands[:, 5] = nodes.cpu().numpy()  # self candidates are dropped
-    cands = torch.from_numpy(cands).to(dev)
-    got = graph_ops.robust_prune(space, nodes, cands, metric=metric, r=r, alpha=1.2)
-    want = graph_ops.robust_prune_plain(space, nodes, cands, metric=metric, r=r, alpha=1.2)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert (got >= 0).sum() > 700
-    for node_ids in (nodes, None):
-        gp, gq = graph_ops.robust_prune(space, node_ids, cands, metric=metric, keys_only=True)
-        wp, wq = graph_ops.robust_prune_plain(space, node_ids, cands, metric=metric,
-                                              keys_only=True)
-        assert torch.equal(gq, wq)
-        assert (gp is None) == (wp is None) and (gp is None or torch.equal(gp, wp))
+    to the bit: the prune and both keys modes, over the corner rows (invalid,
+    zero-mass and constant rows, |lat| > 90) and NaN and infinite entries;
+    Haversine's whole table also over points near the poles and the
+    antimeridian."""
+    n = 5000
+    rng = np.random.default_rng(l + d)
+    if data == "poles":
+        x = np.stack([rng.choice([-180.0, 180.0], n) + rng.normal(scale=1e-3, size=n),
+                      rng.choice([-1.0, 1.0], n) * (90.0 - np.abs(rng.normal(scale=0.5, size=n)))],
+                     1).astype(np.float32)
+        x[::7, 0] = 179.9999  # the antimeridian from both sides
+        x[1::7, 0] = -179.9999
+    else:
+        x = _metric_rows(metric, rng, n, d)
+        x[6, 0], x[7, 0], x[8, -1] = np.nan, np.inf, -np.inf
+    xd = torch.from_numpy(x).to(dev)
+    _prune_both_modes(dev, graph_ops.graph_space(xd, metric), metric, n, l, bs, 4 + l)
 
 
 @pytest.mark.parametrize("bits", [100, 1024])
