@@ -127,6 +127,7 @@ failed check exits non-zero before them.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import subprocess
 import sys
@@ -145,10 +146,11 @@ from lynsedb_tpu_torch.ops import graph
 from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 from lynsedb_tpu_torch.tools.flat_latency import GcClock
-from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, F32_OPS, HBM_BPS, SFU_OPS,
-                                              binary_tile_bound, bound, bound_t, code_scan_bound,
-                                              f32_tile_bound, prune_bound, shared_list_bound,
-                                              topl_bound)
+from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, ELEM_DIM_OPS, F32_OPS, HBM_BPS,
+                                              SFU_OPS, binary_tile_bound, bound, bound_t,
+                                              code_scan_bound, elem_tile_bound, f32_tile_bound,
+                                              kmeans_update_bound, prune_bound,
+                                              shared_list_bound, topl_bound)
 
 N, DIM, K, C = 1_000_000, 128, 10, 256
 BATCHES = (1, 16, 256)
@@ -566,15 +568,17 @@ def kmeans_kernel_phase(x: np.ndarray, rng, stats: Stats) -> None:
           "kmeans_update centroids")
     stats.error("K15 kmeans_update", err.max())
     sums, assign64, w = torch.zeros_like(cent), assign.long(), data * valid[:, None]
-    # every row's assignment and valid byte, the valid rows' data, the old
-    # centroids in and the sums, centroids, counts and moves out
+    weights = valid.to(torch.float32)
+
+    def library():  # the sums (float atomics, any order) and the counts
+        sums.index_add_(0, assign64, w)
+        torch.bincount(assign64, weights=weights, minlength=N_CLUSTERS)
+
     n_valid = int(valid.sum())
     stats.time("K15 kmeans_update", f"N={n_train} K={N_CLUSTERS}",
                lambda: kmeans.kmeans_update(data, valid, assign, cent),
-               lambda: kmeans.kmeans_update_plain(data, valid, assign, cent),
-               lambda: sums.index_add_(0, assign64, w),
-               bound(n_train * 5 + n_valid * DIM * 4 + N_CLUSTERS * (3 * DIM + 2) * 4,
-                     n_valid * DIM))
+               lambda: kmeans.kmeans_update_plain(data, valid, assign, cent), library,
+               kmeans_update_bound(n_train, N_CLUSTERS, DIM, n_valid))
     print("   kmeans_update: sums, counts and centroids agree; two runs bit-identical", flush=True)
 
 
@@ -1208,11 +1212,6 @@ APPROX_RECALL_FLOOR = 0.90  # tests/test_approx.py:34
 BITS_N, BITS_DIM, BITS_DENSITY, GEO_N = 1_000_000, 1024, 0.1, 1_000_000
 N_MQ = 100 + 16 + 256  # the singles, one B=16 batch, one B=256 batch
 SQUARED = (Metric.HELLINGER, Metric.JENSEN_SHANNON)  # held on the squared distance
-# per-element f32 instructions and special-function operations (a reciprocal,
-# a logarithm) of K6c; Haversine's are a (query, row) pair's
-ELEM_OPS = {Metric.L1: (2, 0), Metric.CHEBYSHEV: (2, 0), Metric.CANBERRA: (4, 1),
-            Metric.BRAY_CURTIS: (4, 0), Metric.WASSERSTEIN: (2, 0),
-            Metric.JENSEN_SHANNON: (3, 1), Metric.HAVERSINE: (12, 6)}
 
 
 def dist_tol(metric: Metric, d64: torch.Tensor) -> torch.Tensor:
@@ -1414,15 +1413,17 @@ def metric_kernel_phase(corpus: DeviceCorpus, metric: Metric, qs: np.ndarray, st
             if metric in (Metric.L1, Metric.CHEBYSHEV):
                 p = 1 if metric is Metric.L1 else float("inf")
                 library = accepted(lambda: torch.cdist(qd, x32, p=p))
-            f32_ops, sfu_ops = ELEM_OPS[metric]
-            elems = b * n_live * (1 if metric is Metric.HAVERSINE else (
-                d - 1 if metric is Metric.WASSERSTEIN else d))
-            extra = 9 if metric in (Metric.WASSERSTEIN, Metric.JENSEN_SHANNON) else 0
-            bd = bound_t(n_live * (d * 4 + extra) + keys_bytes,
-                         max(elems * f32_ops / F32_OPS, elems * sfu_ops / SFU_OPS))
+            # the lead rows' width (Wasserstein's cdf has d - 1 columns) and
+            # the per-row terms: a mass and an invalid byte, and an entropy
+            lead = scan._elem_rows(ct, metric).shape[1]
+            extra = {Metric.WASSERSTEIN: 5, Metric.JENSEN_SHANNON: 9}.get(metric, 0)
+            bd = elem_tile_bound(metric.value, b, lead, n_live, rows, extra)
+        # at B = 256 the plain versions take 0.25-0.8 s a call: one timed
+        # launch after the warm-up for the K6c metrics past L1
+        reps = 10 if b < 256 else (1 if name == "K6c elementwise_scores" and
+                                   metric is not Metric.L1 else 3)
         stats.time(name, f"{metric.value} B={b}", lambda: scan.metric_keys(qt, ct, valid, metric),
-                   lambda: scan.metric_keys_plain(qt, ct, valid, metric), library, bd,
-                   reps=3 if b == 256 else 10)
+                   lambda: scan.metric_keys_plain(qt, ct, valid, metric), library, bd, reps=reps)
     # the gather mode (the approximate search's f32 rescore, K10) at B = 16
     qd = torch.from_numpy(np.ascontiguousarray(qs[:16])).to(DEV)
     qt = D.query_transform(qd, metric)
@@ -1438,7 +1439,7 @@ def metric_kernel_phase(corpus: DeviceCorpus, metric: Metric, qs: np.ndarray, st
                    lambda: scan.metric_keys(qt, ct, None, metric, ids=ids),
                    lambda: scan.metric_keys_plain(qt, ct, None, metric, ids=ids), None,
                    bound_t(n_cand * d * 4 + 16 * c * 8 + 16 * d * 4,
-                           n_cand * d * ELEM_OPS[metric][0] / F32_OPS))
+                           n_cand * d * ELEM_DIM_OPS[metric.value][0] / F32_OPS))
     print(f"   {name} {metric.value}: agrees with its plain version at B in {BATCHES} and in "
           f"the gather mode", flush=True)
     if metric not in (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS):
@@ -1508,8 +1509,10 @@ def metrics_path(db, coll, x, extra, dead, centers, rng, report, stats) -> None:
     sets = {"real": (coll, x_real, live, q_real), "hist": (None, x_hist, None, q_hist),
             "bits": (None, bits_dev, None, q_bits.cpu().numpy().astype(np.float32)),
             "geo": (None, x_geo, None, q_geo)}
+    # K6c every metric, K6a and K6b their first ones, at B = 1, 16 and 256
     timed = {"FLAT-CORRELATION": BATCHES, "FLAT-HELLINGER": (16,), "FLAT-TANIMOTO-BINARY": BATCHES,
-             "FLAT-L1": BATCHES}
+             **{f"FLAT-{m.value.upper().replace('_', '-')}": BATCHES
+                for m in D.ELEMENTWISE_METRICS}}
     for kind, (c, rows, live_np, qs) in sets.items():
         if c is None:
             host = rows.cpu().numpy().astype(np.float32) if torch.is_tensor(rows) else rows
@@ -1664,7 +1667,7 @@ def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool
     live = corpus.valid_mask()[:n]
     d = space.rows.shape[1]
     row_bytes = d * 4 + (12 if space.terms is not None else 0)
-    elem_ops = 1 if metric is Metric.HAVERSINE else d * ELEM_OPS.get(metric, (2, 0))[0]
+    elem_ops = 1 if metric is Metric.HAVERSINE else d * ELEM_DIM_OPS.get(metric.value, (2, 0))[0]
     code = graph._KIND_CODE[metric.value]
     kw = dict(code=code, beam=GRAPH_NPROBE, max_steps=2 * GRAPH_NPROBE, expand=1)
     with uncounted():
@@ -2439,8 +2442,9 @@ def main() -> int:
                 t0 = time.perf_counter()
                 coll.build_index(mode, n_clusters=N_CLUSTERS)
                 report[f"{mode} build_s"] = time.perf_counter() - t0
+                sha = hashlib.sha256(coll._engine._index.centroids_np.tobytes()).hexdigest()
                 print(f"   build_index({mode!r}, n_clusters={N_CLUSTERS}): "
-                      f"{report[f'{mode} build_s']:.2f} s", flush=True)
+                      f"{report[f'{mode} build_s']:.2f} s, centroids sha256 {sha}", flush=True)
                 t0 = time.perf_counter()
                 coll.search(centers[0], k=K, nprobe=NPROBE)  # stages the block copy
                 print(f"   first search (block copy): {time.perf_counter() - t0:.2f} s")

@@ -1,8 +1,8 @@
 // Shared pieces of the kernels: the metric codes and keys, the binary
 // distances, the selection order, a bitonic sort, the span threshold select
-// (WarpTopk), the cp.async copies and the tile sizes of K6c. The other
-// metrics' formulas are in metrics.cuh; the pipelined f32 tile of K1 / K6a /
-// K19 is in f32_tile.cuh, the bf16 tensor-core stage of K2 / K11 in
+// (WarpTopk), the cp.async copies and the tile sizes of K6c's bf16 mode. The
+// other metrics' formulas are in metrics.cuh; the pipelined f32 tile of K1 /
+// K6a / K6c / K19 is in f32_tile.cuh, the bf16 tensor-core stage of K2 / K11 in
 // mma_bf16.cuh, the integer tensor-core tile of K6b / K12 in mma_int.cuh.
 //
 // Every entry point of the library is a plain C function that launches on the
@@ -357,6 +357,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // max(d, 0) that keeps a NaN, as jnp.maximum does (fmaxf would drop it).
 __device__ __forceinline__ float clamp_nonneg(float d) { return d < 0.f ? 0.f : d; }
 
+// max(a, b), NaN if either is (the canonical NaN): one instruction.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // jnp.maximum / jnp.minimum / jnp.clip, which keep a NaN in the first operand.
 __device__ __forceinline__ float max_keep_nan(float a, float b) { return a < b ? b : a; }
 __device__ __forceinline__ float min_keep_nan(float a, float b) { return a > b ? b : a; }
@@ -393,7 +400,7 @@ __device__ __forceinline__ float to_key(float score, bool ascending, bool valid)
   return (valid && !isnan(key)) ? key : -INFINITY;
 }
 
-// K6c's tile (metrics.cuh elem_tile_accumulate, elementwise_scores.cu)
+// K6c's bf16 tile (K9: metrics.cuh elem_tile_accumulate, elementwise_scores.cu)
 constexpr int kTile = 64;          // corpus rows per block (and queries, for B > 16)
 constexpr int kTileK = 16;         // depth of one shared-memory stage
 constexpr int kTileThreads = 256;  // 16 x 16 threads, (TQ / 16) x 4 outputs each

@@ -1,10 +1,10 @@
 // K6c: the elementwise family — L1, Chebyshev, Canberra, Bray-Curtis,
 // Wasserstein (L1 over the rows' cdf transform), Jensen-Shannon (over the
-// probability transform) and Haversine — as one tiled kernel with the metric
-// a template parameter. Two further template switches serve the other jobs of
-// the family: the corpus type (f32 rows, or the mean-centred bf16 copy with
-// the mean added back in f32, K9's approximate first pass) and an explicit
-// (B, C) row list (the gather mode: K10's rescore of shortlists).
+// probability transform) and Haversine — with the metric a template
+// parameter, in the modes of the family's jobs: a tile over every f32 row
+// (exact search), a tile over the mean-centred bf16 copy with the mean added
+// back in f32 (K9's approximate first pass) and an explicit (B, C) row list
+// (the gather mode: K10's rescore of shortlists).
 //
 // Replaces lynsedb_tpu/ops/distance.py _pw_l1 (:199) to _pw_jensen_shannon
 // (:254) inside scan.py flat_topk (:190) and flat_scores (:243); scan.py
@@ -14,16 +14,42 @@
 // flush to zero: Canberra's 1e-45 floor is a denormal), are metrics.cuh's,
 // shared with the graph kernels.
 //
-// Bound: operations at B >= 16 (2-3 f32 operations an element for the L1
-// family and Wasserstein, with a division for Canberra and a logarithm for
-// Jensen-Shannon), the read of the rows at B = 1; Haversine reads 8 bytes a
-// row and is bound by its trigonometry at large B.
-// Design: common.cuh's tile shape (TQ queries x 64 rows a block, RQ x 4
-// outputs a thread, 16-deep shared-memory stages of the query and row tiles)
-// with a per-metric accumulator in place of the FMA; the epilogue applies the
-// metric's policy, orients and masks. The gather mode gives each (query, slot)
-// a warp whose lanes split the dimensions and reduce by shuffles.
-#include "metrics.cuh"
+// Bound (tools/roofline.py elem_tile_bound): at small B the read of the f32
+// rows (512 MB at 1M x 128: 0.153 ms at 3.35 TB/s) and the (B, N) key write;
+// above, each (pair, dimension)'s f32 instructions (two for the L1 family's
+// difference and add, four for Canberra and Bray-Curtis) over the f32
+// instruction rate, and Canberra's division and Jensen-Shannon's logarithm
+// over the special-function units. Haversine (D = 2) reads 8 bytes a row and
+// is bound by its two sines, square root and arcsine a pair at large B.
+// Design, by mode:
+//   f32 tile   csrc/f32_tile.cuh's pipelined tile with the inner step
+//              ElemStep<M> (metrics.cuh's accumulate<M>, one rounded operation
+//              at a time in dimension order), routed by B as K1 routes: B <= 16
+//              the bytes route (128-row, 32-dimension stages through a 3-deep
+//              cp.async ring, a row a thread, the batch's real queries), above
+//              the FMA route (128-row x 32/64/128-query tiles staged k-major,
+//              an 8 x 4 or 8 x 8 register tile a thread, the values leaving
+//              through a shared score tile; Bray-Curtis, two running values a
+//              pair, stays on 8 x 4 and leaves as its finished distance); an
+//              unaligned base or D % 4 != 0 takes the route's scalar loads.
+//              Canberra and Jensen-Shannon (a division or a logarithm a
+//              dimension: a long dependent chain) take the bytes route to
+//              B = 8 and the 64-row tile (below) above it. The epilogue
+//              applies the metric's policy with the probability metrics'
+//              per-row terms (the group's in shared memory), orients, masks
+//              and writes coalesced keys. Any tile that adds a pair's terms in
+//              dimension order gives these keys to the bit.
+//   Haversine  a row a thread, its GeoRow (radians, cos(lat)) formed once, the
+//              block's 64 queries' GeoRows in shared memory, coalesced keys.
+//   64-row     common.cuh's tile (TQ queries x 64 rows a block, 16-deep
+//              shared stages): the bf16 corpus (K9), the mean added back in
+//              f32, and the f32 rows under Canberra and Jensen-Shannon at
+//              B > 8.
+//   gather     (K10) a warp a (query, slot), lanes splitting the dimensions
+//              and merging by shuffles.
+#include <climits>
+
+#include "f32_tile.cuh"
 
 namespace {
 
@@ -108,26 +134,182 @@ __global__ void __launch_bounds__(kGatherThreads)
   }
 }
 
-// A thread a (query, row) in tile mode (the row's validity masks it) or a
-// (query, slot) in gather mode.
+// Haversine's gather mode: a thread a (query, slot).
 __global__ void __launch_bounds__(256)
-    haversine_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                     const uint8_t* __restrict__ valid, const int* __restrict__ ids, int N, int C,
-                     float* __restrict__ keys) {
+    haversine_gather_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                            const int* __restrict__ ids, int C, float* __restrict__ keys) {
   const int b = blockIdx.y;
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t width = ids ? C : N;
-  if (j >= width) return;
-  const int64_t n = ids ? ids[(int64_t)b * C + j] : j;
+  if (j >= C) return;
+  const int n = ids[(int64_t)b * C + j];
   float key = -INFINITY;
   if (n >= 0) {
     const float2 xr = __ldg(reinterpret_cast<const float2*>(x) + n);
     const float2 qr = reinterpret_cast<const float2*>(q)[b];
-    key = lt::to_key(lt::haversine(qr.x, qr.y, xr.x, xr.y), true, ids ? true : valid[n] != 0);
+    key = lt::to_key(lt::haversine(qr.x, qr.y, xr.x, xr.y), true, true);
   }
-  keys[(int64_t)b * width + j] = key;
+  keys[(int64_t)b * C + j] = key;
 }
 
+constexpr int kGeoThreads = 256, kGeoQueries = 64;
+
+// Haversine's tile mode: a row a thread (its GeoRow formed once) against the
+// block's kGeoQueries queries (their GeoRows in shared memory).
+__global__ void __launch_bounds__(kGeoThreads)
+    haversine_tile_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                          const uint8_t* __restrict__ valid, int B, int N,
+                          float* __restrict__ keys) {
+  __shared__ float q_lon[kGeoQueries], q_lat[kGeoQueries], q_cos[kGeoQueries];
+  __shared__ bool q_ok[kGeoQueries];
+  const int q0 = blockIdx.y * kGeoQueries, nq = min(kGeoQueries, B - q0);
+  for (int j = threadIdx.x; j < nq; j += kGeoThreads) {
+    const lt::GeoRow g = lt::geo_row(q[2 * (q0 + j)], q[2 * (q0 + j) + 1]);
+    q_lon[j] = g.lon;
+    q_lat[j] = g.lat;
+    q_cos[j] = g.cos_lat;
+    q_ok[j] = g.ok;
+  }
+  __syncthreads();
+  const int64_t n = (int64_t)blockIdx.x * kGeoThreads + threadIdx.x;
+  if (n >= N) return;
+  const lt::GeoRow xg = lt::geo_row(__ldg(x + 2 * n), __ldg(x + 2 * n + 1));
+  const bool live = valid[n] != 0;
+#pragma unroll 1
+  for (int j = 0; j < nq; ++j) {
+    const lt::GeoRow qg{q_lon[j], q_lat[j], q_cos[j], q_ok[j]};
+    keys[(int64_t)(q0 + j) * N + n] = lt::to_key(lt::haversine(qg, xg), true, live);
+  }
+}
+
+// ── the f32 tile mode: f32_tile.cuh's two routes ─────────────────────────
+
+struct ElemArgs {
+  const float* q;
+  const float* x;
+  int B, N, D;
+  bool vec;  // 16-byte loads of q and x
+  int groups;
+  int64_t span_rows;
+  RowTerms terms;
+  const uint8_t* valid;
+  float* keys;  // (B, N)
+};
+
+// The group's query terms (the probability metrics'), in shared memory.
+template <int TN>
+struct QueryTerms {
+  float a[TN], b[TN];
+  bool inv[TN];
+
+  __device__ __forceinline__ lt::RowTerm operator[](int j) const { return {a[j], b[j], inv[j]}; }
+};
+
+// A pair's distance from its score (ElemStep<M>::score: the running value,
+// or Bray-Curtis's finished distance) and the two rows' terms.
+template <int M>
+__device__ __forceinline__ float finish(float score, lt::RowTerm q, lt::RowTerm x) {
+  if constexpr (M == lt::kBrayCurtis) return score;
+  else return lt::elem_distance<M>(Acc{score, 0.f}, q, x);
+}
+
+// The epilogue of a tile, on either route: each key oriented (ascending) and
+// masked by its row's validity, the stores of a query coalesced.
+template <int M, class Tile>
+struct ElemKeys {
+  using Step = lt::ElemStep<M>;
+  RowTerms terms;
+  const uint8_t* valid;
+  float* keys;
+  int N;
+  const QueryTerms<Tile::TN>* qt;
+  int q0, nq;
+  int64_t row_end;
+
+  __device__ __forceinline__ float key(float score, int j, lt::RowTerm xt, bool live) const {
+    return lt::to_key(finish<M>(score, (*qt)[j], xt), true, live);
+  }
+
+  // the bytes route: thread t's row, every query of the group
+  __device__ __forceinline__ void operator()(int64_t tile_row,
+                                             const typename Step::Value (&acc)[Tile::TN]) const {
+    const int64_t n = tile_row + threadIdx.x;
+    if (n >= row_end) return;
+    const lt::RowTerm xt = RowTerms::row<M>(terms.x_mass, terms.x_ent, terms.x_inv, n);
+    const bool live = valid[n] != 0;
+#pragma unroll
+    for (int j = 0; j < Tile::TN; ++j)
+      if (j < nq) keys[(int64_t)(q0 + j) * N + n] = key(Step::score(acc[j]), j, xt, live);
+  }
+
+  // the FMA route: the tile's scores from the shared score tile, a thread a row
+  __device__ __forceinline__ void operator()(int64_t tile_row, const float* sc) const {
+    static_assert(Tile::kThreads % Tile::TM == 0, "a thread a row");
+    const int r = threadIdx.x % Tile::TM;
+    const int64_t n = tile_row + r;
+    if (n >= row_end) return;
+    const lt::RowTerm xt = RowTerms::row<M>(terms.x_mass, terms.x_ent, terms.x_inv, n);
+    const bool live = valid[n] != 0;
+#pragma unroll 4
+    for (int j = threadIdx.x / Tile::TM; j < nq; j += Tile::kThreads / Tile::TM)
+      keys[(int64_t)(q0 + j) * N + n] = key(sc[j * Tile::kScoreStride + r], j, xt, live);
+  }
+};
+
+// A block: query group blockIdx.x % groups over row span blockIdx.x / groups.
+template <int M, class Tile, bool kStream>
+__global__ void __launch_bounds__(Tile::kThreads) elem_f32_kernel(const ElemArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ QueryTerms<Tile::TN> qt;
+  const int group = blockIdx.x % a.groups;
+  const int64_t span = blockIdx.x / a.groups;
+  const int q0 = group * Tile::TN, nq = min(Tile::TN, a.B - q0);
+  const int64_t row0 = span * a.span_rows;
+  const int64_t row_end = min((int64_t)a.N, row0 + a.span_rows);
+  for (int j = threadIdx.x; j < nq; j += Tile::kThreads) {  // read after the loop's first barrier
+    const lt::RowTerm t = RowTerms::row<M>(a.terms.q_mass, a.terms.q_ent, a.terms.q_inv, q0 + j);
+    qt.a[j] = t.a;
+    qt.b[j] = t.b;
+    qt.inv[j] = t.inv;
+  }
+  const lt::F32Span sp{a.q, a.x, a.D, a.vec, q0, nq, row0, row_end};
+  const ElemKeys<M, Tile> epi{a.terms, a.valid, a.keys, a.N, &qt, q0, nq, row_end};
+  if constexpr (kStream) {
+    lt::stream_span_scores<Tile, lt::ElemStep<M>>(sp, smem, epi);
+  } else {
+    lt::fma_span_scores<Tile, lt::ElemStep<M>>(sp, smem, epi);
+  }
+}
+
+template <int M, class Tile, bool kStream>
+int launch_f32_tile(ElemArgs a, cudaStream_t stream) {
+  const auto kernel = elem_f32_kernel<M, Tile, kStream>;
+  static int resident = 0;
+  if (resident == 0) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Tile::kSmem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, Tile::kThreads, Tile::kSmem);
+    if (resident < 1) resident = 1;
+  }
+  const lt::SpanGrid g = lt::span_grid<Tile>(a.B, a.N, resident);
+  if (g.blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  a.groups = g.groups;
+  a.span_rows = g.span_rows;
+  kernel<<<(unsigned)g.blocks, Tile::kThreads, Tile::kSmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The bytes route at B <= 16: the real queries, B rounded up to a power of two.
+template <int M>
+int route_bytes(const ElemArgs& a, cudaStream_t stream) {
+  if (a.B <= 1) return launch_f32_tile<M, lt::BytesTile<1>, true>(a, stream);
+  if (a.B <= 2) return launch_f32_tile<M, lt::BytesTile<2>, true>(a, stream);
+  if (a.B <= 4) return launch_f32_tile<M, lt::BytesTile<4>, true>(a, stream);
+  if (a.B <= 8) return launch_f32_tile<M, lt::BytesTile<8>, true>(a, stream);
+  return launch_f32_tile<M, lt::BytesTile<16>, true>(a, stream);
+}
+
+// The 64-row tile (common.cuh's; TQ = 16 queries a block to B = 16, else 64):
+// the bf16 corpus's (K9), and the f32 rows' under the rolled metrics above
+// B = 8.
 template <int M, typename T>
 int launch_tile(const float* q, const T* x, const float* mean, int B, int N, int D,
                 RowTerms terms, const uint8_t* valid, float* keys, cudaStream_t stream) {
@@ -141,6 +323,30 @@ int launch_tile(const float* q, const T* x, const float* mean, int B, int N, int
         q, x, mean, B, N, D, terms, valid, keys);
   }
   return (int)cudaGetLastError();
+}
+
+// The route by B. The per-dimension-cheap metrics route as K1: the bytes
+// route to B = 16, then the FMA route (32, 64 or 128 queries a block;
+// Bray-Curtis's two running values a pair keep it at 8 x 4 a thread). A
+// rolled step (Canberra's division, Jensen-Shannon's logarithm) is a long
+// dependent chain: the bytes route to B = 8, then the 64-row tile, which
+// measured faster there than every FMA-route shape tried (PERF.md).
+template <int M>
+int route_f32_tile(const ElemArgs& a, cudaStream_t stream) {
+  if constexpr (lt::ElemStep<M>::kRolled) {
+    if (a.B <= 8) return route_bytes<M>(a, stream);
+    return launch_tile<M, float>(a.q, a.x, nullptr, a.B, a.N, a.D, a.terms, a.valid, a.keys,
+                                 stream);
+  } else {
+    if (a.B <= 16) return route_bytes<M>(a, stream);
+    if (a.B <= 32) return launch_f32_tile<M, lt::FmaTile<32, 4, 16>, false>(a, stream);
+    if constexpr (M == lt::kBrayCurtis) {
+      return launch_f32_tile<M, lt::FmaTile<64, 4, 16>, false>(a, stream);
+    } else {
+      if (a.B <= 64) return launch_f32_tile<M, lt::FmaTile<64, 4, 16>, false>(a, stream);
+      return launch_f32_tile<M, lt::FmaTile<128, 8, 8>, false>(a, stream);
+    }
+  }
 }
 
 template <int M>
@@ -158,7 +364,9 @@ int launch(const float* q, const void* x, bool x_bf16, const float* mean, int B,
     return launch_tile<M>(q, static_cast<const __nv_bfloat16*>(x), mean, B, N, D, terms, valid,
                           keys, stream);
   }
-  return launch_tile<M>(q, static_cast<const float*>(x), mean, B, N, D, terms, valid, keys, stream);
+  const float* xf = static_cast<const float*>(x);
+  const bool vec = D % 4 == 0 && lt::aligned16(q) && lt::aligned16(xf);
+  return route_f32_tile<M>(ElemArgs{q, xf, B, N, D, vec, 0, 0, terms, valid, keys}, stream);
 }
 
 }  // namespace
@@ -198,10 +406,15 @@ extern "C" int lt_elementwise_scores(const float* q, const void* x, int x_bf16, 
                                         stream);
     case lt::kHaversine: {
       if (D != 2) return (int)cudaErrorInvalidValue;
-      const int64_t width = ids ? C : N;
-      const dim3 grid((unsigned)((width + 255) / 256), (unsigned)B);
-      haversine_kernel<<<grid, 256, 0, stream>>>(q, static_cast<const float*>(x), valid, ids, N,
-                                                  C, keys);
+      const float* xf = static_cast<const float*>(x);
+      if (ids != nullptr) {
+        const dim3 grid((unsigned)((C + 255) / 256), (unsigned)B);
+        haversine_gather_kernel<<<grid, 256, 0, stream>>>(q, xf, ids, C, keys);
+      } else {
+        const dim3 grid((unsigned)((N + kGeoThreads - 1) / kGeoThreads),
+                        (unsigned)((B + kGeoQueries - 1) / kGeoQueries));
+        haversine_tile_kernel<<<grid, kGeoThreads, 0, stream>>>(q, xf, valid, B, N, keys);
+      }
       return (int)cudaGetLastError();
     }
     default: return (int)cudaErrorInvalidValue;

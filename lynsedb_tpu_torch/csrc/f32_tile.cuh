@@ -1,16 +1,16 @@
-// The exact f32 score tile of K1 and K6a (flat_scores_f32.cu) and K19
-// (topl_scan.cu): each query's dot product with each corpus row as one f32
-// FMA chain over the dimensions in order (no TF32, no tensor cores); on the
-// FMA route the inner step may instead be an elementwise metric's
-// accumulate<M> (metrics.cuh), one rounded operation at a time in the same
-// order (K19's metric mode).
+// The exact f32 score tile of K1 and K6a (flat_scores_f32.cu), K6c's f32
+// tile mode (elementwise_scores.cu) and K19 (topl_scan.cu): each query's dot
+// product with each corpus row as one f32 FMA chain over the dimensions in
+// order (no TF32, no tensor cores); on either route the inner step may
+// instead be an elementwise metric's accumulate<M> (metrics.cuh), one
+// rounded operation at a time in the same order (K6c, K19's metric mode).
 //
 // A block takes a span of corpus rows for a group of queries and walks it in
 // tiles of rows, a stage of dimensions at a time; the stages run on across
 // tile boundaries, so the loads of the next tile fly while this one
 // computes. After a tile's last stage the caller's epilogue takes the
 // accumulators and the loop clears them. Two routes, chosen by B
-// (flat_scores_f32.cu):
+// (flat_scores_f32.cu, elementwise_scores.cu):
 //   bytes (B <= 16)  BytesTile<QB>, QB = B rounded up to 1, 2, 4, 8 or 16:
 //                    128-row tiles of 32 dimensions through a 3-deep cp.async
 //                    ring of 16-byte copies, a row a thread, every real query
@@ -28,9 +28,33 @@
 // loads on the same route (a route by shape).
 #pragma once
 
+#include <algorithm>
+#include <type_traits>
+
 #include "metrics.cuh"
 
 namespace lt {
+
+// The grid of a kernel that walks spans of rows with one of these tiles (K1,
+// K6c): one wave of the `resident` blocks an SM holds on every SM, spans a
+// whole number of tiles; block i takes query group i % groups of span i /
+// groups, so the groups of a span re-read it from L2 together.
+struct SpanGrid {
+  int groups;
+  int64_t span_rows, blocks;
+};
+
+template <class Tile>
+inline SpanGrid span_grid(int B, int N, int resident) {
+  SpanGrid g;
+  g.groups = (B + Tile::TN - 1) / Tile::TN;
+  const int64_t tiles = ((int64_t)N + Tile::TM - 1) / Tile::TM;
+  const int64_t spans = std::max<int64_t>(
+      1, std::min<int64_t>(tiles, (int64_t)resident * sm_count() / g.groups));
+  g.span_rows = (tiles + spans - 1) / spans * Tile::TM;
+  g.blocks = (int64_t)g.groups * ((N + g.span_rows - 1) / g.span_rows);
+  return g;
+}
 
 // ── the bytes route: a cp.async ring, a row a thread ─────────────────────
 
@@ -59,70 +83,136 @@ struct F32Span {
 };
 
 // Stage `step` (tile step / kchunks, dimensions from (step % kchunks) * KC)
-// into dst: TM rows, then TN queries; zeros past D, past the span and past
-// the group.
+// into dst by cp.async, 16 bytes a copy (sp.vec) or 4: TM rows, then TN
+// queries; zeros past D, past the span and past the group.
 template <class Tile>
 __device__ __forceinline__ void stream_load_stage(const F32Span& sp, float* dst, int step,
                                                   int kchunks) {
   const int64_t r0 = sp.row0 + (int64_t)(step / kchunks) * Tile::TM;
   const int k0 = (step % kchunks) * Tile::KC;
-  if (sp.vec) {
-    constexpr int kChunks = Tile::KC / 4;  // 16-byte copies a row
-    for (int c = threadIdx.x; c < (Tile::TM + Tile::TN) * kChunks; c += Tile::kThreads) {
-      const int r = c / kChunks, col = (c % kChunks) * 4, d = k0 + col;
-      const float* src = sp.x;
-      bool ok;
-      if (r < Tile::TM) {
-        ok = r0 + r < sp.row_end && d < sp.D;
-        if (ok) src = sp.x + (r0 + r) * sp.D + d;
-      } else {
-        ok = r - Tile::TM < sp.nq && d < sp.D;
-        if (ok) src = sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D + d;
-      }
-      cp_async16(dst + r * Tile::kStride + col, src, ok ? 16 : 0);
+  const int per = sp.vec ? 4 : 1;  // floats a copy
+  const int copies = Tile::KC / per;  // a row's copies
+  for (int c = threadIdx.x; c < (Tile::TM + Tile::TN) * copies; c += Tile::kThreads) {
+    const int r = c / copies, col = (c % copies) * per, d = k0 + col;
+    const float* src = sp.x;
+    bool ok;
+    if (r < Tile::TM) {
+      ok = r0 + r < sp.row_end && d < sp.D;
+      if (ok) src = sp.x + (r0 + r) * sp.D + d;
+    } else {
+      ok = r - Tile::TM < sp.nq && d < sp.D;
+      if (ok) src = sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D + d;
     }
-  } else {
-    for (int e = threadIdx.x; e < (Tile::TM + Tile::TN) * Tile::KC; e += Tile::kThreads) {
-      const int r = e / Tile::KC, col = e % Tile::KC, d = k0 + col;
-      float v = 0.f;
-      if (r < Tile::TM) {
-        if (r0 + r < sp.row_end && d < sp.D) v = __ldg(sp.x + (r0 + r) * sp.D + d);
-      } else if (r - Tile::TM < sp.nq && d < sp.D) {
-        v = __ldg(sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D + d);
-      }
-      dst[r * Tile::kStride + col] = v;
+    if (sp.vec) {
+      cp_async16(dst + r * Tile::kStride + col, src, ok ? 16 : 0);
+    } else {
+      cp_async4(dst + r * Tile::kStride + col, src, ok ? 4 : 0);
     }
   }
 }
 
-// acc[j] += the thread's row . query j over one stage, dimension by dimension.
-template <class Tile>
-__device__ __forceinline__ void stream_stage_fma(const float* st, float (&acc)[Tile::TN]) {
+// The inner step of either route, acc op= (row value x, query value q) for
+// one dimension: FmaStep the dot product's FMA (K1, K6a, K19's product
+// modes); ElemStep<M> an elementwise metric's term (K6c; K19 under L1,
+// Chebyshev, Wasserstein and Jensen-Shannon), whose running value is one
+// float, or two for Bray-Curtis (its denominator); NoStep nothing (K19's
+// Haversine keys come from the rows in its epilogue). score(acc) is what a
+// pair's running value leaves the loop as: the value itself, or Bray-Curtis's
+// finished distance (so the FMA route's score tile stays one float a pair).
+// Dimensions past D are zeros on both sides, which leave each running value's
+// bits as they are (a value that starts at +0 is never -0). Chebyshev's step
+// is accumulate<M>'s max but for a NaN's payload (max.NaN gives the canonical
+// NaN), which no key keeps: a NaN distance is a -inf key. kRolled: the
+// stage's dimensions in a loop rather than unrolled (Jensen-Shannon's
+// logarithm and Canberra's division make an unrolled stage too long for the
+// instruction cache).
+struct FmaStep {
+  using Value = float;
+  static constexpr bool kRolled = false;
+  __device__ __forceinline__ void operator()(float& acc, float x, float q) const {
+    acc = fmaf(x, q, acc);
+  }
+  __device__ __forceinline__ static float score(float acc) { return acc; }
+};
+
+template <int M>
+struct ElemStep {
+  static_assert(M == kL1 || M == kChebyshev || M == kCanberra || M == kBrayCurtis ||
+                    M == kWasserstein || M == kJensenShannon,
+                "an elementwise metric with a per-dimension term");
+  using Value = std::conditional_t<M == kBrayCurtis, Acc, float>;
+  static constexpr bool kRolled = M == kJensenShannon || M == kCanberra;
+  __device__ __forceinline__ void operator()(Value& acc, float x, float q) const {
+    if constexpr (M == kBrayCurtis) {
+      accumulate<M>(acc, q, x);
+    } else if constexpr (M == kChebyshev) {
+      acc = max_nan(acc, fabsf(q - x));
+    } else {
+      Acc a{acc, 0.f};
+      accumulate<M>(a, q, x);
+      acc = a.a;
+    }
+  }
+  __device__ __forceinline__ static float score(const Value& acc) {
+    if constexpr (M == kBrayCurtis) return elem_distance<M>(acc, RowTerm{}, RowTerm{});
+    else return acc;
+  }
+};
+
+struct NoStep {
+  using Value = float;
+  static constexpr bool kRolled = false;
+  __device__ __forceinline__ void operator()(float&, float, float) const {}
+  __device__ __forceinline__ static float score(float acc) { return acc; }
+};
+
+// Tiles a span walks: a row of no dimensions still takes one stage (of
+// zeros), so its epilogue runs (K6c's Wasserstein over a one-column row).
+__device__ __forceinline__ int span_kchunks(int D, int KC) {
+  return D > KC ? (D + KC - 1) / KC : 1;
+}
+
+// acc[j] op= the thread's row against query j over one stage, dimension by
+// dimension (a rolled step: one dimension an iteration, TN steps).
+template <class Tile, class Step>
+__device__ __forceinline__ void stream_stage(const float* st,
+                                             typename Step::Value (&acc)[Tile::TN],
+                                             const Step& step) {
   const float* xs = st + threadIdx.x * Tile::kStride;
   const float* qs = st + Tile::TM * Tile::kStride;
+  if constexpr (Step::kRolled) {
+#pragma unroll 1
+    for (int k = 0; k < Tile::KC; ++k) {
+      const float xv = xs[k];
 #pragma unroll
-  for (int k = 0; k < Tile::KC; k += 4) {
-    const float4 xv = *reinterpret_cast<const float4*>(xs + k);
+      for (int j = 0; j < Tile::TN; ++j) step(acc[j], xv, qs[j * Tile::kStride + k]);
+    }
+  } else {
 #pragma unroll
-    for (int j = 0; j < Tile::TN; ++j) {
-      const float4 qv = *reinterpret_cast<const float4*>(qs + j * Tile::kStride + k);
-      acc[j] = fmaf(xv.x, qv.x, acc[j]);
-      acc[j] = fmaf(xv.y, qv.y, acc[j]);
-      acc[j] = fmaf(xv.z, qv.z, acc[j]);
-      acc[j] = fmaf(xv.w, qv.w, acc[j]);
+    for (int k = 0; k < Tile::KC; k += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(xs + k);
+#pragma unroll
+      for (int j = 0; j < Tile::TN; ++j) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + j * Tile::kStride + k);
+        step(acc[j], xv.x, qv.x);
+        step(acc[j], xv.y, qv.y);
+        step(acc[j], xv.z, qv.z);
+        step(acc[j], xv.w, qv.w);
+      }
     }
   }
 }
 
-// The bytes route over the block's span: epi(tile_row, acc) after each
-// tile's last stage, acc[j] the dot product of row tile_row + thread with
-// query q0 + j (rows past the span and queries past the group hold 0 and
-// are the epilogue's to skip). `ring` is Tile::kSmem bytes of dynamic
-// shared memory. The ring runs on across tile boundaries.
-template <class Tile, class Epi>
+// The bytes route over the block's span (Step: the inner step, FmaStep's dot
+// product unless given): epi(tile_row, acc) after each tile's last stage,
+// acc[j] the running value of row tile_row + thread against query q0 + j
+// (rows past the span and queries past the group run on zeros and are the
+// epilogue's to skip). `ring` is Tile::kSmem bytes of dynamic shared memory.
+// The ring runs on across tile boundaries.
+template <class Tile, class Step = FmaStep, class Epi>
 __device__ __forceinline__ void stream_span_scores(const F32Span& sp, float* ring,
                                                    const Epi& epi) {
-  const int kchunks = (sp.D + Tile::KC - 1) / Tile::KC;
+  const int kchunks = span_kchunks(sp.D, Tile::KC);
   const int tiles = (int)((sp.row_end - sp.row0 + Tile::TM - 1) / Tile::TM);
   const int steps = tiles * kchunks;
 #pragma unroll
@@ -130,7 +220,7 @@ __device__ __forceinline__ void stream_span_scores(const F32Span& sp, float* rin
     if (s < steps) stream_load_stage<Tile>(sp, ring + s * Tile::kStageFloats, s, kchunks);
     cp_async_commit();
   }
-  float acc[Tile::TN] = {};
+  typename Step::Value acc[Tile::TN] = {};
   for (int s = 0; s < steps; ++s) {
     cp_async_wait<Tile::kStages - 2>();
     __syncthreads();  // stage s has landed; every thread is done with stage s - 1
@@ -139,11 +229,11 @@ __device__ __forceinline__ void stream_span_scores(const F32Span& sp, float* rin
       stream_load_stage<Tile>(sp, ring + (next % Tile::kStages) * Tile::kStageFloats, next,
                               kchunks);
     cp_async_commit();
-    stream_stage_fma<Tile>(ring + (s % Tile::kStages) * Tile::kStageFloats, acc);
+    stream_stage<Tile>(ring + (s % Tile::kStages) * Tile::kStageFloats, acc, Step{});
     if (s % kchunks != kchunks - 1) continue;
     epi(sp.row0 + (int64_t)(s / kchunks) * Tile::TM, acc);
 #pragma unroll
-    for (int j = 0; j < Tile::TN; ++j) acc[j] = 0.f;
+    for (int j = 0; j < Tile::TN; ++j) acc[j] = typename Step::Value{};
   }
   cp_async_wait<0>();
 }
@@ -232,43 +322,11 @@ __device__ __forceinline__ void fma_store(float* st, const float4 (&pf)[Tile::kL
   }
 }
 
-// The FMA route's inner step, acc op= (row value x, query value q) for one
-// dimension: FmaStep the dot product's FMA (K1, K6a, K19's product modes);
-// ElemStep<M> an elementwise metric's term, whose accumulator is one float
-// (L1, Chebyshev, Wasserstein, Jensen-Shannon: no Bray-Curtis denominator);
-// NoStep nothing (K19's Haversine keys come from the rows in its epilogue).
-// Dimensions past D are zeros on both sides, which leave each accumulator's
-// bits as they are (an accumulator that starts at +0 is never -0). kRolled:
-// the stage's dimensions in a loop rather than unrolled (Jensen-Shannon's
-// logarithm makes an unrolled stage too long for the instruction cache).
-struct FmaStep {
-  static constexpr bool kRolled = false;
-  __device__ __forceinline__ void operator()(float& acc, float x, float q) const {
-    acc = fmaf(x, q, acc);
-  }
-};
-
-template <int M>
-struct ElemStep {
-  static_assert(M == kL1 || M == kChebyshev || M == kWasserstein || M == kJensenShannon,
-                "a metric with one running value");
-  static constexpr bool kRolled = M == kJensenShannon;
-  __device__ __forceinline__ void operator()(float& acc, float x, float q) const {
-    Acc a{acc, 0.f};
-    accumulate<M>(a, q, x);
-    acc = a.a;
-  }
-};
-
-struct NoStep {
-  static constexpr bool kRolled = false;
-  __device__ __forceinline__ void operator()(float&, float, float) const {}
-};
-
 // One dimension k of a stage: the thread's 8 rows and RN queries, 8 RN steps.
 template <class Tile, class Step>
 __device__ __forceinline__ void fma_dim(const float* xs, const float* qs, int k,
-                                        float (&acc)[Tile::RM][Tile::RN], const Step& step) {
+                                        typename Step::Value (&acc)[Tile::RM][Tile::RN],
+                                        const Step& step) {
   float xv[Tile::RM], qv[Tile::RN];
 #pragma unroll
   for (int g = 0; g < 2; ++g) {
@@ -300,7 +358,8 @@ __device__ __forceinline__ void fma_dim(const float* xs, const float* qs, int k,
 }
 
 template <class Tile, class Step>
-__device__ __forceinline__ void fma_stage(const float* st, float (&acc)[Tile::RM][Tile::RN],
+__device__ __forceinline__ void fma_stage(const float* st,
+                                          typename Step::Value (&acc)[Tile::RM][Tile::RN],
                                           const Step& step) {
   const int tr = Tile::tr(), tq = Tile::tq();
   const float* xs = st + 4 * tr;
@@ -314,10 +373,11 @@ __device__ __forceinline__ void fma_stage(const float* st, float (&acc)[Tile::RM
   }
 }
 
-// Stores the accumulators to the score tile sc[query][row] (4 rows a 16-byte
-// store) and clears them.
-template <class Tile>
-__device__ __forceinline__ void fma_scores_to_smem(float* sc, float (&acc)[Tile::RM][Tile::RN]) {
+// Stores the running values' scores (Step::score) to the score tile
+// sc[query][row] (4 rows a 16-byte store) and clears the values.
+template <class Tile, class Step>
+__device__ __forceinline__ void fma_scores_to_smem(
+    float* sc, typename Step::Value (&acc)[Tile::RM][Tile::RN]) {
   const int tr = Tile::tr(), tq = Tile::tq();
 #pragma unroll
   for (int j = 0; j < Tile::RN; ++j)
@@ -325,14 +385,15 @@ __device__ __forceinline__ void fma_scores_to_smem(float* sc, float (&acc)[Tile:
     for (int g = 0; g < 2; ++g) {
       float* dst = sc + Tile::query(tq, j) * Tile::kScoreStride + Tile::row(tr, 4 * g);
       *reinterpret_cast<float4*>(dst) =
-          make_float4(acc[4 * g][j], acc[4 * g + 1][j], acc[4 * g + 2][j], acc[4 * g + 3][j]);
+          make_float4(Step::score(acc[4 * g][j]), Step::score(acc[4 * g + 1][j]),
+                      Step::score(acc[4 * g + 2][j]), Step::score(acc[4 * g + 3][j]));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[4 * g + e][j] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[4 * g + e][j] = typename Step::Value{};
     }
 }
 
 // The FMA route over the block's span (Step: the inner step, FmaStep's dot
-// product unless given): after each tile's last stage the accumulated values
+// product unless given): after each tile's last stage the values' scores
 // go to a shared score tile sc[query][row] (sc[j * (TM + 4) + r]: row
 // tile_row + r, query q0 + j) and epi(tile_row, sc) runs, every thread of the
 // block, after the stage's barrier, so an epilogue of any cost holds no
@@ -345,7 +406,7 @@ __device__ __forceinline__ void fma_scores_to_smem(float* sc, float (&acc)[Tile:
 // that others still read.
 template <class Tile, class Step = FmaStep, class Epi>
 __device__ __forceinline__ void fma_span_scores(const F32Span& sp, float* smem, const Epi& epi) {
-  const int kchunks = (sp.D + Tile::KC - 1) / Tile::KC;
+  const int kchunks = span_kchunks(sp.D, Tile::KC);
   const int tiles = (int)((sp.row_end - sp.row0 + Tile::TM - 1) / Tile::TM);
   const int steps = tiles * kchunks;
   float* sc = smem + 2 * Tile::kStageFloats;
@@ -353,12 +414,12 @@ __device__ __forceinline__ void fma_span_scores(const F32Span& sp, float* smem, 
   fma_load<Tile>(sp, 0, kchunks, pf);
   fma_store<Tile>(smem, pf);
   __syncthreads();
-  float acc[Tile::RM][Tile::RN] = {};
+  typename Step::Value acc[Tile::RM][Tile::RN] = {};
   for (int s = 0; s < steps; ++s) {
     if (s + 1 < steps) fma_load<Tile>(sp, s + 1, kchunks, pf);
     fma_stage<Tile>(smem + (s & 1) * Tile::kStageFloats, acc, Step{});
     const bool last = s % kchunks == kchunks - 1;
-    if (last) fma_scores_to_smem<Tile>(sc, acc);
+    if (last) fma_scores_to_smem<Tile, Step>(sc, acc);
     if (s + 1 < steps) fma_store<Tile>(smem + ((s + 1) & 1) * Tile::kStageFloats, pf);
     __syncthreads();  // stage s + 1 and the scores stored; every thread is done with stage s
     if (!last) continue;

@@ -26,8 +26,6 @@
 // terms and writes the oriented key, -inf for masked rows and NaN, so K5 can
 // select without another pass. The gather mode gives each (query, slot) a warp, as
 // K11's per-query mode does.
-#include <algorithm>
-
 #include "f32_tile.cuh"
 #include "metrics.cuh"
 
@@ -190,15 +188,11 @@ int launch_tile(TileArgs a, cudaStream_t stream) {
                                                   Tile::kThreads, Tile::kSmem);
     if (resident < 1) resident = 1;
   }
-  // one wave of the blocks the card holds at once, spans a whole number of tiles
-  a.groups = (a.B + Tile::TN - 1) / Tile::TN;
-  const int64_t tiles = ((int64_t)a.N + Tile::TM - 1) / Tile::TM;
-  const int64_t spans = std::max<int64_t>(
-      1, std::min<int64_t>(tiles, (int64_t)resident * lt::sm_count() / a.groups));
-  a.span_rows = (tiles + spans - 1) / spans * Tile::TM;
-  const int64_t blocks = (int64_t)a.groups * ((a.N + a.span_rows - 1) / a.span_rows);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  f32_tile_kernel<Tile, kStream><<<(unsigned)blocks, Tile::kThreads, Tile::kSmem, stream>>>(a);
+  const lt::SpanGrid g = lt::span_grid<Tile>(a.B, a.N, resident);
+  if (g.blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  a.groups = g.groups;
+  a.span_rows = g.span_rows;
+  f32_tile_kernel<Tile, kStream><<<(unsigned)g.blocks, Tile::kThreads, Tile::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

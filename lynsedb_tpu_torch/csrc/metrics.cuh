@@ -163,11 +163,13 @@ __device__ __forceinline__ float load_row(const T* x, int64_t i, const float* me
   }
 }
 
-// K6c's tile: acc[i][j] gathers accumulate<M> of query q0 + ty * RQ + i
-// against row n0 + tx * 4 + j (tx = thread % 16, ty = thread / 16, RQ = TQ /
-// 16) over all D dimensions in order, staged kTileK at a time through qs and
-// xs; queries >= B and rows >= n_end read as 0. T is float or the centred __nv_bfloat16 copy with ``mean``
-// (D,) added back. All kTileThreads threads of the block call it.
+// K6c's 64-row tile (the bf16 corpus's, K9, and the f32 rows' under
+// Canberra and Jensen-Shannon above B = 8): acc[i][j] gathers accumulate<M> of query q0 + ty *
+// RQ + i against row n0 + tx * 4 + j (tx = thread % 16, ty = thread / 16, RQ
+// = TQ / 16) over all D dimensions in order, staged kTileK at a time through
+// qs and xs; queries >= B and rows >= n_end read as 0. T is float or the
+// centred __nv_bfloat16 copy with ``mean`` (D,) added back. All kTileThreads
+// threads of the block call it.
 template <int M, int TQ, typename T>
 __device__ __forceinline__ void elem_tile_accumulate(const float* __restrict__ q,
                                                      const T* __restrict__ x,

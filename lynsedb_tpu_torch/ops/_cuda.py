@@ -50,7 +50,7 @@ _SIGNATURES = {
     "lt_rescore_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "lt_rescore_keys": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "lt_kmeans_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "lt_kmeans_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "lt_ivf_scan_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "lt_fwht_rotate": (_P, _P, _I, _I, _I, _P, _P),
     "lt_int8_code_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -128,7 +128,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.lt_topk_scratch.argtypes = [_I, _I, _I]
             lib.lt_topk_merge_scratch.argtypes = [_I, _I, _I, _I]
-            for name in ("lt_topk_scratch", "lt_topk_merge_scratch"):
+            lib.lt_kmeans_update_scratch.argtypes = [_I, _I]
+            for name in ("lt_topk_scratch", "lt_topk_merge_scratch", "lt_kmeans_update_scratch"):
                 getattr(lib, name).restype = ctypes.c_longlong
             for name in ("lt_topc_spans", "lt_topc_scratch"):
                 getattr(lib, name).argtypes = [_I, _I, _I, _I]

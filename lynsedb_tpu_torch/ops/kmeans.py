@@ -4,9 +4,11 @@ Port of lynsedb_tpu/ops/kmeans.py. One Lloyd step is two hand-written
 kernels: :func:`kmeans_assign` (csrc/kmeans_assign.cu; an f32 tile product
 whose epilogue keeps each row's nearest centroid, so the (N, K) matrix is
 never written; it is also the JAX package's ``assign_clusters``) and
-:func:`kmeans_update` (csrc/kmeans_update.cu; per-centroid sums and counts
-in row order, deterministic, plus the new centroids and their moves). Each wrapper launches its kernel for CUDA tensors and runs the
-plain PyTorch version beside it for CPU tensors.
+:func:`kmeans_update` (csrc/kmeans_update.cu; a stable counting sort of
+the rows by centroid, then per-centroid sums in row order, deterministic,
+plus the new centroids and their moves; its scratch comes from PyTorch's
+caching allocator). Each wrapper launches its kernel for CUDA tensors and
+runs the plain PyTorch version beside it for CPU tensors.
 
 The k-means++ seeding runs as PyTorch ops with a ``torch.Generator`` seeded
 from ``seed``: k sequential draws over a pool of at most 16 k rows at build
@@ -122,9 +124,12 @@ def kmeans_update(data: torch.Tensor, valid: torch.Tensor, assign: torch.Tensor,
     new = torch.empty_like(sums)
     counts = torch.empty(k, dtype=torch.float32, device=data.device)
     moves = torch.empty_like(counts)
+    # -1 (refused shapes) leaves no scratch, and the launch then raises
+    scratch = torch.empty(max(int(_cuda.library().lt_kmeans_update_scratch(n, k)), 0),
+                          dtype=torch.uint8, device=data.device)
     _cuda.call("lt_kmeans_update", data.data_ptr(), assign.data_ptr(), valid.data_ptr(),
                centroids.data_ptr(), n, k, d, sums.data_ptr(), counts.data_ptr(), new.data_ptr(),
-               moves.data_ptr(), _cuda.stream_of(data))
+               moves.data_ptr(), scratch.data_ptr(), _cuda.stream_of(data))
     kmeans_update.launches += 1
     return sums, counts, new, moves
 

@@ -2,22 +2,28 @@
 """Search latency of lynsedb_tpu_torch on one CUDA card, by corpus and index
 mode.
 
-    python3 lynsedb_tpu_torch/tools/flat_latency.py [--corpus isotropic mixture]
+    python3 lynsedb_tpu_torch/tools/flat_latency.py [--corpus isotropic mixture hist geo]
                                                     [--index FLAT-IP FLAT-IP-SQ8 ...]
-                                                    [--nprobe N] [--insert N]
+                                                    [--nprobe N] [--n-clusters N] [--insert N]
                                                     [--where FILTER] [--package-root DIR]
 
 Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
 ``--index`` mode (default FLAT-IP; any other mode, such as FLAT-IP-SQ8 or
 HNSW-L2, is built first, and its build seconds reported, with the seconds of
-each build phase where the index records them and, for a graph, a SHA-256 of
-its built adjacency) 100 distinct single
+each build phase where the index records them and a SHA-256 of what the
+build decided: a graph's adjacency, IVF's centroids; ``--n-clusters`` sets
+IVF's and SPANN's) 100 distinct single
 searches, then 4 batch searches at B=16 and 4 at B=256 (k=10, ``--nprobe``,
-the client's default 10 unless given; host clock around each call). The corpora are seeded numpy: ``isotropic`` is gaussian rows,
-``mixture`` chip_smoke.py's mixture of 2,000 gaussian clusters; both
-duplicate 1,000 rows. Then 20 more single searches run under torch.profiler
-to read the device time of one search, in all and by kernel. ``--insert N``
+the client's default 10 unless given; host clock around each call). The
+corpora are seeded numpy: ``isotropic`` is gaussian rows, ``mixture``
+chip_smoke.py's mixture of 2,000 gaussian clusters (both duplicate 1,000
+rows), ``hist`` that mixture exponentiated (histograms, for
+FLAT-JENSEN-SHANNON, -HELLINGER, -WASSERSTEIN; the queries exponentiated
+gaussians), ``geo`` 1,000,000 (lon, lat) points uniform on the sphere (for
+FLAT-HAVERSINE and HNSW-HAVERSINE; the queries too). Then 20 more single
+searches run under torch.profiler to read the device time of one search, in
+all and by kernel. ``--insert N``
 then adds N more rows of the corpus's kind, commits them (an index links or
 posts them in place), reports the commit's seconds and times the mode again.
 ``--where FILTER`` runs every timed search under that filter (for example
@@ -49,7 +55,15 @@ import numpy as np
 N, DIM, K, N_CENTERS, SPREAD, SEED = 1_000_000, 128, 10, 2000, 0.6, 0
 
 
+def sphere_points(rng, n: int) -> np.ndarray:
+    """n (lon, lat) points in degrees, uniform on the sphere."""
+    lon, lat = rng.uniform(-180.0, 180.0, n), np.degrees(np.arcsin(rng.uniform(-1.0, 1.0, n)))
+    return np.stack([lon, lat], 1).astype(np.float32)
+
+
 def make_corpus(kind: str, rng) -> np.ndarray:
+    if kind == "geo":
+        return sphere_points(rng, N)
     if kind == "isotropic":
         x = rng.normal(size=(N, DIM)).astype(np.float32)
     else:
@@ -57,7 +71,15 @@ def make_corpus(kind: str, rng) -> np.ndarray:
         x = centers[rng.integers(0, N_CENTERS, N)]
         x += SPREAD * rng.normal(size=(N, DIM)).astype(np.float32)
     x[N // 2 : N // 2 + 1000] = x[:1000]
-    return x
+    return np.exp(x) if kind == "hist" else x
+
+
+def make_queries(kind: str, rng, *shape: int) -> np.ndarray:
+    """Queries of the corpus's kind, shape + (its width,)."""
+    if kind == "geo":
+        return sphere_points(rng, int(np.prod(shape))).reshape(*shape, 2)
+    q = rng.normal(size=(*shape, DIM)).astype(np.float32)
+    return np.exp(q) if kind == "hist" else q
 
 
 class GcClock:
@@ -128,38 +150,46 @@ def timed(torch, coll, singles, b16, b256, extra, extra256, nprobe: int, where,
     return out
 
 
-def adjacency_sha256(index) -> str | None:
-    """SHA-256 of a graph index's built adjacency (HNSW's layer 0, DiskANN's
-    graph), so two trees' builds compare in one call; None for other modes."""
-    adj = getattr(index, "layer0_np", getattr(index, "graph_np", None))
-    return None if adj is None else hashlib.sha256(np.ascontiguousarray(adj).tobytes()).hexdigest()
+def built_sha256(index) -> dict:
+    """SHA-256 of what a build decided, so two trees' builds compare in one
+    call: a graph's adjacency (HNSW's layer 0, DiskANN's graph) and IVF's
+    centroids (empty for other modes)."""
+    out = {}
+    for key, attrs in (("adjacency_sha256", ("layer0_np", "graph_np")),
+                       ("centroids_sha256", ("centroids_np",))):
+        arr = next((getattr(index, a) for a in attrs if getattr(index, a, None) is not None), None)
+        if arr is not None:
+            out[key] = hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    return out
 
 
-def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, where, root: str,
-        clock: GcClock):
+def run(lynse, torch, kind: str, modes: list, nprobe: int, n_clusters, insert: int, where,
+        root: str, clock: GcClock):
     """Yields one result per index mode on one corpus (two with ``insert``)."""
     rng = np.random.default_rng(SEED)
     x = make_corpus(kind, rng)
-    singles = rng.normal(size=(100, DIM)).astype(np.float32)
-    b16 = rng.normal(size=(4, 16, DIM)).astype(np.float32)
-    b256 = rng.normal(size=(4, 256, DIM)).astype(np.float32)
-    extra = rng.normal(size=(20, DIM)).astype(np.float32)
-    extra256 = rng.normal(size=(2, 256, DIM)).astype(np.float32)
+    singles = make_queries(kind, rng, 100)
+    b16 = make_queries(kind, rng, 4, 16)
+    b256 = make_queries(kind, rng, 4, 256)
+    extra = make_queries(kind, rng, 20)
+    extra256 = make_queries(kind, rng, 2, 256)
     client = lynse.VectorDBClient(root, device="cuda")
     db = client.create_database(kind, drop_if_exists=True)
-    coll = db.require_collection("vectors", dim=DIM)
+    coll = db.require_collection("vectors", dim=x.shape[1])
     coll.add(vectors=x, fields=[{"bucket": i % 10} for i in range(N)], batch_size=100_000)
     coll.commit()
     coll.prewarm()
     for mode in modes:
         out = {"corpus": kind, "index": mode, "nprobe": nprobe, "where": where}
         if mode != "FLAT-IP":
+            kw = {"n_clusters": n_clusters} if n_clusters and mode.startswith(("IVF", "SPANN")) \
+                else {}
             t0 = time.perf_counter()
-            coll.build_index(mode)
+            coll.build_index(mode, **kw)
             out["build_s"] = time.perf_counter() - t0
             index = coll._engine._index
             out["build_phases_s"] = getattr(index, "last_build_phases", None)
-            out["adjacency_sha256"] = adjacency_sha256(index)
+            out.update(built_sha256(index))
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the index
         yield {**out, **timed(torch, coll, singles, b16, b256, extra, extra256, nprobe, where,
                               clock)}
@@ -178,12 +208,14 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, insert: int, where, r
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--corpus", nargs="+", choices=("isotropic", "mixture"),
+    ap.add_argument("--corpus", nargs="+", choices=("isotropic", "mixture", "hist", "geo"),
                     default=["isotropic", "mixture"])
     ap.add_argument("--index", nargs="+", default=["FLAT-IP"],
                     help="index modes, e.g. FLAT-IP FLAT-IP-SQ8 FLAT-IP-PQ HNSW-L2")
     ap.add_argument("--nprobe", type=int, default=10,
                     help="the searches' nprobe (IVF probes; HNSW / DiskANN beam width)")
+    ap.add_argument("--n-clusters", type=int, default=None,
+                    help="IVF's and SPANN's cluster count (the index's default unless given)")
     ap.add_argument("--insert", type=int, default=0,
                     help="rows added and committed after a mode's timings, then timed again")
     ap.add_argument("--where", default=None,
@@ -201,8 +233,8 @@ def main() -> int:
     clock = GcClock()
     for kind in args.corpus:
         with tempfile.TemporaryDirectory(prefix="lynse_flat_") as root:
-            for out in run(lynse, torch, kind, args.index, args.nprobe, args.insert, args.where,
-                           root, clock):
+            for out in run(lynse, torch, kind, args.index, args.nprobe, args.n_clusters,
+                           args.insert, args.where, root, clock):
                 out["package"] = str(Path(lynse.__file__).resolve().parent)
                 print(json.dumps(out), flush=True)
     return 0

@@ -76,13 +76,17 @@ def topl_bound(b: int, d: int, n: int, l: int, ops_per_pair: float | None = None
     return bound_t(moved, max(b * n * ops_per_pair / F32_OPS, b * n * sfu_per_pair / SFU_OPS))
 
 
-# K20's table work (metric by its Metric value): the f32 instructions and
-# special-function operations of a (pair, dimension) of metrics.cuh's
-# accumulate<M>; any other graph metric (IP, L2, cosine, correlation and
-# Hellinger over their lead rows) runs the Gram, whose multiply and add count
-# as two, since the bit contract forbids an FMA
-PRUNE_DIM_OPS = {"l1": (2, 0), "chebyshev": (2, 0), "wasserstein": (2, 0),
-                 "jensen_shannon": (3, 1)}
+# The f32 instructions and special-function operations of a (pair,
+# dimension) of metrics.cuh's accumulate<M>, by the Metric's value: a
+# difference and an add of its absolute value (L1, Chebyshev's compare and
+# select, Wasserstein over the cdf), Canberra's two absolute sums, select and
+# add around an IEEE division, Bray-Curtis's two sums, Jensen-Shannon's sum,
+# product and add around a logarithm. K20's table under any other graph
+# metric (IP, L2, cosine, correlation and Hellinger over their lead rows)
+# runs the Gram, whose multiply and add count as two, since the bit contract
+# forbids an FMA.
+ELEM_DIM_OPS = {"l1": (2, 0), "chebyshev": (2, 0), "canberra": (4, 1), "bray_curtis": (4, 0),
+                "wasserstein": (2, 0), "jensen_shannon": (3, 1)}
 # Haversine's whole m x m table: a pair's f32 instructions (two differences,
 # two halvings, five products, a sum, a two-sided clip) and special-function
 # operations (two sines, a square root, an arcsine), and a row's, formed once
@@ -98,7 +102,7 @@ def prune_bound(nodes: int, m: int, d: int, metric: str = "l2", *, r: int = 0,
     id read, and its r pruned ids written (``r`` 0: the keys mode's L point
     keys and (L, L) pair keys); the table's work at F32_OPS and SFU_OPS, the
     slower of the two: the symmetric half's m (m + 1) / 2 pairs over d
-    dimensions at PRUNE_DIM_OPS, or Haversine's m x m pairs and m rows."""
+    dimensions at ELEM_DIM_OPS, or Haversine's m x m pairs and m rows."""
     l = m - 1
     row_bytes = d * 4 if row_bytes is None else row_bytes
     out = r * 4 if r else (l * l + l) * 4
@@ -108,6 +112,33 @@ def prune_bound(nodes: int, m: int, d: int, metric: str = "l2", *, r: int = 0,
         f32, sfu = nodes * (m * m * f + m * rf), nodes * (m * m * s + m * rs)
     else:
         work = nodes * m * (m + 1) // 2 * d
-        f, s = PRUNE_DIM_OPS.get(metric, (2, 0))
+        f, s = ELEM_DIM_OPS.get(metric, (2, 0))
         f32, sfu = work * f, work * s
     return bound_t(moved, max(f32 / F32_OPS, sfu / SFU_OPS))
+
+
+def elem_tile_bound(metric: str, b: int, d: int, n_live: int, rows: int, row_bytes: int = 0):
+    """K6c's f32 tile mode under ``metric`` (a Metric's value) over d-wide
+    lead rows (Wasserstein's cdf, Jensen-Shannon's probabilities, the rows
+    otherwise; Haversine's d = 2 points): each live row read once (d f32 and
+    ``row_bytes`` of per-row terms), every row's valid byte, the queries read
+    and the (B, rows) keys written; the pairs' work at F32_OPS and SFU_OPS,
+    the slower of the two: d (pair, dimension)s at ELEM_DIM_OPS, or
+    Haversine's HAVERSINE_PAIR_OPS a pair and HAVERSINE_ROW_OPS a row and a
+    query (the kernel forms each point's radians and cosine once)."""
+    moved = n_live * (d * 4 + row_bytes) + rows + b * (d * 4 + row_bytes) + b * rows * 4
+    if metric == "haversine":
+        (f, s), (rf, rs) = HAVERSINE_PAIR_OPS, HAVERSINE_ROW_OPS
+        f32, sfu = b * n_live * f + (n_live + b) * rf, b * n_live * s + (n_live + b) * rs
+    else:
+        f, s = ELEM_DIM_OPS[metric]
+        f32, sfu = b * n_live * d * f, b * n_live * d * s
+    return bound_t(moved, max(f32 / F32_OPS, sfu / SFU_OPS))
+
+
+def kmeans_update_bound(n: int, k: int, d: int, n_valid: int):
+    """K15b, one Lloyd update of k centroids from n rows: every row's
+    assignment (int32) and valid byte read, each valid row's d f32 read once,
+    the old centroids read and the sums, new centroids, counts and moves
+    written; n_valid d adds at F32_OPS."""
+    return bound_t(n * 5 + n_valid * d * 4 + k * (3 * d + 2) * 4, n_valid * d / F32_OPS)

@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Device times of the exact f32 tile (K1, K6a), K11's shared-list tile, the
-integer tensor-core tiles (K6b, K12) and the exact top-L scan (K19) on one
+"""Device times of the exact f32 tile (K1, K6a), K6c's f32 tile, K11's
+shared-list tile, the integer tensor-core tiles (K6b, K12), the k-means
+update (K15b), the exact top-L scan (K19) and the robust prune (K20) on one
 CUDA card, at chip_smoke.py's shapes.
 
     python3 lynsedb_tpu_torch/tools/tile_times.py [--package-root DIR] [--reps N]
-                                                  [--only K1 K6a K11 K6b K12 K19 K20]
+                                                  [--only K1 K6a K6c K11 K6b K12 K15b K19 K20]
                                                   [--dump PREFIX] [--compare PREFIX]
 
 K1 under IP over 1,000,000 x 128 f32 rows at B = 1, 16, 17, 64 and 256, beside
 ``q @ x.T`` (one f32 matmul, the same function without the mask); K6a under
 correlation at B = 1, 16 and 256 and under Hellinger at B = 16, beside the
-matmul of the transformed rows; K11 over a (1, 100,000) row list shared by
+matmul of the transformed rows; K6c's f32 tile mode under L1, Chebyshev,
+Canberra and Bray-Curtis over the same rows, Wasserstein and Jensen-Shannon
+over them exponentiated (their cdf and probability transforms) and
+Haversine over 1,000,000 points uniform on the sphere, each at B = 1, 16 and
+256 (Canberra and Jensen-Shannon also at 4 and 8, where their routes cross),
+beside ``torch.cdist`` (p=1 for L1, p=inf for Chebyshev; none for the
+rest); K11 over a (1, 100,000) row list shared by
 every query (every tenth row, as ``where="bucket = 3"`` gives) at B = 1, 16
 and 256, beside the two calls ``qc16 @ x16.index_select(0, idx).T`` (a
 gather, then a bf16 matmul: no one PyTorch call computes it); K6b under
@@ -19,7 +26,13 @@ and 256 and under Jaccard, Dice and Hamming at B = 16, beside the bf16
 matmul of the {0, 1} rows; K12 over 1,000,000 x 128 int8 codes (SQ8, RaBitQ,
 PolarVec under IP) at B = 1, 16 and 64, beside ``torch._int_mm`` of the
 quantized queries and the codes at B = 64 (the dot alone; it takes no fewer
-than 17 rows); K19 (``graph.topl_scan``, its K5 merge included in ``ms``)
+than 17 rows); K15b (``kmeans.kmeans_update``) at the IVF build's Lloyd
+step (256,000 rows of a 2,000-cluster mixture, 10% invalid, 1,000
+centroids drawn from the rows, D = 128, assigned by ``kmeans_assign``), with
+90% of the rows assigned to one centroid, and at PQ's (65,536 x 8 rows, 256
+centroids), beside ``index_add_`` of the masked rows and ``torch.bincount``
+of the valid rows' assignments (the same sums and counts with float atomics,
+in any order); K19 (``graph.topl_scan``, its K5 merge included in ``ms``)
 under L2 on a 4,096-query chunk of 1,000,000 x 128 rows at L = 64 (the
 HNSW-L2 build's), beside ``torch.topk`` of ``2 q @ x.T - |x|^2`` a block of
 131,072 rows at a time, and in its metric mode on 1,024 queries of
@@ -48,13 +61,13 @@ on the same inputs.
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (an older commit
 unpacked with ``git archive``), so parent and change are timed on one card
-in one call. ``--dump PREFIX`` writes K19's keys and ids, and K20's
-candidates and outputs, at each shape to PREFIX_<shape>.npz; ``--compare
-PREFIX`` reads another tree's and adds to each K19 row whether the keys are
-equal to the bit and the ids equal (or differ only between equal keys), and
-to each K20 row whether its candidates and its pruned lists or keys are
-equal to the bit. Prints the card's name and power limit, then one JSON line
-per kernel and shape.
+in one call. ``--dump PREFIX`` writes K19's keys and ids, K20's candidates
+and outputs, K6c's keys (as their SHA-256) and K15b's four outputs at each
+shape to PREFIX_<shape>.npz; ``--compare PREFIX`` reads another tree's and
+adds to each K19 row whether the keys are equal to the bit and the ids equal
+(or differ only between equal keys), and to each K6c, K15b and K20 row
+whether its outputs (and K20's candidates) are equal to the bit. Prints
+the card's name and power limit, then one JSON line per kernel and shape.
 """
 
 from __future__ import annotations
@@ -70,16 +83,17 @@ import numpy as np
 
 # roofline.py sits beside this script (sys.path[0]), so this tree's formulas
 # hold whichever --package-root is timed
-from roofline import (binary_tile_bound, code_scan_bound, f32_tile_bound, prune_bound,
-                      shared_list_bound, topl_bound)
+from roofline import (binary_tile_bound, code_scan_bound, elem_tile_bound, f32_tile_bound,
+                      kmeans_update_bound, prune_bound, shared_list_bound, topl_bound)
 
 N, DIM, SHARED_EVERY = 1_000_000, 128, 10
 BITS_DIM, BITS_DENSITY = 1024, 0.1
 TOPL_CHUNK, TOPL_L, TOPL_METRIC_CHUNK, TOPL_METRIC_N = 4096, 64, 1024, 1_010_000
-# Haversine's f32 instructions and special-function operations a pair (chip_smoke.py ELEM_OPS)
+# K19's Haversine keys: f32 instructions and special-function operations a
+# pair (both points' radians and cosines formed for each pair)
 HAVERSINE_OPS = (12, 6)
 PRUNE_NODES, PRUNE_EXTRA, PRUNE_R, KEYS_NODES = 4096, 8, 32, 1024
-KERNELS = ("K1", "K6a", "K11", "K6b", "K12", "K19", "K20")
+KERNELS = ("K1", "K6a", "K6c", "K11", "K6b", "K12", "K15b", "K19", "K20")
 # the kernels' names, this tree's and earlier ones' (torch.profiler keys)
 K1_NAMES, K11_NAMES = ("f32_tile_kernel", "tile_scores_kernel"), ("shared_list_kernel",
                                                                   "bf16_gather_kernel")
@@ -87,6 +101,10 @@ K6B_NAMES = ("int_tile_kernel", "binary_tile_kernel")
 K12_NAMES = ("int_tile_kernel", "int8_scores_kernel", "quantize_queries_kernel")
 K19_NAMES = ("topl_kernel",)
 K20_NAMES = ("prune_kernel",)
+K6C_NAMES = ("elem_f32_kernel", "haversine_tile_kernel", "elem_tile_kernel", "haversine_kernel")
+K15B_NAMES = ("count_kernel", "scan_kernel", "scatter_kernel", "sum_kernel",
+              "kmeans_update_kernel")
+KM_N, KM_K, KM_CENTERS, PQ_N, PQ_K, PQ_D = 256_000, 1000, 2000, 65_536, 256, 8
 
 
 def main() -> int:
@@ -94,8 +112,9 @@ def main() -> int:
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", nargs="+", choices=KERNELS, default=list(KERNELS))
-    ap.add_argument("--dump", help="write K19's and K20's outputs to PREFIX_<shape>.npz")
-    ap.add_argument("--compare", help="hold K19's and K20's outputs to PREFIX_<shape>.npz")
+    ap.add_argument("--dump", help="write K6c's, K15b's, K19's and K20's outputs to "
+                                   "PREFIX_<shape>.npz")
+    ap.add_argument("--compare", help="hold those outputs to another tree's PREFIX_<shape>.npz")
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
     import torch
@@ -121,30 +140,41 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def kernel_ms(fn, names: tuple) -> float | None:
+    def kernel_ms(fn, names: tuple) -> dict:
+        """Device ms a launch of each kernel whose name holds one of ``names``."""
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(args.reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
-                 if any(n in ev.key for n in names))
-        return us / 1e3 / args.reps if us else None
+        parts = {}
+        for ev in prof.key_averages():
+            hit = next((n for n in names if n in ev.key), None)
+            if hit and getattr(ev, "self_device_time_total", 0.0):
+                parts[hit] = parts.get(hit, 0.0) + ev.self_device_time_total / 1e3 / args.reps
+        return parts
 
     def row(kernel, shape, fn, library, bnd, err, names, library_reps=None, **extra):
+        parts = kernel_ms(fn, names)
+        if len(parts) > 1:
+            extra["kernel_parts_ms"] = parts
         print(json.dumps({"package": str(args.package_root), "kernel": kernel, "shape": shape,
-                          "ms": ms(fn), "kernel_ms": kernel_ms(fn, names),
+                          "ms": ms(fn), "kernel_ms": sum(parts.values()) if parts else None,
                           "library_ms": None if library is None else ms(library, library_reps),
                           "bound_ms": bnd[0], "bound_by": bnd[1],
                           "max_abs_err": err, **extra}), flush=True)
 
     if {"K1", "K6a", "K11"} & set(args.only):
         float_rows(args.only, row, dev)
+    if "K6c" in args.only:
+        elem_rows(row, dev, args.dump, args.compare)
     if "K6b" in args.only:
         binary_rows(row, dev)
     if "K12" in args.only:
         code_rows(row, dev)
+    if "K15b" in args.only:
+        kmeans_rows(row, dev, args.dump, args.compare)
     if "K19" in args.only:
         topl_rows(row, dev, args.dump, args.compare)
     if "K20" in args.only:
@@ -206,6 +236,111 @@ def float_rows(only, row, dev) -> None:
             lambda: scan.bf16_gather_scores(*a, **kw),
             lambda: qc16 @ x16.index_select(0, idx[0]).T, shared_list_bound(b, DIM, s), err,
             K11_NAMES)
+
+
+def held(dump, compare, tag: str, arrays: dict) -> dict:
+    """Writes ``arrays`` to DUMP_<tag>.npz; with ``compare``, whether each
+    equals (bits_equal) the other tree's at COMPARE_<tag>.npz."""
+    if dump:
+        np.savez(f"{dump}_{tag}.npz", **arrays)
+    if not compare:
+        return {}
+    other = np.load(f"{compare}_{tag}.npz")
+    return {"equal_to_other_tree": all(bits_equal(v, other[k]) for k, v in arrays.items())}
+
+
+def elem_rows(row, dev, dump, compare) -> None:
+    """K6c's f32 tile mode over 1M x 128 rows (every row live) under its six
+    metrics with a per-dimension term and Haversine over 1M points, at B =
+    1, 16 and 256; the keys' SHA-256 held to another tree's."""
+    import hashlib
+
+    import torch
+
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import distance as D
+    from lynsedb_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(N, DIM)).astype(np.float32)).to(dev)
+    hist = torch.exp(0.5 * x)
+    lon = rng.uniform(-180.0, 180.0, N)
+    lat = np.degrees(np.arcsin(rng.uniform(-1.0, 1.0, N)))
+    geo = torch.from_numpy(np.stack([lon, lat], 1).astype(np.float32)).to(dev)
+    live = torch.ones(N, dtype=torch.bool, device=dev)
+    for metric, rows in ((Metric.L1, x), (Metric.CHEBYSHEV, x), (Metric.CANBERRA, x),
+                         (Metric.BRAY_CURTIS, x), (Metric.WASSERSTEIN, hist),
+                         (Metric.JENSEN_SHANNON, hist), (Metric.HAVERSINE, geo)):
+        ct = D.corpus_transform(rows, metric)
+        lead = scan._elem_rows(ct, metric)
+        extra = {Metric.WASSERSTEIN: 5, Metric.JENSEN_SHANNON: 9}.get(metric, 0)
+        rolled = metric in (Metric.CANBERRA, Metric.JENSEN_SHANNON)  # where the routes cross
+        for b in (1, 4, 8, 16, 256) if rolled else (1, 16, 256):
+            qt = D.query_transform(rows[1000 : 1000 + b], metric)
+            got = scan.elementwise_scores(qt, ct, live, metric)
+            want = scan.metric_keys_plain(qt, ct, live, metric)
+            fin = torch.isfinite(want)
+            same_inf = torch.equal(torch.isinf(got), torch.isinf(want))
+            err = float((got[fin] - want[fin]).abs().max()) if same_inf else float("inf")
+            sha = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+            del got, want, fin
+            ql = scan._elem_rows(qt, metric)
+            p = {Metric.L1: 1.0, Metric.CHEBYSHEV: float("inf")}.get(metric)
+            library = None if p is None else (lambda ql=ql, lead=lead, p=p:
+                                               torch.cdist(ql, lead, p=p))
+            row("K6c elementwise_scores", f"{metric.value} 1M x {lead.shape[1]} B={b}",
+                lambda: scan.elementwise_scores(qt, ct, live, metric), library,
+                elem_tile_bound(metric.value, b, lead.shape[1], N, N, extra), err, K6C_NAMES,
+                library_reps=3 if b == 256 else None, keys_sha256=sha,
+                **held(dump, compare, f"K6c_{metric.value}_{b}", {"sha256": np.array(sha)}))
+
+
+def kmeans_rows(row, dev, dump, compare) -> None:
+    """K15b at the IVF build's Lloyd step, with a skewed assignment, and at
+    PQ's; each output held to the plain version (sums' largest error), to a
+    second run (bits) and to another tree's (bits)."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import kmeans
+
+    rng = np.random.default_rng(6)
+    centers = rng.normal(size=(KM_CENTERS, DIM)).astype(np.float32)
+    x_np = centers[rng.integers(0, KM_CENTERS, KM_N)] + 0.6 * rng.normal(
+        size=(KM_N, DIM)).astype(np.float32)
+    data = torch.from_numpy(x_np).to(dev)
+    cent = data[torch.from_numpy(rng.choice(KM_N, KM_K, replace=False)).to(dev)].clone()
+    valid = torch.arange(KM_N, device=dev) < KM_N - KM_N // 10
+    assign = kmeans.kmeans_assign(data, cent, False)
+    skew = torch.where(torch.from_numpy(rng.random(KM_N) < 0.9).to(dev), 0, assign).to(torch.int32)
+    pq = torch.from_numpy(rng.normal(size=(PQ_N, PQ_D)).astype(np.float32)).to(dev)
+    pq_cent = pq[torch.from_numpy(rng.choice(PQ_N, PQ_K, replace=False)).to(dev)].clone()
+    pq_valid = torch.ones(PQ_N, dtype=torch.bool, device=dev)
+    cases = [("ivf", data, valid, assign, cent), ("skew90", data, valid, skew, cent),
+             ("pq", pq, pq_valid, kmeans.kmeans_assign(pq, pq_cent, False), pq_cent)]
+    for tag, x, ok, a, c in cases:
+        n, d = x.shape
+        k = c.shape[0]
+        first = kmeans.kmeans_update(x, ok, a, c)
+        second = kmeans.kmeans_update(x, ok, a, c)
+        want = kmeans.kmeans_update_plain(x, ok, a, c)
+        err = float((first[0] - want[0]).abs().max())
+        repeat = all(torch.equal(u, v) for u, v in zip(first, second))
+        counts = torch.equal(first[1], want[1])
+        sums, a64, w = torch.zeros_like(c), a.long(), x * ok[:, None]
+        weights = ok.to(torch.float32)
+
+        def library(sums=sums, a64=a64, w=w, weights=weights, k=k):
+            sums.index_add_(0, a64, w)
+            torch.bincount(a64, weights=weights, minlength=k)
+
+        outs = {name: t.cpu().numpy() for name, t in zip(("sums", "counts", "new", "moves"), first)}
+        row("K15b kmeans_update", f"{tag} N={n} K={k} D={d}",
+            lambda: kmeans.kmeans_update(x, ok, a, c), library,
+            kmeans_update_bound(n, k, d, int(ok.sum())), err, K15B_NAMES,
+            bit_identical_rerun=repeat, counts_equal_plain=counts,
+            largest_cluster=int(torch.bincount(a64[ok], minlength=k).max()),
+            **held(dump, compare, f"K15b_{tag}", outs))
+        del first, second, want
 
 
 def binary_rows(row, dev) -> None:
@@ -427,14 +562,8 @@ def prune_rows(row, dev, dump, compare) -> None:
                           outs_k))
             del gp, gq, wp, wq
         for shape, tag, fn, lib, bnd_, err_, arrays in runs:
-            if dump:
-                np.savez(f"{dump}_{tag}.npz", **arrays)
-            extra_cols = {}
-            if compare:
-                other = np.load(f"{compare}_{tag}.npz")
-                extra_cols = {"equal_to_other_tree": all(bits_equal(v, other[k])
-                                                         for k, v in arrays.items())}
-            row("K20 robust_prune", shape, fn, lib, bnd_, err_, K20_NAMES, **extra_cols)
+            row("K20 robust_prune", shape, fn, lib, bnd_, err_, K20_NAMES,
+                **held(dump, compare, tag, arrays))
         del got, gathered, near, cands
 
 

@@ -29,6 +29,7 @@ on the squared distance, atol 1e-5, as their terms cancel).
 from __future__ import annotations
 
 import shutil
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -425,6 +426,117 @@ def test_kmeans_update_matches_plain_and_repeats(dev):
     torch.testing.assert_close(first[2], want[2], rtol=1e-5, atol=1e-5)
     assert torch.equal(first[2][7], c[7])
     torch.testing.assert_close(first[3], want[3], rtol=1e-4, atol=1e-5)
+
+
+def fmaf32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """CUDA's fmaf on float32 arrays: a * b + c rounded once, to nearest with
+    ties to even. The product is exact in float64; where the float64 sum is
+    not (TwoSum's error is nonzero), the float32 result is picked exactly
+    among the neighbours of the rounded sum."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    t = s - c64
+    err = (p - t) + (c64 - (s - t))
+    out = s.astype(np.float32)
+    for i in np.flatnonzero(err != 0):
+        exact = Fraction(float(p.flat[i])) + Fraction(float(c64.flat[i]))
+        f = out.flat[i]
+        cands = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+        out.flat[i] = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                                int(v.view(np.uint32)) & 1))
+    return out
+
+
+def move_tree(new: np.ndarray, old: np.ndarray) -> np.ndarray:
+    """K15b's squared moves (K,) in its move tree: 256 threads, thread t's
+    fmaf sum of the squared differences over d = t, t + 256, ... in order,
+    a butterfly within each warp of 32, the eight warp sums in order."""
+    k, d = new.shape
+    steps = -(-d // 256)
+    diff = np.zeros((k, steps * 256), np.float32)
+    diff[:, :d] = (new - old).astype(np.float32)
+    cols = diff.reshape(k, steps, 256)
+    per = np.zeros((k, 256), np.float32)
+    for j in range(steps):
+        per = fmaf32(cols[:, j], cols[:, j], per)
+    lanes = per.reshape(k, 8, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, :, np.arange(32) ^ o]
+    moves = np.zeros(k, np.float32)
+    for w in range(8):
+        moves = moves + lanes[:, w, 0]
+    return moves
+
+
+def _row_order_update(x: np.ndarray, valid: np.ndarray, assign: np.ndarray, old: np.ndarray):
+    """K15b's contract on the CPU in float32: each centroid's sum over its
+    valid rows in row order, one rounded add at a time; the count; the mean
+    or the old centroid; the move in the kernel's move tree."""
+    k, d = old.shape
+    sums = np.zeros((k, d), np.float32)
+    counts = np.zeros(k, np.int64)
+    for r in np.nonzero(valid & (assign >= 0) & (assign < k))[0]:
+        sums[assign[r]] += x[r]
+        counts[assign[r]] += 1
+    cnt = counts.astype(np.float32)
+    new = np.where(cnt[:, None] > 0, sums / np.maximum(cnt, np.float32(1))[:, None], old)
+    new = new.astype(np.float32)
+    return sums, cnt, new, move_tree(new, old)
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.astype(np.float32).view(np.uint32)
+
+
+UPDATE_CASES = ["mixed", "all_invalid", "k_over_valid", "skew90", "pq", "d1", "d130",
+                "k_past_shared", "unaligned", "d768", "d12289"]
+
+
+@pytest.mark.parametrize("case", UPDATE_CASES)
+def test_kmeans_update_row_order_bits(dev, case):
+    """K15b's outputs equal, to the bit, a float32 row-order sum formed on
+    the CPU (and the means and moves from it), counts exact, two runs
+    bit-identical: 20,011 rows (no multiple of a chunk), 10% invalid, empty
+    clusters keeping their centroid, assignments out of range counted
+    nowhere; every row invalid; more centroids (300) than valid rows (100);
+    90% of the rows on one centroid; PQ's shape (65,536 x 8, K = 256); D = 1
+    and D = 130 (scalar loads); K = 20,000 (the histogram past shared
+    memory); an unaligned base (scalar loads); D = 768 and D = 12,289 (more
+    than 8 slabs a centroid, several dimensions a thread of the move tree,
+    which the last slab forms from the other slabs' new centroids)."""
+    rng = np.random.default_rng(UPDATE_CASES.index(case))
+    n, d, k = {"pq": (65_536, 8, 256), "d1": (20_011, 1, 50), "d130": (20_011, 130, 40),
+               "k_past_shared": (50_000, 4, 20_000), "k_over_valid": (5_000, 16, 300),
+               "d768": (20_011, 768, 16), "d12289": (1_500, 12_289, 3)}.get(
+        case, (20_011, 48, 64))
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    old = rng.normal(size=(k, d)).astype(np.float32)
+    assign = rng.integers(0, k, n).astype(np.int32)
+    valid = rng.random(n) >= 0.1
+    if case == "mixed":
+        assign[assign == 7] = 8  # an empty cluster keeps its centroid
+        assign[:5] = [-1, k, k + 3, -7, 0]  # outside [0, K): counted nowhere
+    elif case == "all_invalid":
+        valid[:] = False
+    elif case == "k_over_valid":
+        valid = np.arange(n) % 50 == 0
+    elif case == "skew90":
+        assign[rng.random(n) < 0.9] = 3
+    xd = torch.from_numpy(x).to(dev)
+    if case == "unaligned":
+        xd = _unaligned(xd)
+    args = (xd, torch.from_numpy(valid).to(dev), torch.from_numpy(assign).to(dev),
+            torch.from_numpy(old).to(dev))
+    first = [t.cpu().numpy() for t in kmeans.kmeans_update(*args)]
+    second = [t.cpu().numpy() for t in kmeans.kmeans_update(*args)]
+    for a, b in zip(first, second):
+        assert np.array_equal(_bits(a), _bits(b))
+    want = _row_order_update(x, valid, assign, old)
+    for name, got, exp in zip(("sums", "counts", "new", "moves"), first, want):
+        assert np.array_equal(_bits(got), _bits(exp)), name
+    if case == "mixed":
+        assert np.array_equal(first[2][7], old[7])
 
 
 @pytest.mark.parametrize("mode", ["IVF-L2", "IVF-IP", "IVF-COS", "SPANN-L2"])
@@ -929,7 +1041,8 @@ def _assert_keys_close(metric: Metric, got: torch.Tensor, want: torch.Tensor) ->
     elif metric is Metric.HAVERSINE:
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1.0)
     else:
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+        scale = float(w.abs().max()) if len(w) else 0.0  # every key -inf: nothing to scale
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("metric", OTHER_METRICS, ids=[m.value for m in OTHER_METRICS])
@@ -1032,6 +1145,74 @@ def test_elementwise_bf16_mode_matches_plain(dev, metric, b):
     want = scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean)
     torch.cuda.synchronize()
     _assert_keys_close(metric, got, want)
+
+
+ELEM_TILE = [Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS, Metric.WASSERSTEIN,
+             Metric.JENSEN_SHANNON, Metric.HAVERSINE]
+
+
+def _elem_corpus(metric: Metric, rng, n: int, d: int) -> np.ndarray:
+    """n rows in the metric's domain: _metric_rows' corner rows where n has
+    room for them (a NaN entry too for the real-valued metrics), else its
+    plain rows; Haversine's include both poles and both sides of the
+    antimeridian."""
+    x = _metric_rows(metric, rng, max(n, 24), d)
+    if metric is Metric.HAVERSINE:
+        x[8:16] = [[180.0, 10.0], [-180.0, 10.0], [179.99, -45.0], [-179.99, -45.0],
+                   [0.0, 90.0], [33.0, -90.0], [-120.0, 90.0], [45.0, 0.0]]
+    elif metric in (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS):
+        x[11, 0] = np.nan
+    return x if n >= 24 else x[-n:]
+
+
+def _elem_check(dev, metric: Metric, x: np.ndarray, q: np.ndarray, valid, unaligned=False):
+    xd, qd = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
+    qt, ct = D.query_transform(qd, metric), D.corpus_transform(xd, metric)
+    if unaligned:  # the lead rows one element past a 16-byte boundary: the scalar loads
+        lead = {Metric.WASSERSTEIN: "cdf", Metric.JENSEN_SHANNON: "p"}.get(metric, "x")
+        ct[lead] = _unaligned(ct[lead])
+    got = scan.elementwise_scores(qt, ct, valid, metric)
+    want = scan.metric_keys_plain(qt, ct, valid, metric)
+    torch.cuda.synchronize()
+    _assert_keys_close(metric, got, want)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 9, 15, 16, 17, 64, 65, 256, 300])
+@pytest.mark.parametrize("metric", ELEM_TILE, ids=[m.value for m in ELEM_TILE])
+def test_elementwise_tile_routes(dev, metric, b):
+    """K6c's f32 tile mode at the edges of its routes: the bytes route (B <=
+    16: 1, 2, 8 and 16 real queries; Canberra and Jensen-Shannon to B = 8),
+    the FMA route (B = 17, 64, 65, 256, 300: 32-, 64- and 128-query tiles,
+    one to three query groups; Bray-Curtis on 64-query tiles), Canberra and
+    Jensen-Shannon from B = 9 on the 64-row tile (16 queries a block to B =
+    16, then 64), D in {1, 3, 7, 32, 33, 128, 130} (one and several stages; 16-byte copies at 32 and
+    128, 4-byte copies at the rest and from an unaligned base), N in {1,
+    127, 128, 2,333}; the corner rows (zero, constant, NaN, invalid and
+    zero-mass probability rows, |lat| > 90, the poles and the antimeridian),
+    a 30% mask, a query's own row."""
+    rng = np.random.default_rng(100 * b + ELEM_TILE.index(metric))
+    dims = (2,) if metric is Metric.HAVERSINE else (1, 3, 7, 32, 33, 128, 130)
+    for d in dims:
+        for n in (1, 127, 128, 2333):
+            x = _elem_corpus(metric, rng, n, d)
+            q = _elem_corpus(metric, rng, max(b, 24), d)[:b].copy()
+            q[0] = x[-1]  # a query's own row
+            valid = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+            _elem_check(dev, metric, x, q, valid, unaligned=(d == 128 and n == 2333))
+
+
+@pytest.mark.parametrize("b", [1, 16, 65, 300])
+@pytest.mark.parametrize("metric", ELEM_TILE, ids=[m.value for m in ELEM_TILE])
+def test_elementwise_tile_long_spans(dev, metric, b):
+    """K6c's f32 tile mode over 1,000,003 rows (a span holds many tiles; no
+    multiple of a tile), D = 7 and D = 33 (Haversine 2), 10% masked."""
+    rng = np.random.default_rng(7 * b + ELEM_TILE.index(metric))
+    n = 1_000_003
+    for d in (2,) if metric is Metric.HAVERSINE else (7, 33):
+        x = _elem_corpus(metric, rng, n, d)
+        q = _elem_corpus(metric, rng, max(b, 24), d)[:b].copy()
+        valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        _elem_check(dev, metric, x, q, valid)
 
 
 def test_bf16_gather_scores_shared_list_with_mask(dev):

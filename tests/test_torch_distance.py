@@ -122,6 +122,44 @@ def test_corner_cases_match_jax(name, a, b, value):
     assert _plain(a, b, name)[0, 0] == got
 
 
+ELEM_DIM = [m for m in D.ELEMENTWISE_METRICS if m is not Metric.HAVERSINE]
+
+
+@pytest.mark.parametrize("d", [1, 3, 33])
+@pytest.mark.parametrize("metric", ELEM_DIM, ids=[m.value for m in ELEM_DIM])
+def test_elementwise_route_edges_match_jax(metric, d, rng):
+    """The plain version K6c's tile is held to, at its routes' edges: D = 1
+    and 3 (scalar loads, a part of one stage), 33 (a stage and one more
+    dimension), 17 queries (the first batch of the FMA route) over 129 rows
+    (one past a tile), with zero rows (Canberra's and Bray-Curtis's 0 / 0)
+    and, for the probability metrics, an invalid and a zero-mass row."""
+    x = _data(metric, rng, n=129, d=d)
+    q = _data(metric, rng, n=17, d=d)
+    x[3] = q[1]  # a query's own row
+    x[5] = 0.0
+    if metric in D.PROBABILITY_METRICS:
+        x[6, 0] = -0.5
+    got = _plain(q, x, metric)
+    want = np.asarray(JD.pairwise_distances(q, x, JaxMetric(metric.value)))
+    _assert_matches_jax(metric, got, want, d)
+
+
+def test_haversine_poles_and_antimeridian_match_jax():
+    """Haversine between points on both sides of the antimeridian and at
+    both poles (any longitude), through both packages: equal points apart
+    by 360 degrees of longitude are 0 m apart within an f32 angle's ulps
+    (0.76 m of arc each), the poles half the circumference."""
+    pts = np.array([[180.0, 10.0], [-180.0, 10.0], [179.99, -45.0], [-179.99, -45.0],
+                    [0.0, 90.0], [33.0, -90.0], [-120.0, 90.0], [45.0, 0.0], [-180.0, -90.0]],
+                   np.float32)
+    got = _plain(pts, pts, Metric.HAVERSINE)
+    want = np.asarray(JD.pairwise_distances(pts, pts, JaxMetric.HAVERSINE))
+    _assert_matches_jax(Metric.HAVERSINE, got, want, 2)
+    assert got[0, 1] < 4.0 and got[4, 6] < 4.0
+    np.testing.assert_allclose(got[2, 3], 0.02 * 111_195 * np.cos(np.radians(45.0)), rtol=1e-2)
+    np.testing.assert_allclose(got[4, 5], np.pi * 6_371_008.8, rtol=1e-5)
+
+
 def test_haversine_known_distance():
     london = np.array([-0.1278, 51.5074], dtype=np.float32)  # (lon, lat)
     paris = np.array([2.3522, 48.8566], dtype=np.float32)
