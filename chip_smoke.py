@@ -36,7 +36,8 @@ Phases (each prints its seconds):
      SQ8 / RaBitQ / PolarVec x IP / L2 / cosine and K13 pq_adc_scores (M=16)
      at B in {1, 16, 64} with the 10% mask, K14 fwht_rotate at B in {1, 64},
      K11 bf16_gather_scores at S = 4,000 (a K2 shortlist), B in {1, 16, 64},
-     and kmeans_assign at (1,000,000, 8) x 256 (PQ's encode).
+     and kmeans_assign at (1,000,000, 8) x 256 (PQ's encode) and at PQ's
+     training sample, (131,072, 8) x 256.
   6. IVF path: build_index("IVF-L2", n_clusters=1000), then "IVF-IP", on the
      same collection; each answers 100 single queries (nprobe=32) and batches
      at B=16 and B=256, unfiltered and with where="bucket < 5" (half the
@@ -50,7 +51,9 @@ Phases (each prints its seconds):
      K19's exact top 64 and two K20 prune passes, upper layers by K19 with
      L = 16) on the same collection, the IVF phase's queries at nprobe=100
      (the gate's), unfiltered and with where="bucket < 5"; K17 (f32 and bf16
-     tiers, beam 100, B in {1, 16, 256}), K19 (one 4,096-query chunk, L=64)
+     tiers, beam 100, B in {1, 16, 256}; timed at B=16 and 256 beside its
+     bytes bound and its latency bound, the longest walk's steps x two
+     dependent loads of a pointer chase), K19 (one 4,096-query chunk, L=64)
      and K20 (one 4,096-node chunk, L=72) against their plain versions; then
      10,000 rows added and committed (the layer-0 insert: the f32 beam at
      B=1,024 and K20's pair keys) and searched again. build_index
@@ -127,6 +130,7 @@ failed check exits non-zero before them.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import subprocess
@@ -147,10 +151,11 @@ from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
 from lynsedb_tpu_torch.tools.flat_latency import GcClock
 from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, ELEM_DIM_OPS, F32_OPS, HBM_BPS,
-                                              SFU_OPS, binary_tile_bound, bound, bound_t,
-                                              code_scan_bound, elem_tile_bound, f32_tile_bound,
-                                              kmeans_update_bound, prune_bound,
-                                              shared_list_bound, topl_bound)
+                                              SFU_OPS, assign_bound, binary_tile_bound, bound,
+                                              bound_t, code_scan_bound, elem_tile_bound,
+                                              f32_tile_bound, kmeans_update_bound, prune_bound,
+                                              shared_list_bound, topl_bound, walk_bound,
+                                              walk_bytes_bound)
 
 N, DIM, K, C = 1_000_000, 128, 10, 256
 BATCHES = (1, 16, 256)
@@ -359,20 +364,22 @@ class Stats:
     def error(self, name, err) -> None:
         self.err[name] = max(self.err[name], float(err))
 
-    def time(self, name, label, fn, plain, library, bound_ms, reps: int = 10) -> None:
+    def time(self, name, label, fn, plain, library, bound_ms, reps: int = 10,
+             plain_reps: int | None = None, **extra) -> None:
         with uncounted():
             self.rows[name][label] = {
-                "ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, reps),
+                "ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain, plain_reps or reps),
                 "library_ms": None if library is None else cuda_ms(library, reps),
-                "bound_ms": bound_ms[0], "bound_by": bound_ms[1]}
+                "bound_ms": bound_ms[0], "bound_by": bound_ms[1], **extra}
 
     def table(self, card: str) -> None:
         print(f"   kernel times, ms per launch (CUDA events; {card}):")
         for name, rows in self.rows.items():
             for label, r in rows.items():
                 lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+                walk = f"  walk bound {r['walk_bound_ms']:.4f}" if "walk_bound_ms" in r else ""
                 print(f"     {name:24s} {label:28s} kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}"
-                      f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
+                      f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']}){walk}")
 
 
 def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
@@ -549,8 +556,7 @@ def kmeans_kernel_phase(x: np.ndarray, rng, stats: Stats) -> None:
                 stats.time("K15 kmeans_assign", f"{'IP' if ip else 'L2'} N={rows} K={N_CLUSTERS}",
                            lambda: kmeans.kmeans_assign(data, cent, ip),
                            lambda: kmeans.kmeans_assign_plain(data, cent, ip), None,
-                           bound(rows * DIM * 4 + N_CLUSTERS * (DIM + 1) * 4 + rows * 4,
-                                 2 * rows * N_CLUSTERS * DIM))
+                           assign_bound(rows, N_CLUSTERS, DIM, ip))
             print(f"   kmeans_assign N={rows} {'IP' if ip else 'L2'}: {len(diff)} near-tie "
                   "rows differ", flush=True)
     data = xd[:n_train]
@@ -771,20 +777,26 @@ def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
                                        2 * n_cand * DIM))
     print(f"   K11 bf16_gather_scores S={SHORTLIST}: agrees with its plain version", flush=True)
 
-    # kmeans_assign at PQ's encode shape: every row's 8-wide subspace x 256
+    # kmeans_assign at PQ's shapes: every row's 8-wide subspace x 256 (the
+    # encode) and the codebook fit's training sample (PQ.TRAIN_SAMPLE rows)
     sub = torch.from_numpy(np.ascontiguousarray(corpus.host_rows(np.arange(N))[:, :ds])).to(DEV)
     cent = sub[torch.from_numpy(rng.choice(N, 256, replace=False)).to(DEV)].clone()
-    got, want = kmeans.kmeans_assign(sub, cent, False), kmeans.kmeans_assign_plain(sub, cent, False)
-    diff = torch.nonzero(got != want).flatten()
-    if len(diff):  # allowed only where the two best codewords nearly tie
-        top2 = (-kmeans._l2_scores(sub[diff], cent, (cent * cent).sum(-1))).topk(2, dim=1).values
-        check(bool(((top2[:, 0] - top2[:, 1]).abs() <= 1e-5 * top2[:, 0].abs() + 1e-6).all()),
-              f"kmeans_assign (N, {ds}) x 256: {len(diff)} differ beyond a near-tie")
-    stats.time("K15 kmeans_assign", f"L2 N={N} K=256 D={ds}",
-               lambda: kmeans.kmeans_assign(sub, cent, False),
-               lambda: kmeans.kmeans_assign_plain(sub, cent, False), None,
-               bound(N * ds * 4 + 256 * (ds + 1) * 4 + N * 4, 2 * N * 256 * ds))
-    print(f"   kmeans_assign (N, {ds}) x 256: {len(diff)} near-tie rows differ", flush=True)
+    for rows in (N, quantize.PQ.TRAIN_SAMPLE):
+        data = sub[:rows]
+        got = kmeans.kmeans_assign(data, cent, False)
+        want = kmeans.kmeans_assign_plain(data, cent, False)
+        diff = torch.nonzero(got != want).flatten()
+        if len(diff):  # allowed only where the two best codewords nearly tie
+            top2 = (-kmeans._l2_scores(data[diff], cent, (cent * cent).sum(-1))).topk(
+                2, dim=1).values
+            check(bool(((top2[:, 0] - top2[:, 1]).abs() <= 1e-5 * top2[:, 0].abs() + 1e-6).all()),
+                  f"kmeans_assign ({rows}, {ds}) x 256: {len(diff)} differ beyond a near-tie")
+        stats.time("K15 kmeans_assign", f"L2 N={rows} K=256 D={ds}",
+                   lambda: kmeans.kmeans_assign(data, cent, False),
+                   lambda: kmeans.kmeans_assign_plain(data, cent, False), None,
+                   assign_bound(rows, 256, ds))
+        print(f"   kmeans_assign ({rows}, {ds}) x 256: {len(diff)} near-tie rows differ",
+              flush=True)
 
 
 def exact_topk(x: np.ndarray, rows: np.ndarray, q: np.ndarray, k: int, metric=Metric.IP,
@@ -938,10 +950,20 @@ def beam_tier_args(tier: str, idx, corpus) -> tuple:
     return idx._sq8_device() if tier == "sq8" else idx._pq_device()
 
 
+@functools.cache
+def load_latency_ms() -> float:
+    """One dependent global load's ms on this card (graph.dependent_load_ms,
+    a pointer chase), measured once."""
+    ms = graph.dependent_load_ms(DEV)
+    print(f"   dependent global load: {ms * 1e6:.1f} ns (pointer chase)", flush=True)
+    return ms
+
+
 def beam_phase(eng, tiers, kind: str, beam: int, q_sets, stats: Stats, label: str) -> None:
     """K17 against its plain version (on the card too, same operands) on the
     built index, at ``beam`` and B in {1, 16, 256}: the same pool keys, ids
-    and visit counts. Times each tier at B=16."""
+    and visit counts. Times each tier at B=16 and B=256, beside the bytes
+    bound and the latency bound (roofline.walk_bound)."""
     idx, corpus = eng._index, eng.corpus()
     live = corpus.valid_mask()[: idx.built_rows]
     hnsw = idx.kind == "hnsw"
@@ -956,26 +978,27 @@ def beam_phase(eng, tiers, kind: str, beam: int, q_sets, stats: Stats, label: st
             ops = graph.beam_operands(tier, qd, *args, kind=kind)
             walk = (tier, ops["qop"], ops["qconst"], ops["rows"], ops["aux"], adj, starts, live)
             kw = dict(code=code, beam=beam, max_steps=2 * beam, expand=1)
-            got, want = graph.beam_walk(*walk, **kw), graph.beam_walk_plain(*walk, **kw)
+            steps = {}
+            got = graph.beam_walk(*walk, **kw)
+            want = graph.beam_walk_plain(*walk, **kw, stats=steps)
             for g, w, what in zip(got, want, ("keys", "ids", "scanned")):
                 check(torch.equal(g, w), f"K17 {label} {tier} B={b}: {what} differ")
             stats.error("K17 beam_search", 0.0)
-            if b == 16:
-                # bound: each visited node's guidance row, aux terms and
-                # valid byte, and the adjacency row of each expanded node,
-                # read once; the pool written; one multiply-add a dimension.
-                # Expanded nodes are at least the pool's finite entries (a
-                # walk ends when all are expanded, or after 2 x beam
-                # expansions). The visited bitmap is left out.
+            if b in (16, 256):
+                # bytes bound: each visited node's row, aux terms and valid
+                # byte, the adjacency row of each expanded node (at least the
+                # pool's finite entries) read once, the pool written; beside
+                # it the latency bound of the longest walk's steps
                 row_bytes = ops["rows"].shape[1] * ops["rows"].element_size() + 4 * sum(
                     a is not None for a in ops["aux"])
-                visits = int(got[2].sum())
-                expanded = int((got[0] > float("-inf")).sum())
                 stats.time("K17 beam_search", f"{label} {tier} {kind} B={b} beam={beam}",
                            lambda: graph.beam_walk(*walk, **kw),
                            lambda: graph.beam_walk_plain(*walk, **kw), None,
-                           bound(visits * (row_bytes + 1) + expanded * adj.shape[1] * 4
-                                 + b * beam * 8, 2 * visits * DIM), reps=3)
+                           walk_bytes_bound(int(got[2].sum()), row_bytes,
+                                            int((got[0] > float("-inf")).sum()), adj.shape[1],
+                                            b, beam, DIM), reps=3, plain_reps=1,
+                           walk_bound_ms=walk_bound(steps["steps"], load_latency_ms())[0],
+                           steps=steps["steps"])
         print(f"   K17 {label} {tier} ({kind}, beam {beam}): equal to its plain version at "
               f"B in {[len(qs) for qs in q_sets]}", flush=True)
 
@@ -1676,7 +1699,9 @@ def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool
             ops = graph.beam_operands("metric", qd, space, kind=metric.value)
             walk = ("metric", ops["qop"], None, ops["rows"], ops["aux"], adj,
                     idx._starts(qd, corpus, live), live)
-            got, want = graph.beam_walk(*walk, **kw), graph.beam_walk_plain(*walk, **kw)
+            steps = {}
+            got = graph.beam_walk(*walk, **kw)
+            want = graph.beam_walk_plain(*walk, **kw, stats=steps)
             for g, w, what in zip(got, want, ("keys", "ids", "scanned")):
                 check(torch.equal(g, w), f"K17 {mode} B={b}: {what} differ")
             stats.error("K6g beam_search", 0.0)
@@ -1687,7 +1712,9 @@ def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool
                            lambda: graph.beam_walk(*walk, **kw),
                            lambda: graph.beam_walk_plain(*walk, **kw), None,
                            bound_t(visits * (row_bytes + 1) + expanded * adj.shape[1] * 4
-                                   + b * GRAPH_NPROBE * 8, visits * elem_ops / F32_OPS), reps=3)
+                                   + b * GRAPH_NPROBE * 8, visits * elem_ops / F32_OPS), reps=3,
+                           walk_bound_ms=walk_bound(steps["steps"], load_latency_ms())[0],
+                           steps=steps["steps"])
 
         l = 64
         for chunk in (256, TOPL_CHUNK) if timed else (256,):
@@ -2611,7 +2638,8 @@ def main() -> int:
             "launches_by_path": {p: by_path[p][kern] for p in paths},
             "max_abs_err": stats.err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": shown[name]})
+            "library_ms": row["library_ms"], "shape": shown[name],
+            **({"walk_bound_ms": row["walk_bound_ms"]} if "walk_bound_ms" in row else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

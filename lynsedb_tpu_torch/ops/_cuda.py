@@ -59,10 +59,11 @@ _SIGNATURES = {
     "lt_bf16_gather_scores": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                               _P),
     "lt_beam_search": (_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
-                       _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
+                       _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
     "lt_topl_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                      _P),
     "lt_robust_prune": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P),
+    "lt_pointer_chase": (_P, _I, _I, _P, _P),
     "lt_ivf_binary_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P),
 }
 

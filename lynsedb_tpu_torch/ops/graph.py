@@ -7,9 +7,11 @@ search_layer, src/index/diskann.rs:602 beam, :798-1084 Vamana build,
 device work, each beside its plain PyTorch version:
 
   * K17 :func:`beam_walk` (csrc/beam_search.cu) — one block a query walks the
-    graph best first inside one launch, with the pool in shared memory and a
-    visited bitmap in device memory. Four guidance tiers (exact f32, centred
-    bf16, SQ8 codes, PQ tables) differ only in how a node is scored.
+    graph best first inside one launch, with the pool in shared memory and
+    the visited set there too, as a hash set of node ids (a bitmap in device
+    memory where its table would not fit, :func:`visited_table_cap`). Four
+    guidance tiers (exact f32, centred bf16, SQ8 codes, PQ tables) differ
+    only in how a node is scored.
   * K19 :func:`topl_scan` (csrc/topl_scan.cu) — the exact top-L of a query
     chunk over the whole corpus, self-matches masked: K1's pipelined f32
     tile over a span of rows a block, each query's running top L in a list
@@ -70,6 +72,10 @@ _TIERS = {"f32": 0, "bf16": 1, "sq8": 2, "pq": 3, "metric": 4}
 SMEM_LIMIT = 232_448
 # fresh-candidate slots a K17 block scores per merge (also its start chunk)
 _FRESH_MIN = 256
+# K17's visited set stays in shared memory while its table takes at most this
+# many int32 slots (64 KB: three blocks an SM beside the pools); a walk whose
+# bound needs more keeps the device bitmap
+VISITED_TABLE_MAX = 16_384
 # K19's longest list: each block keeps its queries' running top L over one
 # span of rows and writes L candidates a query; K5 merges the spans (their
 # count and the lists' device buffer are the kernel's plan, lt_topl_spans
@@ -304,12 +310,15 @@ def _tier_keys_plain(tier: int, code: int, qop, qconst, rows, aux, ids: torch.Te
     return _nan_to_neg_inf(keys)
 
 
-def _beam_core_plain(keyed_ids, graph, starts, valid, b, *, beam, max_steps, expand):
+def _beam_core_plain(keyed_ids, graph, starts, valid, b, *, beam, max_steps, expand,
+                     stats: Optional[dict] = None):
     """Plain version of K17's walk (the JAX package's _beam_core): each step
     expands the best ``expand`` unexpanded pool entries, scores their fresh
     neighbours and keeps the best ``beam`` of pool and fresh, pool entries
     first between equal keys. Returns (keys (B, beam), ids (B, beam) int32,
-    scanned (B,) int32), best first, ids -1 where the pool ran dry."""
+    scanned (B,) int32), best first, ids -1 where the pool ran dry. The steps
+    run in lockstep, so their count, put in ``stats["steps"]``, is the
+    longest walk's."""
     n, r = graph.shape
     dev = graph.device
     starts_b = (starts[None, :].expand(b, -1) if starts.dim() == 1 else starts).long()
@@ -329,8 +338,9 @@ def _beam_core_plain(keyed_ids, graph, starts, valid, b, *, beam, max_steps, exp
     ok = pool_ids >= 0
     visited[rows.expand_as(pool_ids)[ok], pool_ids[ok]] = True
     e = expand
-    for _ in range(max_steps):
-        if not bool((~pool_exp & (pool_ids >= 0) & (pool_keys > NEG_INF)).any()):
+    for steps in range(max_steps + 1):
+        if steps == max_steps or not bool(
+                (~pool_exp & (pool_ids >= 0) & (pool_keys > NEG_INF)).any()):
             break
         cand_key = torch.where(pool_exp | (pool_ids < 0), NEG_INF, pool_keys)
         top_cand, best = _stable_top(cand_key, e)
@@ -349,33 +359,76 @@ def _beam_core_plain(keyed_ids, graph, starts, valid, b, *, beam, max_steps, exp
         all_exp = torch.cat([pool_exp, torch.zeros_like(fresh)], dim=1)
         pool_keys, pos = _stable_top(all_keys, beam)
         pool_ids, pool_exp = all_ids.gather(1, pos), all_exp.gather(1, pos)
+    if stats is not None:
+        stats["steps"] = steps
     pool_ids = torch.where(pool_keys > NEG_INF, pool_ids, -1)
     return pool_keys, pool_ids.to(torch.int32), visited.sum(1, dtype=torch.int32)
 
 
 def beam_walk_plain(tier: str, qop, qconst, rows, aux, graph, starts, valid, *, code: int,
-                    beam: int, max_steps: int, expand: int):
-    """Plain version of :func:`beam_walk`, on the inputs' device."""
+                    beam: int, max_steps: int, expand: int, stats: Optional[dict] = None):
+    """Plain version of :func:`beam_walk`, on the inputs' device (``stats``:
+    see _beam_core_plain)."""
     t = _TIERS[tier]
 
     def keyed(ids):
         return _tier_keys_plain(t, code, qop, qconst, rows, aux, ids)
 
     return _beam_core_plain(keyed, graph, starts, valid, qop.shape[0], beam=beam,
-                            max_steps=max_steps, expand=expand)
+                            max_steps=max_steps, expand=expand, stats=stats)
+
+
+def dependent_load_ms(device, *, span_bytes: int = 1 << 29, hops: int = 20_000) -> float:
+    """Milliseconds of one global load whose address comes from the load
+    before, on a CUDA ``device``: csrc/latency_probe.cu chases one cycle
+    through ``span_bytes`` of int32 successors (by default 512 MB, the 1M x
+    128 f32 rows' footprint, ten times the L2 cache), timed by CUDA events
+    over ``hops`` loads. K17's walk waits for two such loads a step
+    (tools/roofline.py walk_bound). The cycle is a full-period linear
+    congruential sequence modulo a power of two, so its addresses jump."""
+    n = 1 << max(10, (span_bytes // 4).bit_length() - 1)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    nxt = ((idx * 1103515245 + 12345) & (n - 1)).to(torch.int32)
+    del idx
+    out = torch.empty(1, dtype=torch.int32, device=device)
+
+    def chase(h: int) -> None:
+        _cuda.call("lt_pointer_chase", nxt.data_ptr(), 0, h, out.data_ptr(),
+                   _cuda.stream_of(nxt))
+
+    chase(1000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    chase(hops)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / hops
 
 
 def _f(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.to(torch.float32).contiguous()
 
 
-def _beam_smem(beam: int, fresh: int, qw: int, expand: int) -> int:
-    """Dynamic shared memory of a K17 block (csrc/beam_search.cu's layout):
-    two pools, the fresh slots, the query operand and the control words."""
+def _beam_smem(beam: int, fresh: int, qw: int, expand: int, table_cap: int) -> int:
+    """Dynamic shared memory of a K17 block (csrc/beam_search.cu beam_smem):
+    two pools, the fresh slots, the query operand and the control words, and
+    ``table_cap`` int32 slots of the visited set."""
     def round16(n: int) -> int:
         return (n + 15) // 16 * 16
 
-    return round16(18 * beam) + round16(19 * fresh) + 4 * qw + 4 * (16 + expand)
+    return (round16(18 * beam) + round16(19 * fresh) + round16(4 * qw + 4 * (16 + expand))
+            + 4 * table_cap)
+
+
+def visited_table_cap(n_starts: int, beam: int, max_steps: int, expand: int, r: int) -> int:
+    """Slots of K17's visited set in shared memory for a walk: the smallest
+    power of two (at least 64) above the most inserts the walk can make (the
+    pool's min(S, beam) starts and max_steps x expand x R neighbours), so the
+    table never fills; 0 where that is above VISITED_TABLE_MAX, and the walk
+    keeps a (B, ceil(N/32)) bitmap in device memory instead."""
+    bound = min(n_starts, beam) + max_steps * expand * r
+    cap = max(64, 1 << bound.bit_length())
+    return cap if cap <= VISITED_TABLE_MAX else 0
 
 
 def beam_walk(tier: str, qop: torch.Tensor, qconst: Optional[torch.Tensor], rows: torch.Tensor,
@@ -397,7 +450,10 @@ def beam_walk(tier: str, qop: torch.Tensor, qconst: Optional[torch.Tensor], rows
     b = qop.shape[0]
     n, r = graph.shape
     fresh = max(expand * r, _FRESH_MIN)
-    smem = _beam_smem(beam, fresh, qop.shape[1], expand)
+    cap = visited_table_cap(starts.shape[-1], beam, max_steps, expand, r)
+    if _beam_smem(beam, fresh, qop.shape[1], expand, cap) > SMEM_LIMIT:
+        cap = 0
+    smem = _beam_smem(beam, fresh, qop.shape[1], expand, cap)
     if smem > SMEM_LIMIT:
         raise ValueError(f"beam_walk: a pool of {beam} needs {smem} bytes of shared memory "
                          f"(limit {SMEM_LIMIT})")
@@ -416,7 +472,7 @@ def beam_walk(tier: str, qop: torch.Tensor, qconst: Optional[torch.Tensor], rows
     if rows.dtype != want_dtype:
         raise ValueError(f"beam_walk: {tier} rows must be {want_dtype}, got {rows.dtype}")
     aux = tuple(aux) + (None,) * (3 - len(aux))
-    # the per-row arrays each tier's keys read (csrc/beam_search.cu node_key)
+    # the per-row arrays each tier's keys read (csrc/beam_search.cu aux_use)
     needs = {0: (), 1: (0, 1, 2) if code == 2 else (0, 1), 2: (0, 1) if code == 2 else (0,),
              3: (0, 1, 2) if code == 2 else (0, 1),
              4: (0, 1, 2) if _CODE_METRIC[code] in D.TERMS else ()}[t]
@@ -427,8 +483,9 @@ def beam_walk(tier: str, qop: torch.Tensor, qconst: Optional[torch.Tensor], rows
     if t in (0, 1, 2) and (qconst is None or qconst.shape != (b,)):
         raise ValueError("beam_walk: qconst (B,) expected")
     _cuda.require_cuda("beam_walk", qop, qconst, rows, graph, starts, valid, *aux)
-    words = (n + 31) // 32
-    visited = torch.zeros((b, words), dtype=torch.int32, device=qop.device)
+    # the bitmap route's visited set (zeroed); the table route keeps it on chip
+    words = (n + 31) // 32 if cap == 0 else 0
+    visited = torch.zeros((b, words), dtype=torch.int32, device=qop.device) if words else None
     keys = torch.empty((b, beam), dtype=torch.float32, device=qop.device)
     ids = torch.empty((b, beam), dtype=torch.int32, device=qop.device)
     scanned = torch.empty((b,), dtype=torch.int32, device=qop.device)
@@ -437,7 +494,7 @@ def beam_walk(tier: str, qop: torch.Tensor, qconst: Optional[torch.Tensor], rows
         rows.shape[1], _cuda.ptr(aux[0]), _cuda.ptr(aux[1]), _cuda.ptr(aux[2]),
         graph.data_ptr(), n, r, starts.data_ptr(), starts.shape[-1],
         starts.shape[1] if starts.dim() == 2 else 0, valid.data_ptr(), b, beam, max_steps,
-        expand, code, fresh, visited.data_ptr(), words, keys.data_ptr(), ids.data_ptr(),
+        expand, code, fresh, cap, _cuda.ptr(visited), words, keys.data_ptr(), ids.data_ptr(),
         scanned.data_ptr(), smem, _cuda.stream_of(qop),
     )
     beam_walk.launches += 1

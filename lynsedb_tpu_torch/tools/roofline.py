@@ -142,3 +142,36 @@ def kmeans_update_bound(n: int, k: int, d: int, n_valid: int):
     the old centroids read and the sums, new centroids, counts and moves
     written; n_valid d adds at F32_OPS."""
     return bound_t(n * 5 + n_valid * d * 4 + k * (3 * d + 2) * 4, n_valid * d / F32_OPS)
+
+
+# f32 instructions a (row, centroid) pair's epilogue takes in K15a beside its
+# d FMAs: L2 |x|^2 + |c|^2, the fused -2 x.c, the clamp and the compare with
+# the row's best; IP the compare
+ASSIGN_EPI_OPS = {"l2": 4, "ip": 1}
+
+
+def assign_bound(n: int, k: int, d: int, ip: bool = False):
+    """K15a, the nearest of k centroids for n rows of d f32: the rows read
+    once, the centroids and their squared norms read, (n,) int32 written;
+    n k (d + the epilogue's ASSIGN_EPI_OPS) f32 instructions at F32_OPS (an
+    FMA one instruction, as the 67 TFLOP/s counts it two flops)."""
+    epi = ASSIGN_EPI_OPS["ip" if ip else "l2"]
+    return bound_t(n * d * 4 + k * (d + 1) * 4 + n * 4, n * k * (d + epi) / F32_OPS)
+
+
+def walk_bytes_bound(visits: int, row_bytes: int, expanded: int, r: int, b: int, beam: int,
+                     d: int):
+    """K17's bytes bound: each visited node's guidance row, aux terms and
+    valid byte (``row_bytes`` + 1), the adjacency row of each expanded node
+    (at least the pool's finite entries) read once, the (B, beam) pool
+    written; one multiply-add a dimension of a visited node. The visited set
+    is left out."""
+    return bound(visits * (row_bytes + 1) + expanded * r * 4 + b * beam * 8, 2 * visits * d)
+
+
+def walk_bound(steps: int, load_ms: float):
+    """K17's latency bound: the longest walk's ``steps``, each waiting for
+    two dependent global loads (the expanded node's adjacency row, then its
+    neighbours' rows) of ``load_ms`` each (ops/graph.py dependent_load_ms, a
+    pointer chase timed on the card)."""
+    return 2 * steps * load_ms, "latency"

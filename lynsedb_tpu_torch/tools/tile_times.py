@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Device times of the exact f32 tile (K1, K6a), K6c's f32 tile, K11's
 shared-list tile, the integer tensor-core tiles (K6b, K12), the k-means
-update (K15b), the exact top-L scan (K19) and the robust prune (K20) on one
-CUDA card, at chip_smoke.py's shapes.
+assignment and update (K15a, K15b), the graph walk (K17), the exact top-L
+scan (K19) and the robust prune (K20) on one CUDA card, at chip_smoke.py's
+shapes.
 
     python3 lynsedb_tpu_torch/tools/tile_times.py [--package-root DIR] [--reps N]
-                                                  [--only K1 K6a K6c K11 K6b K12 K15b K19 K20]
-                                                  [--dump PREFIX] [--compare PREFIX]
+                            [--only K1 K6a K6c K11 K6b K12 K15a K15b K17 K19 K20]
+                            [--dump PREFIX] [--compare PREFIX]
 
 K1 under IP over 1,000,000 x 128 f32 rows at B = 1, 16, 17, 64 and 256, beside
 ``q @ x.T`` (one f32 matmul, the same function without the mask); K6a under
@@ -26,7 +27,17 @@ and 256 and under Jaccard, Dice and Hamming at B = 16, beside the bf16
 matmul of the {0, 1} rows; K12 over 1,000,000 x 128 int8 codes (SQ8, RaBitQ,
 PolarVec under IP) at B = 1, 16 and 64, beside ``torch._int_mm`` of the
 quantized queries and the codes at B = 64 (the dot alone; it takes no fewer
-than 17 rows); K15b (``kmeans.kmeans_update``) at the IVF build's Lloyd
+than 17 rows); K15a (``kmeans.kmeans_assign``) on a 1M x 128 mixture at
+chip_smoke.py's four shapes (the IVF build's 256,000-row training sample
+under L2 and IP and its 1M corpus under L2, K = 1,000; PQ's encode, the 1M
+rows' first 8 columns, K = 256) and PQ's training sample (131,072 x 8, K =
+256), beside ``x @ c.T`` (the f32 product alone, TF32 off); K17
+(``graph.beam_walk``) in its five tiers on a degree-32 Vamana graph over a
+1M mixture (cached in build/, so every tree of a call walks the same graph;
+f32 under L2 and the metric tier under L1 at beam 100, bf16, SQ8 and PQ
+under IP at beam 125) at B = 1, 16 and 256, no library call, its bytes bound
+beside ``walk_bound_ms``, the longest walk's steps x two dependent load
+latencies (a pointer chase); K15b (``kmeans.kmeans_update``) at the IVF build's Lloyd
 step (256,000 rows of a 2,000-cluster mixture, 10% invalid, 1,000
 centroids drawn from the rows, D = 128, assigned by ``kmeans_assign``), with
 90% of the rows assigned to one centroid, and at PQ's (65,536 x 8 rows, 256
@@ -62,11 +73,12 @@ on the same inputs.
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (an older commit
 unpacked with ``git archive``), so parent and change are timed on one card
 in one call. ``--dump PREFIX`` writes K19's keys and ids, K20's candidates
-and outputs, K6c's keys (as their SHA-256) and K15b's four outputs at each
-shape to PREFIX_<shape>.npz; ``--compare PREFIX`` reads another tree's and
-adds to each K19 row whether the keys are equal to the bit and the ids equal
-(or differ only between equal keys), and to each K6c, K15b and K20 row
-whether its outputs (and K20's candidates) are equal to the bit. Prints
+and outputs, K6c's keys (as their SHA-256), K15a's indices, K15b's four
+outputs and K17's keys, ids and scanned at each shape to
+PREFIX_<shape>.npz; ``--compare PREFIX`` reads another tree's and adds to
+each K19 row whether the keys are equal to the bit and the ids equal (or
+differ only between equal keys), and to each K6c, K15a, K15b, K17 and K20
+row whether its outputs (and K20's candidates) are equal to the bit. Prints
 the card's name and power limit, then one JSON line per kernel and shape.
 """
 
@@ -83,8 +95,9 @@ import numpy as np
 
 # roofline.py sits beside this script (sys.path[0]), so this tree's formulas
 # hold whichever --package-root is timed
-from roofline import (binary_tile_bound, code_scan_bound, elem_tile_bound, f32_tile_bound,
-                      kmeans_update_bound, prune_bound, shared_list_bound, topl_bound)
+from roofline import (assign_bound, binary_tile_bound, code_scan_bound, elem_tile_bound,
+                      f32_tile_bound, kmeans_update_bound, prune_bound, shared_list_bound,
+                      topl_bound, walk_bound, walk_bytes_bound)
 
 N, DIM, SHARED_EVERY = 1_000_000, 128, 10
 BITS_DIM, BITS_DENSITY = 1024, 0.1
@@ -93,7 +106,7 @@ TOPL_CHUNK, TOPL_L, TOPL_METRIC_CHUNK, TOPL_METRIC_N = 4096, 64, 1024, 1_010_000
 # pair (both points' radians and cosines formed for each pair)
 HAVERSINE_OPS = (12, 6)
 PRUNE_NODES, PRUNE_EXTRA, PRUNE_R, KEYS_NODES = 4096, 8, 32, 1024
-KERNELS = ("K1", "K6a", "K6c", "K11", "K6b", "K12", "K15b", "K19", "K20")
+KERNELS = ("K1", "K6a", "K6c", "K11", "K6b", "K12", "K15a", "K15b", "K17", "K19", "K20")
 # the kernels' names, this tree's and earlier ones' (torch.profiler keys)
 K1_NAMES, K11_NAMES = ("f32_tile_kernel", "tile_scores_kernel"), ("shared_list_kernel",
                                                                   "bf16_gather_kernel")
@@ -104,7 +117,15 @@ K20_NAMES = ("prune_kernel",)
 K6C_NAMES = ("elem_f32_kernel", "haversine_tile_kernel", "elem_tile_kernel", "haversine_kernel")
 K15B_NAMES = ("count_kernel", "scan_kernel", "scatter_kernel", "sum_kernel",
               "kmeans_update_kernel")
+K15A_NAMES = ("assign_fma_kernel", "assign_small_kernel", "kmeans_assign_kernel")
+K17_NAMES = ("beam_kernel",)
 KM_N, KM_K, KM_CENTERS, PQ_N, PQ_K, PQ_D = 256_000, 1000, 2000, 65_536, 256, 8
+PQ_TRAIN = 131_072  # ops/quantize.py PQ.TRAIN_SAMPLE
+# K17: a Vamana graph of degree 32 (HNSW's layer 0 at m = 16) over the 1M
+# mixture, kept under build/ once built (every tree of a call walks the same
+# graph); per-query starts, each query's 8 nearest of a 4,096-node sample
+WALK_R, WALK_L, WALK_SAMPLE, WALK_STARTS = 32, 64, 4096, 8
+WALK_CACHE = Path(__file__).resolve().parents[2] / "build" / "tile_times_walk_graph.npy"
 
 
 def main() -> int:
@@ -112,8 +133,8 @@ def main() -> int:
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", nargs="+", choices=KERNELS, default=list(KERNELS))
-    ap.add_argument("--dump", help="write K6c's, K15b's, K19's and K20's outputs to "
-                                   "PREFIX_<shape>.npz")
+    ap.add_argument("--dump", help="write K6c's, K15a's, K15b's, K17's, K19's and K20's "
+                                   "outputs to PREFIX_<shape>.npz")
     ap.add_argument("--compare", help="hold those outputs to another tree's PREFIX_<shape>.npz")
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
@@ -173,8 +194,12 @@ def main() -> int:
         binary_rows(row, dev)
     if "K12" in args.only:
         code_rows(row, dev)
+    if "K15a" in args.only:
+        assign_rows(row, dev, args.dump, args.compare)
     if "K15b" in args.only:
         kmeans_rows(row, dev, args.dump, args.compare)
+    if "K17" in args.only:
+        walk_rows(row, dev, args.dump, args.compare)
     if "K19" in args.only:
         topl_rows(row, dev, args.dump, args.compare)
     if "K20" in args.only:
@@ -341,6 +366,151 @@ def kmeans_rows(row, dev, dump, compare) -> None:
             largest_cluster=int(torch.bincount(a64[ok], minlength=k).max()),
             **held(dump, compare, f"K15b_{tag}", outs))
         del first, second, want
+
+
+def mixture(rng, n: int) -> np.ndarray:
+    """n x 128 rows of a seeded mixture of KM_CENTERS gaussian clusters
+    (spread 0.6, chip_smoke.py's corpus), made in blocks."""
+    centers = rng.normal(size=(KM_CENTERS, DIM)).astype(np.float32)
+    out = np.empty((n, DIM), dtype=np.float32)
+    for lo in range(0, n, 1 << 18):
+        m = min(1 << 18, n - lo)
+        out[lo : lo + m] = centers[rng.integers(0, KM_CENTERS, m)] + 0.6 * rng.normal(
+            size=(m, DIM)).astype(np.float32)
+    return out
+
+
+def assign_rows(row, dev, dump, compare) -> None:
+    """K15a at chip_smoke.py's shapes (the IVF build's training sample of
+    256,000 rows under L2 and IP and the 1M corpus under L2, K = 1,000, D =
+    128; PQ's encode, 1M x 8, K = 256) and PQ's training sample (131,072 x 8,
+    K = 256), beside ``x @ c.T`` (the f32 product alone, TF32 off). The
+    indices are held to the plain version (``max_abs_err``: the largest gap
+    between the plain scores of the two picks where they differ) and to
+    another tree's (bits)."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import kmeans
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(mixture(rng, N)).to(dev)
+    cent = x[torch.from_numpy(rng.choice(N, KM_K, replace=False)).to(dev)].clone()
+    sub = x[:, :PQ_D].contiguous()
+    pq_cent = sub[torch.from_numpy(rng.choice(N, PQ_K, replace=False)).to(dev)].clone()
+    for tag, data, c, ip in (("L2", x[:KM_N], cent, False), ("IP", x[:KM_N], cent, True),
+                             ("L2", x, cent, False), ("L2", sub, pq_cent, False),
+                             ("L2", sub[:PQ_TRAIN], pq_cent, False)):
+        n, d = data.shape
+        k = c.shape[0]
+        got = kmeans.kmeans_assign(data, c, ip)
+        want = kmeans.kmeans_assign_plain(data, c, ip)
+        diff = torch.nonzero(got != want).flatten()
+        err = 0.0
+        if len(diff):
+            sub_rows = data[diff]
+            s = kmeans._ip_scores(sub_rows, c) if ip else kmeans._l2_scores(
+                sub_rows, c, (c * c).sum(-1))
+            pick = lambda i: s.gather(1, i[diff].long()[:, None])[:, 0]  # noqa: E731
+            err = float((pick(got) - pick(want)).abs().max())
+        shape = f"{tag} N={n} K={k} D={d}"
+        row("K15a kmeans_assign", shape, lambda: kmeans.kmeans_assign(data, c, ip),
+            lambda: data @ c.T, assign_bound(n, k, d, ip), err, K15A_NAMES,
+            library_reps=3 if n == N and d == DIM else None, rows_differ_from_plain=len(diff),
+            **held(dump, compare, f"K15a_{tag}_{n}_{k}_{d}", {"ids": got.cpu().numpy()}))
+        del got, want
+
+
+def walk_inputs(dev):
+    """K17's inputs on the card: the 1M mixture, a degree-32 Vamana graph
+    over it (built once into WALK_CACHE), every row live, and each guidance
+    tier's (tier, kind, beam, beam_operands args): f32 under L2 and the
+    metric tier under L1 at beam 100, bf16, SQ8 and PQ under IP at beam 125
+    (DiskANN-IP's), the codes fitted as DiskANN fits them."""
+    import torch
+
+    from lynsedb_tpu_torch.index.diskann import _pq_row_terms
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import graph, quantize, scan
+
+    rng = np.random.default_rng(8)
+    x_np = mixture(rng, N)
+    x = torch.from_numpy(x_np).to(dev)
+    if WALK_CACHE.exists():
+        adj_np = np.load(WALK_CACHE)
+    else:
+        adj_np = graph.build_vamana(x, Metric.L2, r=WALK_R, l_build=WALK_L)
+        WALK_CACHE.parent.mkdir(parents=True, exist_ok=True)
+        np.save(WALK_CACHE, adj_np)
+    adj = torch.from_numpy(np.ascontiguousarray(adj_np, dtype=np.int32)).to(dev)
+    corpus = scan.DeviceCorpus(DIM, device=dev)
+    corpus.append(x_np)
+    aux = corpus.bf16_aux()
+    sq = quantize.SQ8.fit(x_np)
+    row_sq = (x_np.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    pq = quantize.PQ.fit(x_np[rng.choice(N, PQ_TRAIN, replace=False)], device=dev)
+    pq_codes = pq.encode(x_np, device=dev)
+    alpha, pq_row_sq = _pq_row_terms(pq, x_np, pq_codes)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    tiers = [("f32", "l2", 100, (x,)),
+             ("bf16", "ip", 125, (corpus.data16[:N], aux["mean"], aux["xm"][:N],
+                                  aux["xc_sq"][:N], aux["xsq_true"][:N])),
+             ("sq8", "ip", 125, (t(sq.encode(x_np)), t(sq.lo), t(sq.scale), t(row_sq))),
+             ("pq", "ip", 125, (t(pq_codes), t(pq.codebooks), t(alpha), t(pq_row_sq))),
+             ("metric", Metric.L1.value, 100, (graph.graph_space(x, Metric.L1),))]
+    return x, adj, torch.ones(N, dtype=torch.bool, device=dev), tiers
+
+
+def walk_queries(x, dev, b: int):
+    """b mixture queries (seeded by b) and their (b, WALK_STARTS) starts:
+    each query's nearest nodes of a WALK_SAMPLE-node entry sample."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import graph
+
+    sample = torch.from_numpy(graph.entry_sample_ids(N, WALK_SAMPLE)).to(dev)
+    q = torch.from_numpy(mixture(np.random.default_rng(100 + b), b)).to(dev)
+    near = torch.cdist(q, x[sample.long()]).topk(WALK_STARTS, dim=1, largest=False).indices
+    return q, sample[near].to(torch.int32).contiguous()
+
+
+def walk_rows(row, dev, dump, compare) -> None:
+    """K17 in its five tiers (walk_inputs), 2 x beam steps at most, expand 1,
+    at B = 1, 16 and 256; keys, ids and scanned held to the plain version on
+    the card (``max_abs_err`` 0, else inf) and to another tree's (bits).
+    Beside the bytes bound, ``walk_bound_ms``: the longest walk's steps (the
+    plain version's lockstep count) x two dependent load latencies, timed by
+    a pointer chase where the tree has one (``load_ms``)."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import graph
+
+    x, adj, live, tiers = walk_inputs(dev)
+    load_ms = graph.dependent_load_ms(dev) if hasattr(graph, "dependent_load_ms") else None
+    counts_steps = "stats" in inspect.signature(graph.beam_walk_plain).parameters
+    for b in (1, 16, 256):
+        q, starts = walk_queries(x, dev, b)
+        for tier, kind, beam, args in tiers:
+            ops = graph.beam_operands(tier, q, *args, kind=kind)
+            walk = (tier, ops["qop"], ops["qconst"], ops["rows"], ops["aux"], adj, starts, live)
+            kw = dict(code=graph._KIND_CODE[kind], beam=beam, max_steps=2 * beam, expand=1)
+            got = graph.beam_walk(*walk, **kw)
+            stats = {}
+            want = graph.beam_walk_plain(*walk, **kw, **({"stats": stats} if counts_steps else {}))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            rb = ops["rows"].shape[1] * ops["rows"].element_size() + 4 * sum(
+                a is not None for a in ops["aux"])
+            bnd = walk_bytes_bound(int(got[2].sum()), rb, int((got[0] > float("-inf")).sum()),
+                                   WALK_R, b, beam, DIM)
+            extra = {"steps": stats.get("steps"), "load_ms": load_ms,
+                     "scanned_mean": float(got[2].float().mean())}
+            if load_ms is not None and "steps" in stats:
+                extra["walk_bound_ms"] = walk_bound(stats["steps"], load_ms)[0]
+            outs = {"keys": got[0].cpu().numpy(), "ids": got[1].cpu().numpy(),
+                    "scanned": got[2].cpu().numpy()}
+            row("K17 beam_search", f"{tier} {kind} B={b} beam={beam}",
+                lambda: graph.beam_walk(*walk, **kw), None, bnd, 0.0 if same else float("inf"),
+                K17_NAMES, **extra, **held(dump, compare, f"K17_{tier}_{b}", outs))
+            del got, want
 
 
 def binary_rows(row, dev) -> None:

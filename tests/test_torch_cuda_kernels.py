@@ -408,6 +408,57 @@ def test_kmeans_assign_matches_plain(dev, ip):
     assert not bool((got == 40).any())
 
 
+ASSIGN_DIMS = [1, 7, 8, 9, 15, 16, 31, 128, 129]
+ASSIGN_KS = [1, 255, 256, 257, 1000]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("k", ASSIGN_KS)
+@pytest.mark.parametrize("d", ASSIGN_DIMS)
+def test_kmeans_assign_routes(dev, d, k, offset):
+    """K15a's two routes (a row a thread below D = 16, the FMA tile from 16)
+    at their edges, L2 and IP, on 2,053 rows (no multiple of a block) with a
+    duplicated centroid (the lower index wins) and NaN rows (index 0), on
+    aligned and unaligned bases (scalar loads): the plain version's index
+    but where a row's two best centroids lie within 1e-5 relative."""
+    rng = np.random.default_rng(d * 1000 + k)
+    x = rng.normal(size=(2053, d)).astype(np.float32)
+    c = x[rng.choice(len(x), k, replace=False)].copy()
+    if k >= 3:
+        c[k - 1] = c[1]  # equal centroids
+    x[[5, 700]] = np.nan
+    x[33, 0] = np.nan
+    xd, cd = torch.from_numpy(x).to(dev), torch.from_numpy(c).to(dev)
+    if offset:
+        xd, cd = _unaligned(xd), _unaligned(cd)
+    for ip in (False, True):
+        got, want = kmeans.kmeans_assign(xd, cd, ip), kmeans.kmeans_assign_plain(xd, cd, ip)
+        torch.cuda.synchronize()
+        assert int(got[5]) == int(got[700]) == int(got[33]) == 0
+        scores = kmeans._ip_scores(xd, cd) if ip else -kmeans._l2_scores(xd, cd, (cd * cd).sum(-1))
+        ok = torch.isfinite(scores).all(1)
+        if k >= 2:
+            top2 = scores.topk(2, dim=1).values
+            near = (top2[:, 0] - top2[:, 1]).abs() <= 1e-5 * top2[:, 0].abs()
+        else:
+            near = torch.zeros_like(ok)
+        assert bool(((got == want) | near | ~ok).all()), (d, k, ip)
+        if k >= 3:
+            assert not bool((got == k - 1).any())
+
+
+def test_kmeans_assign_small_d_past_shared_memory(dev):
+    """D < 16 whose centroids overflow the small route's shared memory (8 x
+    2,500) takes the FMA tile: the plain version's index but at near-ties."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(5000, 8)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.normal(size=(2500, 8)).astype(np.float32)).to(dev)
+    got, want = kmeans.kmeans_assign(x, c, False), kmeans.kmeans_assign_plain(x, c, False)
+    top2 = (-kmeans._l2_scores(x, c, (c * c).sum(-1))).topk(2, dim=1).values
+    near = (top2[:, 0] - top2[:, 1]).abs() <= 1e-5 * top2[:, 0].abs()
+    assert bool(((got == want) | near).all())
+
+
 def test_kmeans_update_matches_plain_and_repeats(dev):
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.normal(size=(6000, 40)).astype(np.float32)).to(dev)
@@ -831,6 +882,49 @@ def test_beam_search_large_pool_matches_plain(dev):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[1] >= 0).sum(1).min()) >= 1000
+
+
+@pytest.mark.parametrize("expand", [1, 2])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "sq8", "pq", "metric"])
+def test_beam_search_bitmap_route(dev, tier, expand):
+    """A beam whose walk bound (its starts + 2 x beam x expand x R) passes
+    the shared-memory visited table keeps the device bitmap: every tier
+    equal to the plain version, keys, ids and scanned."""
+    rng, x, xd, graph, valid = _graph_inputs(dev)
+    beam, r = 520, graph.shape[1]
+    starts = torch.from_numpy(rng.choice(len(x), 700, replace=False).astype(np.int32)).to(dev)
+    assert graph_ops.visited_table_cap(700, beam, 2 * beam, expand, r) == 0
+    if tier == "metric":
+        args, kind = (graph_ops.graph_space(xd, Metric.L1),), Metric.L1.value
+    else:
+        args, kind = _tier_args(tier, rng, x, xd, dev), "l2"
+    q = torch.from_numpy(x[rng.integers(0, len(x), 3)] + 0.1).to(dev)
+    got, want = _walk_both(tier, kind, q, args, graph, starts, valid, beam, expand)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (tier, expand)
+
+
+@pytest.mark.parametrize("case", ["r40", "dup_slots", "b300"])
+def test_beam_search_step_routes(dev, case):
+    """The walk's step routes beside the one-warp step: R = 40 (> 32, the
+    block-wide step at expand 1); adjacency rows that hold a node in two
+    slots (both fresh in one step, as in the reference, scanned once); 300
+    queries with the on-chip visited set. Equal to the plain version."""
+    rng, x, xd, graph, valid = _graph_inputs(dev)
+    if case == "r40":  # 24 more neighbours a node, -1 padding among them
+        extra = rng.integers(-1, len(x), size=(len(x), 24)).astype(np.int32)
+        graph = torch.cat([graph, torch.from_numpy(extra).to(dev)], 1).contiguous()
+    if case == "dup_slots":
+        graph = graph.clone()
+        graph[::3, 1] = graph[::3, 0]
+    b = 300 if case == "b300" else 6
+    q = torch.from_numpy(x[rng.integers(0, len(x), b)] + 0.1).to(dev)
+    starts = torch.from_numpy(rng.integers(0, len(x), size=(b, 5), dtype=np.int32)).to(dev)
+    assert graph_ops.visited_table_cap(5, 48, 96, 1, graph.shape[1]) > 0
+    for kind in ("ip", "l2"):
+        got, want = _walk_both("f32", kind, q, (xd,), graph, starts, valid, 48, 1)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (case, kind)
 
 
 def _keys64(q, x, ids, mode):
