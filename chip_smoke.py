@@ -27,7 +27,8 @@ Phases (each prints its seconds):
      (100,000 rows: the gather route, K11 -> K5 -> K3, scanned_vectors
      100,000 + the shortlist); the engine's batch_search_submit at B=16,
      unfiltered and bucket = 3, against batch_search; then a 2,000-row
-     collection (the exact K1 plan). K11 against its plain version on the route's own (1, 100,000)
+     collection (the exact K1 plan); also "bucket < 5" (phase 7b's
+     reference). K11 against its plain version on the route's own (1, 100,000)
      row list and slot keys, B in {1, 16, 256, 33}, its bound at the bf16
      peak and the two calls qc16 @ x16.index_select(0, idx).T beside it.
   5. large k: search(k=1000) and search_range(max_results=1000) on the 1M
@@ -47,6 +48,25 @@ Phases (each prints its seconds):
      collection (FLAT-IP-SQ8, FLAT-L2-SQ8, FLAT-IP-PQ, FLAT-IP-RABITQ,
      FLAT-IP-POLARVEC), each built and asked the IVF phase's queries,
      unfiltered and with where="bucket < 5".
+  7b. mesh path: MESH_SHARDS = 4 virtual shards of the card
+     (make_mesh(4, devices=["cuda:0"] * 4)). K21a (the sharded exact search:
+     each shard's K1 -> K5, then the copies and K5's merge) at B in {1, 16,
+     256}, k=10, IP and L2, under phase 4's bucket = 3 rows, held to the
+     unsharded K1 -> K5 (keys within 1e-5 relative, each run reported
+     bit-equal or not; ids equal but at near-ties), on a (2, 2) mesh at
+     B=17 and k=1,000, and timed at IP beside the one-device K1 -> K5, the
+     summed per-shard bounds and torch.topk(q @ x.T); K21b (the sharded
+     Lloyd step's cross-shard reduce, csrc/mesh_reduce.cu) at 256,000 x
+     1,000 x 128: counts equal to the one-device K15's, centroids within
+     1e-5, bit-equal to its plain version twice, and at one shard to
+     _lloyd_step; dryrun_multichip(4, "cuda"); then, under
+     set_default_mesh, a fresh FLAT-IP collection of the 1M rows and fields:
+     phase 4's queries unfiltered, "bucket = 3" (each shard's gather route)
+     and "bucket < 5", against a float64 brute force on the card (recall@10
+     >= 0.999) and phase 4's one-device ids (ties, or rows the per-shard
+     shortlists found better, aside); 1% deleted and searched again;
+     search_stream of 100; FLAT-IP-SQ8 (recall >= 0.95, against phase 7's
+     one-device SQ8, deleted rows aside).
   8. graph path: build_index("HNSW-L2") (m=16: layer 0 of degree 32 from
      K19's exact top 64 and two K20 prune passes, upper layers by K19 with
      L = 16) on the same collection, the IVF phase's queries at nprobe=100
@@ -137,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -149,7 +170,9 @@ from lynsedb_tpu_torch.ops import distance as D
 from lynsedb_tpu_torch.ops import graph
 from lynsedb_tpu_torch.ops import scan
 from lynsedb_tpu_torch.ops.scan import DeviceCorpus
-from lynsedb_tpu_torch.tools.flat_latency import GcClock
+from lynsedb_tpu_torch.parallel import dryrun
+from lynsedb_tpu_torch.parallel import mesh as M
+from lynsedb_tpu_torch.tools.flat_latency import GcClock, device_ms_per_call
 from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, ELEM_DIM_OPS, F32_OPS, HBM_BPS,
                                               SFU_OPS, assign_bound, binary_tile_bound, bound,
                                               bound_t, code_scan_bound, elem_tile_bound,
@@ -221,7 +244,19 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
     # K8 chains the kernels above (K2 or K6, then K5) in ops/scan.py
     "K8 stream_block": (scan.stream_block, "lynsedb_tpu_torch/ops/scan.py",
                         "lynsedb_tpu/ops/scan.py:610"),
+    # K21a: each shard's K1 / K6 -> K5, then the copies and K5's merge
+    # (COMPOSITE: its launches are topk.merge_shards' K5 merges)
+    "K21 sharded_search": (topk.merge_shards, "lynsedb_tpu_torch/parallel/mesh.py",
+                           "lynsedb_tpu/parallel/mesh.py:83"),
+    "K21b kmeans_reduce_shards": (kmeans.kmeans_reduce_shards,
+                                  "lynsedb_tpu_torch/csrc/mesh_reduce.cu",
+                                  "lynsedb_tpu/parallel/mesh.py:117"),
 }
+# rows of the kernels line with no kernel of their own: what they chain, and
+# what their launches count (a reader adding launches by kernel skips them)
+COMPOSITE = {"K21 sharded_search": {
+    "composite_of": ["K1 flat_scores_f32", "K5 topk_select"],
+    "launches_are": "K5 merges across shards, also counted in K5's row"}}
 # the kernels each path must launch
 PATHS = {
     "flat": ("K1 flat_scores_f32", "K2 bf16_centered_topc", "K3 rescore_topk",
@@ -242,6 +277,9 @@ PATHS = {
                   "K6b binary_scores", "K6c elementwise_scores", "K8 stream_block",
                   "K11 bf16_gather_scores", "K17 beam_search",
                   "K20 robust_prune"),
+    "mesh": ("K1 flat_scores_f32", "K2 bf16_centered_topc", "K3 rescore_topk", "K5 topk_select",
+             "K11 bf16_gather_scores", "K12 int8_code_scores", "K15 kmeans_assign",
+             "K15 kmeans_update", "K21 sharded_search", "K21b kmeans_reduce_shards"),
 }
 
 
@@ -2377,6 +2415,297 @@ def streaming_path(db, x, centers, rng, sets, report, stats) -> None:
     torch.cuda.empty_cache()
 
 
+MESH_SHARDS = 4  # virtual shards of the one card
+MESH_WHERES = (None, "bucket = 3", "bucket < 5")
+MESH_DELETE = 0.01  # the share of the mesh collection's rows deleted
+
+
+def card_topk(xd64: torch.Tensor, rows: torch.Tensor, q: np.ndarray, k: int) -> np.ndarray:
+    """The exact IP top k of ``q`` over the rows where ``rows`` (N,) bool is
+    set, from float64 scores on the card; the lower id first among equal
+    scores (the duplicated rows), as phase 11's stable numpy sort orders
+    them. Returns (B, k) ids."""
+    out = []
+    for lo in range(0, len(q), 128):
+        qd = torch.from_numpy(q[lo : lo + 128]).to(DEV, torch.float64)
+        s = torch.where(rows[None, :], qd @ xd64.T, float("-inf"))
+        top, idx = torch.topk(s, k + 16, dim=1)
+        top, idx = top.cpu().numpy(), idx.cpu().numpy()
+        order = np.lexsort((idx, -top), axis=1)[:, :k]
+        out.append(np.take_along_axis(idx, order, 1))
+    return np.concatenate(out)
+
+
+def check_against(x, q, views, ref_views, label: str, dead=(), slack: float = 0.0) -> int:
+    """The mesh's ids against the one-device engine's on the same queries:
+    equal, except where a row of the reference is missing from the mesh's
+    list and is no better (float64 IP) than the mesh's 10th row, within
+    1e-5 relative (a tie, or the per-shard shortlists, a superset of the
+    merged one, found a better row), or was deleted since. At most ``slack``
+    of the reference's ids may break that (an approximate index's shortlist).
+    No deleted id. Returns the rows that differ."""
+    differ, worse, total = 0, 0, 0
+    dead = set(dead)
+    for r, (got, want) in enumerate(zip(views, ref_views)):
+        gi, wi = np.asarray(got.ids, dtype=np.int64), np.asarray(want.ids, dtype=np.int64)
+        check(not set(gi.tolist()) & dead, f"{label}: query {r} returned a deleted row")
+        total += len(wi)
+        missing = sorted(set(wi.tolist()) - set(gi.tolist()) - dead)
+        differ += len(missing)
+        if not missing:
+            continue
+        q64 = q[r].astype(np.float64)
+        worst = float((x[gi].astype(np.float64) @ q64).min())
+        for row in missing:
+            worse += float(x[row].astype(np.float64) @ q64) > worst + 1e-5 * abs(worst) + 1e-5
+    check(worse <= slack * total,
+          f"{label}: {worse} of the one-device engine's {total} ids beat the mesh's 10th row")
+    return differ
+
+
+def check_mesh_ids(got_i, want_i, want_d, valid: np.ndarray, what: str) -> None:
+    """K21a's ids against the unsharded K5's: every id a valid row (never a
+    shard's padding), and equal but at a position whose key ties another of
+    the row within 1e-5 relative (or the last, which may tie the next)."""
+    gi, wi = got_i.cpu().numpy(), want_i.long().cpu().numpy()
+    check(bool((gi >= 0).all() and (gi < len(valid)).all()) and bool(valid[gi].all()),
+          f"{what}: an id outside the valid rows")
+    wd = want_d.cpu().numpy()
+    for r, c in zip(*np.nonzero(gi != wi)):
+        near = np.abs(wd[r] - wd[r, c]) <= 1e-5 * abs(wd[r, c]) + 1e-5
+        check(int(near.sum()) > 1 or c == wd.shape[1] - 1,
+              f"{what}: ids differ at ({r}, {c}) beyond a near-tie")
+
+
+def mesh_kernel_phase(x: np.ndarray, rng, stats: Stats, report: dict) -> None:
+    """K21a (the sharded exact search over MESH_SHARDS virtual shards) against
+    the unsharded K1 -> K5 on the same rows, and K21b (the sharded Lloyd
+    step's cross-shard reduce) against its plain version, the one-device
+    K15 step and, at one shard, _lloyd_step; times beside the one-device
+    plan's and the bounds. The sharded steps' launches count for the mesh
+    path; the comparisons' and timings' do not."""
+    mesh = M.make_mesh(MESH_SHARDS, devices=[DEV] * MESH_SHARDS)
+    home = mesh.home
+    valid = np.arange(N) % 10 == 3  # phase 4's bucket = 3 rows
+    xs, vs = M.shard_corpus(mesh, x, valid)
+    vs_all = M.Sharded(tuple(tuple(torch.ones_like(v) for v in row) for row in vs.parts))
+    n_local = xs.parts[0][0].shape[0]
+    xd, vd = torch.from_numpy(x).to(home), torch.from_numpy(valid).to(home)
+    all_d = torch.ones(N, dtype=torch.bool, device=home)
+    bits = {True: 0, False: 0}
+    for metric in (Metric.IP, Metric.L2):
+        ct = D.corpus_transform(xd, metric)
+        step = M.sharded_search_fn(mesh, metric=metric, k=K)
+        for b in BATCHES:
+            q = rng.normal(size=(b, DIM)).astype(np.float32)
+            qs, _ = M.shard_queries(mesh, q)
+            got_d, got_i = step(xs, qs, vs)
+            with uncounted():
+                qd = torch.from_numpy(q).to(home)
+                qt = D.query_transform(qd, metric)
+                top, idx = topk.topk_select(scan.metric_keys(qt, ct, vd, metric), K)
+                want_d = topk.unorient(top, metric.ascending)
+                sync()
+                same = torch.equal(got_d, want_d)
+                # IP reads the rows as they are: the keys must be the bits
+                check(same or metric is not Metric.IP, f"K21a ip B={b}: keys not bit-equal")
+                bits[same] += 1
+                err = (got_d - want_d).abs()
+                check(bool((err <= 1e-5 * want_d.abs() + 1e-5).all()),
+                      f"K21a {metric.value} B={b}: keys off the unsharded K1 -> K5")
+                stats.error("K21 sharded_search", err.max())
+                check_mesh_ids(got_i, idx, want_d, valid, f"K21a {metric.value} B={b}")
+                if metric is Metric.IP:
+                    args = (qd, xd, None, None, all_d, metric)
+                    single = cuda_ms(lambda: topk.topk_select(scan.flat_scores_f32(*args), K))
+                    # each shard's K1 and K5 bounds (every row live), and the merge's
+                    k1, k1_by = f32_tile_bound(b, DIM, n_local, n_local)
+                    k5 = bound(b * n_local * 4 + b * K * 8, 0)[0]
+                    merge = bound(b * MESH_SHARDS * K * 8 + b * K * 8, 0)[0]
+                    bound_ms = (MESH_SHARDS * (k1 + k5) + merge, k1_by)
+                    plain = M.sharded_search_fn(mesh, metric=metric, k=K, plain=True)
+                    stats.time("K21 sharded_search", f"IP B={b} S={MESH_SHARDS}",
+                               lambda: step(xs, qs, vs_all), lambda: plain(xs, qs, vs_all),
+                               lambda: torch.topk(qd @ xd.T, K), bound_ms,
+                               plain_reps=2 if b == 256 else None, single_ms=single)
+                    # the kernels' own device time (torch.profiler): what the
+                    # events' time leaves is the host issuing the shards' launches
+                    dev = [device_ms_per_call(torch, fn, range(10))[0] for fn in (
+                        lambda _: step(xs, qs, vs_all),
+                        lambda _: topk.topk_select(scan.flat_scores_f32(*args), K))]
+                    report[f"K21a IP B={b} S={MESH_SHARDS} vs one device: events ms, "
+                           "device ms"] = (
+                        (stats.rows["K21 sharded_search"][f"IP B={b} S={MESH_SHARDS}"]["ms"],
+                         single), tuple(dev))
+            print(f"   K21a {metric.value} B={b}: {'bit-equal to' if same else 'within 1e-5 of'} "
+                  f"the unsharded K1 -> K5, ids equal but ties", flush=True)
+    report["K21a runs bit-equal / within 1e-5"] = (bits[True], bits[False])
+    if bits[False]:  # L2's row norms: PyTorch sums a (250,000, 128) block and a (1M, 128) one
+        print("   K21a: keys not bit-equal where the corpus transform's row norms, summed by "
+              "PyTorch per shard, round otherwise than over the whole corpus", flush=True)
+
+    # a (2, 2) mesh: the queries split over two data rows, an odd batch, k = 1,000
+    mesh22 = M.make_mesh(MESH_SHARDS, data_axis=2, devices=[DEV] * MESH_SHARDS)
+    xs22, vs22 = M.shard_corpus(mesh22, x, valid)
+    q = rng.normal(size=(17, DIM)).astype(np.float32)
+    qs, b_real = M.shard_queries(mesh22, q)
+    got_d, got_i = M.sharded_search_fn(mesh22, metric=Metric.IP, k=BIG_K)(xs22, qs, vs22)
+    with uncounted():
+        qd = torch.from_numpy(q).to(home)
+        top, idx = topk.topk_select(scan.flat_scores_f32(qd, xd, None, None, vd, Metric.IP), BIG_K)
+        check(got_d.shape == (18, BIG_K), f"K21a (2, 2): shape {tuple(got_d.shape)}")
+        err = (got_d[:b_real] - top).abs()
+        check(bool((err <= 1e-5 * top.abs() + 1e-5).all()), "K21a (2, 2) k=1000: keys")
+        check_mesh_ids(got_i[:b_real], idx, top, valid, "K21a (2, 2) k=1000")
+    print(f"   K21a on a (2, 2) mesh, B=17 (padded to 18), k={BIG_K}: "
+          f"{'bit-equal to' if torch.equal(got_d[:b_real], top) else 'within 1e-5 of'} the "
+          "unsharded K1 -> K5", flush=True)
+    del xs22, vs22
+
+    # K21b at the IVF build's training shape over MESH_SHARDS shards
+    n_train = N_CLUSTERS * 256
+    valid_k = np.arange(n_train) < n_train - n_train // 10
+    cent = xd[torch.from_numpy(rng.choice(N, N_CLUSTERS, replace=False)).to(home)].clone()
+    xk, vk = M.shard_corpus(mesh, x[:n_train], valid_k)
+    kstep = M.sharded_kmeans_step_fn(mesh)
+    new, counts = kstep(xk, cent, vk)
+    with uncounted():
+        data, valid_d = xd[:n_train], torch.from_numpy(valid_k).to(home)
+        want_new, want_counts, _ = kmeans._lloyd_step(data, valid_d, cent)
+        check(torch.equal(counts, want_counts), "K21b: counts differ from one device's K15")
+        check(bool(((new - want_new).abs() <= 1e-5 + 1e-5 * want_new.abs()).all()),
+              "K21b: centroids outside f32 tolerance of one device's K15")
+        sums, cnts = M.kmeans_partials(mesh, xk, cent, vk)
+        for _ in range(2):
+            got = kmeans.kmeans_reduce_shards(sums, cnts, cent)
+            want = kmeans.kmeans_reduce_shards_plain(sums, cnts, cent)
+            check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                  and torch.equal(got[1], want[1]), "K21b: not bit-equal to its plain version")
+        one = M.make_mesh(1, devices=[DEV])
+        x1, v1 = M.shard_corpus(one, x[:n_train], valid_k)
+        new1, _ = M.sharded_kmeans_step_fn(one)(x1, cent, v1)
+        check(torch.equal(new1.view(torch.int32), want_new.view(torch.int32)),
+              "K21b at one shard: not bit-equal to _lloyd_step")
+        s, kk, d = sums.shape
+        stats.time("K21b kmeans_reduce_shards", f"S={s} K={kk} D={d}",
+                   lambda: kmeans.kmeans_reduce_shards(sums, cnts, cent),
+                   lambda: kmeans.kmeans_reduce_shards_plain(sums, cnts, cent), None,
+                   bound((s * kk * d + 2 * kk * d + s * kk + kk) * 4, 0))
+        report[f"K21b sharded step S={s} vs _lloyd_step ms"] = (
+            cuda_ms(lambda: kstep(xk, cent, vk), 5),
+            cuda_ms(lambda: kmeans._lloyd_step(data, valid_d, cent), 5))
+        report["K21b reduce: device ms (torch.profiler)"] = device_ms_per_call(
+            torch, lambda _: kmeans.kmeans_reduce_shards(sums, cnts, cent), range(10))
+    print(f"   K21b over {MESH_SHARDS} shards at {n_train} x {N_CLUSTERS} x {DIM}: counts equal "
+          "one device's K15, centroids within 1e-5; bit-equal to its plain version twice; at "
+          "one shard bit-equal to _lloyd_step", flush=True)
+
+
+def mesh_path(db, x, q_sets, flat_out, ivf_sets, quant_out, rng, report, stats) -> None:
+    """The mesh phase: K21a / K21b on MESH_SHARDS virtual shards of the card
+    (mesh_kernel_phase), dryrun_multichip, then a Collection served from a
+    sharded corpus under set_default_mesh: a fresh FLAT-IP collection of the
+    1M rows and fields, phase 4's queries under MESH_WHERES (against a
+    float64 brute force and phase 4's one-device ids), 1% deleted, a
+    search_stream of 100, FLAT-IP-SQ8 (against phase 7's one-device SQ8)."""
+    mesh_kernel_phase(x, rng, stats, report)
+    dryrun.dryrun_multichip(MESH_SHARDS, DEV)
+    mesh = M.make_mesh(MESH_SHARDS, devices=[DEV] * MESH_SHARDS)
+    singles, b16, b256 = q_sets
+    qs = np.concatenate([singles, b16.reshape(-1, DIM), b256.reshape(-1, DIM)])
+    with uncounted():
+        xd64 = torch.from_numpy(x).to(DEV, torch.float64)
+        ids_d = torch.arange(N, device=DEV)
+    masks = {None: ids_d >= 0, "bucket = 3": ids_d % 10 == 3, "bucket < 5": ids_d % 10 < 5}
+    # the one-device engine the mesh collection is held to after its deletes
+    # (made before the default mesh is set, so it is not sharded)
+    single = DeviceCorpus(DIM, device=DEV)
+    single.append(x)
+    M.set_default_mesh(mesh)
+    try:
+        mc = db.require_collection("mesh", dim=DIM)
+        check(mc._engine.corpus().mesh is mesh, "the mesh collection's corpus is not sharded")
+        t0 = time.perf_counter()
+        mc.add(vectors=x, fields=[{"bucket": i % 10} for i in range(N)], batch_size=100_000)
+        mc.commit()
+        t_add = time.perf_counter() - t0
+        t_warm = mc.prewarm()
+        print(f"   mesh collection: add+commit {N} rows {t_add:.2f} s; first search (staging "
+              f"{MESH_SHARDS} shards) {t_warm:.2f} s", flush=True)
+        for where in MESH_WHERES:
+            label = f"MESH FLAT {'unfiltered' if where is None else where}"
+            views, lat, calls = run_queries(mc, singles, b16, b256, where)
+            with uncounted():
+                gt = card_topk(xd64, masks[where], qs, K)
+            check_results(x, singles, views[1], gt[:100], f"{label} single")
+            check_results(x, qs[100:164], views[16], gt[100:164], f"{label} B=16")
+            check_results(x, qs[164:], views[256], gt[164:], f"{label} B=256")
+            ref = flat_out[where][0]
+            differ = sum(check_against(x, qb, views[b], ref[b], f"{label} B={b}")
+                         for b, qb in ((1, singles), (16, qs[100:164]), (256, qs[164:])))
+            report[f"{label} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+            report[f"{label} qps_b16 / b256"] = tuple(len(views[b]) / sum(calls[b]["s"])
+                                                      for b in (16, 256))
+            report[f"{label} rows differing from one device"] = differ
+            report[f"{label} calls_b16"], report[f"{label} calls_b256"] = calls[16], calls[256]
+            print(f"   {label}: phase 4's one-device ids but {differ} rows (ties or better)",
+                  flush=True)
+        with uncounted():  # fresh queries: the search cache holds the ones above
+            fresh = rng.normal(size=(20, DIM)).astype(np.float32)
+            report["MESH FLAT unfiltered device ms: a single, a B=256 batch"] = (
+                device_ms_per_call(torch, lambda qv: mc.search(qv, k=K), fresh)[0],
+                device_ms_per_call(torch, lambda qb: mc.batch_search(qb, k=K),
+                                   [rng.normal(size=(256, DIM)).astype(np.float32)])[0])
+
+        dead = np.sort(rng.choice(N, int(MESH_DELETE * N), replace=False))
+        mc.delete(dead.tolist())
+        mc.commit()
+        live = torch.ones(N, dtype=torch.bool, device=DEV)
+        live[torch.from_numpy(dead).to(DEV)] = False
+        views = [mc.search(qv, k=K) for qv in singles]
+        with uncounted():
+            gt = card_topk(xd64, live, singles, K)
+            tombs = np.zeros(N, dtype=bool)
+            tombs[dead] = True
+            single.set_tombstones(tombs)
+            ref = [SimpleNamespace(ids=i) for i in single.search(singles, K, Metric.IP)[1]]
+        check_results(x, singles, views, gt, "MESH FLAT after 1% deleted")
+        check_against(x, singles, views, ref, "MESH FLAT after 1% deleted", dead.tolist())
+        stream = mc.search_stream(singles, k=K)
+        check(len(stream) == len(singles), "mesh search_stream: a result a query")
+        check_results(x, singles, stream, gt, "MESH search_stream(100)")
+        check_against(x, singles, stream, ref, "MESH search_stream(100)", dead.tolist())
+        del single
+
+        t0 = time.perf_counter()
+        mc.build_index("FLAT-IP-SQ8")
+        report["MESH FLAT-IP-SQ8 build_s"] = time.perf_counter() - t0
+        ivf_q = np.concatenate([ivf_sets[0], ivf_sets[1].reshape(-1, DIM),
+                                ivf_sets[2].reshape(-1, DIM)])
+        for where in (None, "bucket < 5"):
+            label = f"MESH FLAT-IP-SQ8 {'unfiltered' if where is None else where}"
+            views, lat, _ = run_queries(mc, *ivf_sets, where)
+            with uncounted():
+                gt = card_topk(xd64, masks[where] & live, ivf_q, K)
+            check_results(x, ivf_sets[0], views[1], gt[:100], f"{label} single", floor=0.95)
+            check_results(x, ivf_q[100:164], views[16], gt[100:164], f"{label} B=16",
+                          floor=0.95)
+            check_results(x, ivf_q[164:], views[256], gt[164:], f"{label} B=256", floor=0.95)
+            ref = quant_out[("FLAT-IP-SQ8", where)][0]
+            differ = sum(check_against(x, qb, views[b], ref[b], f"{label} B={b}", dead.tolist(),
+                                       slack=0.01)
+                         for b, qb in ((1, ivf_sets[0]), (16, ivf_q[100:164]), (256, ivf_q[164:])))
+            report[f"{label} p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+            report[f"{label} rows differing from one device"] = differ
+            print(f"   {label}: recall@10 >= 0.95; phase 7's one-device ids but {differ} rows "
+                  "(deleted, ties or better)", flush=True)
+        sync()
+    finally:
+        M.set_default_mesh(None)
+    db.drop_collection("mesh")
+    del xd64
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -2434,7 +2763,7 @@ def main() -> int:
             t_warm = coll.prewarm()  # stages the corpus (one dummy query)
             print(f"   add+commit {N} rows: {t_add:.2f} s; first search (staging): {t_warm:.2f} s")
             flat_out = {where: run_queries(coll, singles, b16, b256, where)
-                        for where in (None, "bucket = 3")}
+                        for where in MESH_WHERES}
             submit_phase(coll, np.random.default_rng(SEED + 3))
             sc = db.require_collection("small", dim=DIM)
             sc.add(vectors=small)
@@ -2499,6 +2828,12 @@ def main() -> int:
                     quant_out[(mode, where)] = run_queries(coll, *ivf_sets, where)
                 sync()
         counts["quantized"] = read_counts()
+
+        set_counts({})
+        with phase("7b mesh path"):
+            mesh_path(db, x, (singles, b16, b256), flat_out, ivf_sets, quant_out,
+                      np.random.default_rng(SEED + 16), report, stats)
+        counts["mesh"] = read_counts()
 
         set_counts({})
         with phase("8 graph path"):
@@ -2623,7 +2958,9 @@ def main() -> int:
              "K6g beam_search": f"HNSW-L1 B=16 beam={GRAPH_NPROBE}",
              "K6g topl_scan": f"HNSW-L1 chunk={TOPL_CHUNK} N={N + GRAPH_INSERT} L=64",
              "K6g robust_prune": "HNSW-L1 nodes=4096 L=72 r=32",
-             "K8 stream_block": "IP B=16 N=1M"}
+             "K8 stream_block": "IP B=16 N=1M",
+             "K21 sharded_search": f"IP B=16 S={MESH_SHARDS}",
+             "K21b kmeans_reduce_shards": f"S={MESH_SHARDS} K={N_CLUSTERS} D={DIM}"}
     kernels = []
     # the K6g rows: K17, K19 and K20 under the domain metrics, whose launches
     # are their kernels' on the index-metrics path
@@ -2639,7 +2976,9 @@ def main() -> int:
             "max_abs_err": stats.err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shown[name],
-            **({"walk_bound_ms": row["walk_bound_ms"]} if "walk_bound_ms" in row else {})})
+            **COMPOSITE.get(name, {}),
+            **({"walk_bound_ms": row["walk_bound_ms"]} if "walk_bound_ms" in row else {}),
+            **({"single_device_ms": row["single_ms"]} if "single_ms" in row else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,9 +22,18 @@ removes duplicates.
 
 The files are the JAX package's (``index/aux.npz``, ``index/aux_meta.json``):
 SQ8, RaBitQ and PolarVec encode to the same bytes in both packages, and each
-package opens the other's index. Not ported: the JAX package's mesh mode
-(ROADMAP A.12) and its batch-bucket padding (the port has no compiled
-shapes to share, ROADMAP A.1).
+package opens the other's index. Not ported: the JAX package's
+batch-bucket padding (the port has no compiled shapes to share, ROADMAP A.1).
+
+The chain runs once a view of the corpus (``DeviceCorpus.views``): the
+whole corpus, or each shard of a mesh corpus (ops/scan.py's mesh mode,
+parallel/mesh.py). A shard's per-row arrays (codes, bits, row_sq, alpha;
+PolarVec's per-row lo and scale) are the slice of its rows, on its device,
+and the per-dimension ones (SQ8's lo and scale, signs, codebooks) a copy
+(:meth:`AuxQuantIndex._device`). Each shard runs steps 1-4 on its rows, the
+ids made global, and K21a's merge (``topk.merge_shards``, K5) keeps the
+best k: each shard's K3 rescores its own top C, a superset of the merged
+list's rows.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from ..ops import quantize as Q
 from ..ops import scan
 from ..ops.scan import (_concat_parts, _fetch, _handle, _trim_results, rescore_topk,
                         shortlist_device_rescore_ids)
-from ..ops.topk import topk_select
+from ..ops.topk import merge_shards, topk_select
 from ..storage.vector_store import write_atomic
 
 OVERSAMPLE = {"sq8": 4, "pq": 8, "rabitq": 16, "polarvec": 8}
@@ -49,6 +58,9 @@ OVERSAMPLE = {"sq8": 4, "pq": 8, "rabitq": 16, "polarvec": 8}
 SLICE_MIN_CODES = 262_144
 QUERY_SLICE = 64
 SHORTLIST_MAX = 16384
+# the per-row arrays of each kind's state (a mesh corpus splits them by shard)
+_ROW_KEYS = {"sq8": ("codes", "row_sq"), "pq": ("codes", "row_sq"),
+             "rabitq": ("bits", "alpha", "row_sq"), "polarvec": ("codes", "lo", "scale", "row_sq")}
 
 
 class AuxQuantIndex:
@@ -60,7 +72,7 @@ class AuxQuantIndex:
         self.state = state  # numpy arrays (host copies)
         self.encoded_rows = encoded_rows
         self.last_scanned = 0
-        self._dev: Optional[dict] = None
+        self._dev: Optional[dict] = None  # the staged arrays, by (row range, device)
 
     # ── build / encode ───────────────────────────────────────────────────
 
@@ -164,43 +176,63 @@ class AuxQuantIndex:
             out[key] = val
         return out
 
-    def device_bytes(self, arrays: dict) -> int:
+    def device_bytes(self, arrays: dict, rows: Optional[int] = None) -> int:
         """Device memory of the staged arrays and of one search's scratch at
         its largest batch: the (B, N) code keys, K5's two buffers for the
         top S (at most N (key, index) pairs a row each) and the shortlist's
-        keys and ids."""
-        rows = max(self.encoded_rows, 1)
-        b = self._max_batch(rows)
+        keys and ids (at most N a row). ``rows``: the encoded rows the
+        arrays hold (a mesh shard's); the batch is sliced by the whole
+        index's row count."""
+        b = self._max_batch(max(self.encoded_rows, 1))
+        rows = max(self.encoded_rows if rows is None else rows, 1)
         staged = sum(int(a.nbytes) for a in arrays.values())
-        return staged + b * rows * (4 + 2 * 8) + b * SHORTLIST_MAX * (4 + 4 + 8)
+        return staged + b * rows * (4 + 2 * 8) + b * min(SHORTLIST_MAX, rows) * (4 + 4 + 8)
 
-    def _check_fits(self, arrays: dict) -> None:
-        """Raise before staging an index whose arrays and search scratch do
-        not fit the card's free memory."""
-        if self.device.type != "cuda":
+    def _check_fits(self, arrays: dict, device: Optional[torch.device] = None,
+                    rows: Optional[int] = None) -> None:
+        """Raise before staging an index (or a mesh shard's part of it, of
+        ``rows`` encoded rows) whose arrays and search scratch do not fit the
+        card's free memory."""
+        device = self.device if device is None else device
+        if device.type != "cuda":
             return
-        free, _ = torch.cuda.mem_get_info(self.device)
-        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
-        need = self.device_bytes(arrays)
+        free, _ = torch.cuda.mem_get_info(device)
+        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        need = self.device_bytes(arrays, rows)
         if need > free:
             raise RuntimeError(
-                f"the {self.kind} index of {self.encoded_rows} rows needs {need} bytes on "
-                f"{self.device} (codes plus search scratch) but {free} are free")
+                f"the {self.kind} index of {self.encoded_rows if rows is None else rows} rows "
+                f"needs {need} bytes on {device} (codes plus search scratch) but {free} are "
+                f"free")
 
-    def _device(self) -> dict:
+    def _device(self, lo: int = 0, hi: Optional[int] = None,
+                device: Optional[torch.device] = None) -> dict:
+        """The staged arrays of the encoded rows [lo, hi) on ``device`` (the
+        whole index on the index's device by default): the per-row arrays'
+        slice, the others whole, cached by range and device."""
+        hi = self.encoded_rows if hi is None else hi
+        device = self.device if device is None else device
+        key = (lo, hi, device)
         if self._dev is None:
+            self._dev = {}
+        if key not in self._dev:
             arrays = self._staged_arrays()
-            self._check_fits(arrays)
-            self._dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                         for k, v in arrays.items()}
-        return self._dev
+            if (lo, hi) != (0, self.encoded_rows):
+                arrays = {k: np.ascontiguousarray(v[lo:hi]) if k in _ROW_KEYS[self.kind] else v
+                          for k, v in arrays.items()}
+            self._check_fits(arrays, device, hi - lo)
+            self._dev[key] = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                              for k, v in arrays.items()}
+        return self._dev[key]
 
     # ── search ───────────────────────────────────────────────────────────
 
-    def _code_keys(self, qd: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        """Oriented, masked approximate keys (B, encoded_rows) of the
-        queries: K14 + K12, or K13 for PQ."""
-        dev = self._device()
+    def _code_keys(self, qd: torch.Tensor, valid: torch.Tensor,
+                   dev: Optional[dict] = None) -> torch.Tensor:
+        """Oriented, masked approximate keys (B, rows) of the queries over
+        the rows of ``dev`` (the whole index by default): K14 + K12, or K13
+        for PQ."""
+        dev = self._device() if dev is None else dev
         if self.kind == "pq":
             return Q.pq_adc_scores(qd, dev["codes"], dev["codebooks"], dev["row_sq"], valid,
                                    self.metric)
@@ -237,18 +269,32 @@ class AuxQuantIndex:
         corpus = coll.corpus()
         if corpus.would_stream() or not (n_codes >= coll.n_rows and n_codes > 0):
             return self._search_host(coll, q, k, mask)
-        valid = corpus.valid_mask(_handle(mask))
+        handle = _handle(mask)
         s = self._shortlist_width(k, n_codes)
         c = min(s, max(64, 4 * k))
-        self.last_scanned = n_codes + s
-        qd = torch.from_numpy(q).to(self.device)
-        keys = self._code_keys(qd, valid)
-        cand_keys, cand_ids = shortlist_device_rescore_ids(
-            qd, keys, corpus.data16, corpus.bf16_aux(), self.metric, s, c)
-        del keys
-        if corpus.tier != scan.RESIDENT:
-            return corpus._rescore_fetched(q, cand_keys, cand_ids, self.metric, k)
-        dists, ids = rescore_topk(qd, corpus._data, cand_keys, cand_ids, min(k, c), self.metric)
+        self.last_scanned = n_codes
+        parts = []
+        for v in corpus.views():
+            hi = min(v.lo + v.rows, n_codes)
+            if hi <= v.lo:
+                continue
+            s_v, c_v = min(s, hi - v.lo), min(c, hi - v.lo)
+            self.last_scanned += s_v
+            qd = torch.from_numpy(q).to(v.device)
+            keys = self._code_keys(qd, corpus.view_valid(v, handle),
+                                   self._device(v.lo, hi, v.device))
+            cand_keys, cand_ids = shortlist_device_rescore_ids(
+                qd, keys, corpus.view_x16(v), corpus.view_aux(v), self.metric, s_v, c_v)
+            del keys
+            if corpus.tier != scan.RESIDENT:  # one device's host-rescore tier: one view
+                return corpus._rescore_fetched(q, cand_keys, cand_ids, self.metric, k)
+            dists, ids = rescore_topk(qd, corpus.view_x32(v), cand_keys, cand_ids,
+                                      min(k, c_v), self.metric)
+            parts.append((dists, v.to_global(ids)))
+        if len(parts) == 1:
+            dists, ids = parts[0]
+        else:
+            dists, ids = merge_shards(parts, k, self.metric.ascending, corpus.device)
         return _trim_results(*_fetch(dists, ids))
 
     def _search_host(self, coll, q: np.ndarray, k: int, mask=None):
@@ -300,7 +346,7 @@ class AuxQuantIndex:
             self.save(coll)
 
     def rebuild(self, coll) -> None:
-        self._dev = None  # free the old device copy before the new encode
+        self._dev = None  # free the old device copies before the new encode
         data = coll.store.read_all()
         self.state = self._fit_encode(self.kind, data, self.mode, self.device)
         self.encoded_rows = data.shape[0]

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "lt_rescore_keys": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "lt_kmeans_reduce_shards": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
     "lt_ivf_scan_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     "lt_fwht_rotate": (_P, _P, _I, _I, _I, _P, _P),
     "lt_int8_code_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,

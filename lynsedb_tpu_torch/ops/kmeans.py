@@ -7,8 +7,10 @@ never written; it is also the JAX package's ``assign_clusters``) and
 :func:`kmeans_update` (csrc/kmeans_update.cu; a stable counting sort of
 the rows by centroid, then per-centroid sums in row order, deterministic,
 plus the new centroids and their moves; its scratch comes from PyTorch's
-caching allocator). Each wrapper launches its kernel for CUDA tensors and
-runs the plain PyTorch version beside it for CPU tensors.
+caching allocator). A sharded step (parallel/mesh.py) adds the shards'
+partial sums in :func:`kmeans_reduce_shards` (csrc/mesh_reduce.cu, K21b).
+Each wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
+version beside it for CPU tensors.
 
 The k-means++ seeding runs as PyTorch ops with a ``torch.Generator`` seeded
 from ``seed``: k sequential draws over a pool of at most 16 k rows at build
@@ -135,6 +137,57 @@ def kmeans_update(data: torch.Tensor, valid: torch.Tensor, assign: torch.Tensor,
 
 
 kmeans_update.launches = 0
+
+
+# ── kmeans_reduce_shards (K21b) ───────────────────────────────────────────
+
+
+def _check_partials(sums: torch.Tensor, counts: torch.Tensor, centroids: torch.Tensor) -> None:
+    if sums.dim() != 3 or counts.shape != sums.shape[:2] or centroids.shape != sums.shape[1:]:
+        raise ValueError("kmeans_reduce_shards: sums (S, K, D), counts (S, K) and centroids "
+                         "(K, D) expected")
+    if any(t.dtype != torch.float32 for t in (sums, counts, centroids)) or sums.shape[0] < 1:
+        raise ValueError("kmeans_reduce_shards: float32 partials of at least one shard expected")
+
+
+def kmeans_reduce_shards_plain(sums: torch.Tensor, counts: torch.Tensor,
+                               centroids: torch.Tensor):
+    """Plain version of :func:`kmeans_reduce_shards`: the same adds in the
+    same order (shard 0's partial, then + shard 1's, ...), and the division
+    by a tensor (PyTorch divides a CUDA tensor by a Python scalar through its
+    rounded reciprocal)."""
+    _check_partials(sums, counts, centroids)
+    acc, cnt = sums[0].clone(), counts[0].clone()
+    for s in range(1, sums.shape[0]):
+        acc = acc + sums[s]
+        cnt = cnt + counts[s]
+    new = torch.where(cnt[:, None] > 0, acc / torch.clamp_min(cnt[:, None], 1.0), centroids)
+    return new, cnt
+
+
+def kmeans_reduce_shards(sums: torch.Tensor, counts: torch.Tensor, centroids: torch.Tensor):
+    """K21b, the cross-shard reduce of one sharded Lloyd step
+    (csrc/mesh_reduce.cu): the shards' partial ``sums`` (S, K, D) and
+    ``counts`` (S, K) added in shard order ``s = 0..S-1`` (no float atomics,
+    so every run gives the same bits, K15's rule), then each new centroid
+    ``sum / max(count, 1)`` where its count is positive, else the old
+    ``centroids`` (K, D). Returns (new centroids (K, D), counts (K,)), equal
+    to the bit to :func:`kmeans_reduce_shards_plain`."""
+    _check_partials(sums, counts, centroids)
+    if sums.device.type == "cpu":
+        return kmeans_reduce_shards_plain(sums, counts, centroids)
+    _cuda.require_cuda("kmeans_reduce_shards", sums, counts, centroids)
+    s, k, d = sums.shape
+    new = torch.empty((k, d), dtype=torch.float32, device=sums.device)
+    out_counts = torch.empty(k, dtype=torch.float32, device=sums.device)
+    _cuda.call("lt_kmeans_reduce_shards", sums.data_ptr(), counts.data_ptr(),
+               centroids.data_ptr(), s, k, d, new.data_ptr(), out_counts.data_ptr(),
+               _cuda.stream_of(sums))
+    kmeans_reduce_shards.launches += 1
+    return new, out_counts
+
+
+kmeans_reduce_shards.launches = 0
 
 
 # ── the algorithm ─────────────────────────────────────────────────────────

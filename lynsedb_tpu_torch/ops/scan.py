@@ -57,6 +57,19 @@ The quantized FLAT indexes (index/quantized.py) end in the same K3 rescore:
 their code scan's top S goes through :func:`shortlist_device_rescore_ids`
 (K5, then K11 ``bf16_gather_scores`` on the centred bf16 copy, then K5).
 
+On a mesh (parallel/mesh.py: a ``(data, corpus)`` grid of devices, a device
+may repeat, so several virtual shards can share one card) the corpus shards
+its rows over the corpus devices and stays resident (a mesh never streams;
+staging that does not fit raises). Each shard holds its slice of the centred
+bf16 copy, its aux rows, f32 copy and valid mask on its device, centred with
+the corpus-wide mean. The resident plans are written once over a view of
+the rows (``DeviceCorpus.views``): the whole corpus on one device, or each
+shard of a mesh, where every plan ends in the shard's top k with global ids
+(two-pass: each shard's K3 rescores its own shortlist; gather: the filter's
+rows split by shard, the route chosen on the global counts), and K21a's
+merge (``topk.merge_shards``: the copies to the home device, then K5) keeps
+the best k.
+
 Each kernel's wrapper launches it for CUDA tensors and runs the plain PyTorch
 version beside it for CPU tensors; the plain versions are what the CPU tests
 hold against the JAX package.
@@ -78,7 +91,8 @@ import torch
 from ..metrics import Metric
 from . import _cuda
 from . import distance as D
-from .topk import merge_runs, topk_select, topk_select_plain, unorient
+from ..parallel import get_default_mesh
+from .topk import merge_runs, merge_shards, topk_select, topk_select_plain, unorient
 
 # Metrics served by the bf16 first pass + exact f32 rescore.
 TWO_PASS_METRICS = (Metric.IP, Metric.L2, Metric.COSINE)
@@ -782,37 +796,43 @@ class FilterHandle:
     Collections cache these per where-string so repeated filtered queries pay
     no re-upload."""
 
-    __slots__ = ("mask", "count", "_epoch", "_dev_mask", "_idx_epoch", "_dev_idx")
+    __slots__ = ("mask", "count", "_epoch", "_cache")
 
     def __init__(self, mask: np.ndarray):
         self.mask = np.asarray(mask, dtype=bool)
         self.count = int(self.mask.sum())
         self._epoch = -1
-        self._dev_mask: Optional[torch.Tensor] = None
-        self._idx_epoch = -1
-        self._dev_idx: Optional[torch.Tensor] = None
+        self._cache: dict = {}
 
     def use_gather(self, total_rows: int) -> bool:
         """Reference policy engine.rs:95-102: gather the subset when it is
         small absolutely and relatively."""
         return 0 < self.count <= GATHER_MAX_ROWS and self.count * 4 <= max(total_rows, 1)
 
-    def device_mask(self, n_pad: int, epoch: int, device: torch.device) -> torch.Tensor:
-        if self._dev_mask is None or self._epoch != epoch or self._dev_mask.shape[0] != n_pad:
-            full = np.zeros(n_pad, dtype=bool)
-            m = min(len(self.mask), n_pad)
-            full[:m] = self.mask[:m]
-            self._dev_mask = torch.from_numpy(full).to(device)
-            self._epoch = epoch
-        return self._dev_mask
+    def _staged(self, key: tuple, epoch: int, make: Callable[[], np.ndarray],
+                device: torch.device) -> torch.Tensor:
+        if self._epoch != epoch:
+            self._cache, self._epoch = {}, epoch
+        if key not in self._cache:
+            self._cache[key] = torch.from_numpy(make()).to(device)
+        return self._cache[key]
 
-    def device_indices(self, n_rows: int, epoch: int, device: torch.device) -> torch.Tensor:
-        """(1, S) int32: the rows below ``n_rows`` that pass, ascending."""
-        if self._dev_idx is None or self._idx_epoch != epoch:
-            rows = np.nonzero(self.mask[:n_rows])[0].astype(np.int32)
-            self._dev_idx = torch.from_numpy(rows)[None].to(device)
-            self._idx_epoch = epoch
-        return self._dev_idx
+    def device_mask(self, lo: int, rows: int, epoch: int, device: torch.device) -> torch.Tensor:
+        """(rows,) bool: the mask of the corpus rows [lo, lo + rows), False
+        past its end."""
+        def make():
+            part = np.zeros(rows, dtype=bool)
+            seg = self.mask[lo : lo + rows]
+            part[: len(seg)] = seg
+            return part
+        return self._staged(("mask", lo, rows, device), epoch, make, device)
+
+    def device_indices(self, lo: int, hi: int, epoch: int, device: torch.device) -> torch.Tensor:
+        """(1, S) int32: the passing rows in [lo, hi), ascending, less ``lo``
+        (the gather route's row list of a view, in the view's row ids)."""
+        return self._staged(("idx", lo, hi, device), epoch,
+                            lambda: (np.nonzero(self.mask[lo:hi])[0].astype(np.int32))[None],
+                            device)
 
 
 def _handle(filter_mask) -> Optional[FilterHandle]:
@@ -826,6 +846,39 @@ def _empty(b: int) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
     return lambda: out
 
 
+class _View:
+    """Rows [lo, lo + rows) of a corpus's capacity on ``device``, ``n`` of
+    them real rows: what each resident plan runs on. A one-device corpus is
+    one view of all its rows (``whole``), whose arrays are the corpus's own.
+    A mesh corpus has a view a shard, which holds its slice of the centred
+    bf16 copy (``x16``) and of its aux rows (``aux``, with the corpus-wide
+    mean), and stages on first use its f32 rows (``x32``), its valid mask
+    (``valid``, per epoch) and the transform of the metric searched last
+    (``transform``). ``DeviceCorpus.view_*`` hand out a view's arrays."""
+
+    __slots__ = ("device", "lo", "rows", "n", "whole", "x16", "aux", "x32", "valid",
+                 "valid_epoch", "transform")
+
+    def __init__(self, device: torch.device, lo: int, rows: int, n: int, whole: bool = False):
+        self.device, self.lo, self.rows, self.n, self.whole = device, lo, rows, n, whole
+        self.x16 = self.aux = self.x32 = self.valid = self.transform = None
+        self.valid_epoch = -1
+
+    def tensors(self) -> list:
+        extra = [] if self.transform is None else list(self.transform[1].values())
+        return [self.x16, self.x32, self.valid, *(self.aux or {}).values(), *extra]
+
+    def to_global(self, ids: torch.Tensor, live: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The view's row ids as the corpus's, int64, -1 where ``live`` is
+        False (None: where ``ids`` holds -1 already, as K3 leaves them)."""
+        if live is None:
+            if self.lo == 0:
+                return ids
+            live = ids >= 0
+        ids = ids.long()
+        return torch.where(live, ids + self.lo if self.lo else ids, -1)
+
+
 class DeviceCorpus:
     """The corpus of one vector field (the role of the reference's
     FlatMmap, src/storage/flat_mmap.rs:89): the exact f32 host mirror, and on
@@ -833,12 +886,32 @@ class DeviceCorpus:
     the f32 copy and the validity mask (resident), the bf16 copy, aux and
     mask (host-rescore), or nothing corpus-sized (streaming: a bf16 host
     mirror pumped through the card). ``device`` is explicit: "cuda" needs a
-    card and runs the kernels; "cpu" runs their plain versions."""
+    card and runs the kernels; "cpu" runs their plain versions.
+
+    ``mesh`` (parallel/mesh.py; the process-wide default mesh if None): the
+    rows shard over the mesh's corpus devices, which must be of ``device``'s
+    type, and ``device`` becomes the mesh's home device. A mesh corpus is
+    resident only: its capacity is a multiple of ``ROW_ALIGN`` times the
+    shard count, shard ``s`` holds rows [s n_local, (s + 1) n_local) of it
+    on its device (a :class:`_View`), centred with the corpus-wide mean, and
+    every resident plan runs on each shard and ends in K21a's merge
+    (``topk.merge_shards``). Whole arrays (``_data``, ``data16``,
+    ``bf16_aux``, ``valid_mask``, ``transform``) are staged on the home
+    device on request, for the indexes that read them, within the same
+    budget."""
 
     APPROX_MIN_ROWS = 65_536  # approx engage threshold (approx_search.rs:49)
 
-    def __init__(self, dim: int, dtype: str = "float32", *, device):
+    def __init__(self, dim: int, dtype: str = "float32", *, device, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else get_default_mesh()
+        if self.mesh is not None:
+            kinds = {dev.type for dev in self.mesh.corpus_devices}
+            if kinds != {self.device.type}:
+                raise ValueError(f"a corpus on {self.device} cannot shard over a mesh of "
+                                 f"{sorted(kinds)} devices")
+            self.device = self.mesh.home
+        self._shards: Optional[list] = None  # a mesh corpus's staged shard views
         self.dim = int(dim)
         self.dtype = dtype
         self.n = 0
@@ -871,7 +944,8 @@ class DeviceCorpus:
     # ── the device budget and the tiers ──────────────────────────────────
 
     def _cap_for(self, n: int) -> int:
-        return _round_up(max(n, 1), ROW_ALIGN)
+        shards = 1 if self.mesh is None else self.mesh.shape["corpus"]
+        return _round_up(max(n, 1), ROW_ALIGN * shards)
 
     def _scratch_bytes(self, cap: int) -> int:
         """One search's scratch: the (B, cap) score matrix at the largest
@@ -894,10 +968,20 @@ class DeviceCorpus:
         rows, the masks and one search's scratch."""
         return cap * self.dim * 2 + cap * (4 * 3 + 2) + self._scratch_bytes(cap)
 
-    def _held_bytes(self) -> int:
-        """Device bytes of the copies, aux rows and mask staged now."""
+    def _whole_bytes(self) -> int:
+        """Device bytes of the whole copies, aux rows and mask staged now."""
         held = [self._dev16, self._dev32, self._valid_base, *(self._aux or {}).values()]
         return sum(t.numel() * t.element_size() for t in held if t is not None)
+
+    def _shard_bytes(self, dev: torch.device) -> int:
+        """Device bytes a mesh corpus's shards hold on ``dev`` now."""
+        return sum(t.numel() * t.element_size() for sh in self._shards or ()
+                   for t in sh.tensors() if t is not None and t.device == dev)
+
+    def _held_bytes(self) -> int:
+        """Device bytes of the copies, aux rows and mask staged now (a mesh
+        corpus: on the home device, its shards' included)."""
+        return self._whole_bytes() + self._shard_bytes(self.device)
 
     def _transform_bytes(self) -> int:
         if self._transform is None:
@@ -924,7 +1008,11 @@ class DeviceCorpus:
         """The tier of the copies alone: a metric's transform is staged
         beside the resident copies where it fits, and a search whose
         transform does not fit pumps its exact rows instead (``_submit``),
-        so no metric moves the corpus off its tier."""
+        so no metric moves the corpus off its tier. A mesh corpus is
+        resident or raises."""
+        if self.mesh is not None:
+            self._check_mesh_fits(cap)
+            return RESIDENT
         budget = self.budget()
         if self.device_bytes(cap) <= budget:
             return RESIDENT
@@ -944,12 +1032,52 @@ class DeviceCorpus:
                 f"even one streamed block of {ROW_ALIGN} rows and its scratch need {need} bytes, "
                 f"but the device budget is {budget} (LYNSE_DEVICE_BYTES)")
 
+    def _check_mesh_fits(self, cap: int, metric: Optional[Metric] = None, whole: int = 0) -> None:
+        """Raise unless each device of the mesh holds the copies of every
+        shard it carries (and their ``metric`` transform) and one search's
+        scratch, and the home device also ``whole`` bytes of whole arrays
+        (:meth:`_stage_whole`): a mesh corpus never moves to another tier or
+        to the CPU."""
+        devs = self.mesh.corpus_devices
+        n_local = cap // len(devs)
+        per = n_local * self.dim * (2 + 4) + n_local * (4 * 3 + 2)
+        if metric is not None:
+            per += n_local * D.transform_row_bytes(metric, self.dim)
+        for dev in dict.fromkeys(devs + (self.device,)):
+            count = devs.count(dev)
+            at_home = whole if dev == self.device else 0
+            need = count * per + self._scratch_bytes(n_local) + at_home
+            if DEVICE_BYTES > 0:
+                budget = DEVICE_BYTES
+            elif dev.type != "cuda":
+                continue
+            else:
+                free, _ = torch.cuda.mem_get_info(dev)
+                held = self._shard_bytes(dev) + (
+                    self._whole_bytes() + self._transform_bytes() if dev == self.device else 0)
+                budget = (free + torch.cuda.memory_reserved(dev)
+                          - torch.cuda.memory_allocated(dev) + held)
+            if need > budget:
+                raise RuntimeError(
+                    f"a mesh corpus of {self.n} x {self.dim} rows needs {need} bytes on {dev} "
+                    f"for its {count} shard(s) of {n_local} rows, {at_home} bytes of whole "
+                    f"arrays and one search's scratch, but the device budget is {budget} "
+                    f"(LYNSE_DEVICE_BYTES); a mesh corpus is resident only")
+
+    def _stage_whole(self, nbytes: int) -> None:
+        """Before a mesh corpus stages a whole array of ``nbytes`` on its home
+        device (the indexes read whole arrays): raise unless it fits there
+        beside the shards and the whole arrays staged already."""
+        if self.mesh is not None:
+            self._check_mesh_fits(self.capacity, whole=self._whole_bytes()
+                                  + self._transform_bytes() + nbytes)
+
     def would_stream(self) -> bool:
         """Whether (re)staging at the current row count streams: the tier
         staged if nothing is pending, else the tier staging would choose,
         without staging anything (write paths ask before the first search
-        after a commit)."""
-        if self.n == 0:
+        after a commit). A mesh corpus never streams."""
+        if self.n == 0 or self.mesh is not None:
             return False
         if not self._dirty:
             return self.tier == STREAMING
@@ -989,6 +1117,7 @@ class DeviceCorpus:
         incremental = (
             tier == self.tier
             and cap == self.capacity
+            and self.mesh is None
             and self._mean_np is not None
             and (self._dev16 is not None or self._host16 is not None)
             and (self.n - self._dirty_lo) * 2 <= self.n
@@ -1009,7 +1138,7 @@ class DeviceCorpus:
                         np.ascontiguousarray(self._host[lo : self.n])).to(self.device)
         else:
             self._dev16 = self._dev32 = self._host16 = None  # free before reallocating
-            self._aux = self._valid_base = None
+            self._aux = self._valid_base = self._shards = None
             self._transform = None
             self.tier = tier
             if tier == STREAMING:
@@ -1028,12 +1157,30 @@ class DeviceCorpus:
                 self._xsqtrue_host[lo:hi] = xsqt
             if tier == STREAMING:
                 self._host16 = full16
+            elif self.mesh is not None:
+                self._stage_shards(full16, cap)
             else:
                 self._dev16 = torch.from_numpy(full16).view(torch.bfloat16).to(self.device)
             self.capacity = cap
         self._valid_base = None
         self._dirty = False
         self._dirty_lo = self.n
+
+    def _stage_shards(self, full16: np.ndarray, cap: int) -> None:
+        """A mesh corpus's staging: each shard's slice of the centred bf16
+        copy and of its aux rows, on the shard's device."""
+        devs = self.mesh.corpus_devices
+        n_local = cap // len(devs)
+        shards = []
+        for s, dev in enumerate(devs):
+            lo = s * n_local
+            sh = _View(dev, lo, n_local, max(0, min(self.n - lo, n_local)))
+            sh.x16 = torch.from_numpy(full16[lo : lo + n_local]).view(torch.bfloat16).to(dev)
+            sh.aux = {"mean": torch.from_numpy(self._mean_np).to(dev),
+                      **{name: torch.from_numpy(arr[lo : lo + n_local]).to(dev)
+                         for name, arr in self._aux_host()}}
+            shards.append(sh)
+        self._shards = shards
 
     def _compute_mean(self) -> None:
         """Column mean over the live rows, accumulated in float64."""
@@ -1101,8 +1248,8 @@ class DeviceCorpus:
         rows = np.ascontiguousarray(rows, dtype=np.float32)
         ids = np.asarray(row_ids, dtype=np.int64)
         self._host[ids] = rows
-        if self._dirty or self._mean_np is None:
-            self._dirty_lo = 0  # scattered rows: full restage
+        if self._dirty or self._mean_np is None or self.mesh is not None:
+            self._dirty_lo = 0  # scattered rows (or a mesh corpus): full restage
             self._dirty = True
         elif self._host16 is not None:
             self._host16[ids] = self._overwrite_aux(ids, rows).view(torch.int16).numpy()
@@ -1144,6 +1291,7 @@ class DeviceCorpus:
         self._xm_host = None
         self._xsqtrue_host = None
         self._aux = None
+        self._shards = None
         self._dirty = True
         self._dirty_lo = 0
         self._invalidate()
@@ -1164,6 +1312,7 @@ class DeviceCorpus:
         if self._dev32 is None:
             if self.capacity == 0:
                 raise ValueError("empty corpus")
+            self._stage_whole(self.capacity * self.dim * 4)
             full = torch.zeros((self.capacity, self.dim), dtype=torch.float32, device=self.device)
             for lo in range(0, self.n, STAGE_ROWS):
                 hi = min(lo + STAGE_ROWS, self.n)
@@ -1181,6 +1330,9 @@ class DeviceCorpus:
         """The staged mean-centred bf16 copy (cap, D): the graph beams score
         their guidance from it with the bf16_aux corrections."""
         self._ensure_staged()
+        if self._dev16 is None and self._shards:  # a mesh corpus: gathered on first use
+            self._stage_whole(self.capacity * self.dim * 2)
+            self._dev16 = torch.cat([sh.x16.to(self.device) for sh in self._shards])
         if self._dev16 is None:
             raise ValueError("bf16 device array unavailable (streaming or empty corpus)")
         return self._dev16
@@ -1196,6 +1348,7 @@ class DeviceCorpus:
         xc_sq (cap,), xsq_true (cap,) — see bf16_centered_topc."""
         self._ensure_staged()
         if self._aux is None:
+            self._stage_whole(self.capacity * 4 * 3 + self.dim * 4)
             self._aux = {
                 name: torch.from_numpy(arr).to(self.device)
                 for name, arr in (("mean", self._mean_np), ("xm", self._xm_host),
@@ -1213,7 +1366,9 @@ class DeviceCorpus:
             if self.tier == STREAMING:
                 return self._data  # raises: no f32 device copy to transform
             self._transform = None  # free before staging another
-            if self.tier != RESIDENT or not self._fits(metric):
+            if self.mesh is not None:
+                self._stage_whole(self.capacity * D.transform_row_bytes(metric, self.dim))
+            elif self.tier != RESIDENT or not self._fits(metric):
                 raise RuntimeError(
                     f"the {metric.value} transform of {self.n} x {self.dim} rows does not fit "
                     f"the device budget beside the corpus copies; the corpus is in the "
@@ -1236,13 +1391,14 @@ class DeviceCorpus:
         """(cap,) bool: rows in range, not tombstoned, and passing the filter."""
         self._ensure_staged()
         if self._valid_base is None:
+            self._stage_whole(self.capacity)
             host_valid = np.zeros(self.capacity, dtype=bool)
             host_valid[: self.n] = self._host_valid(None)
             self._valid_base = torch.from_numpy(host_valid).to(self.device)
         handle = _handle(filter_mask)
         if handle is None:
             return self._valid_base
-        return self._valid_base & handle.device_mask(self.capacity, self.epoch, self.device)
+        return self._valid_base & handle.device_mask(0, self.capacity, self.epoch, self.device)
 
     # ── the streaming pump ───────────────────────────────────────────────
 
@@ -1416,55 +1572,112 @@ class DeviceCorpus:
         """Route one search to its plan by tier (the module docstring)."""
         qd = torch.from_numpy(q).to(self.device)
         exact = mode == "exact" or metric not in _BF16_PASS or self.n < TWO_PASS_MIN_ROWS
-        if self.tier == RESIDENT:
-            if mode == "approx" and metric not in TWO_PASS_METRICS:
-                return self._approx_submit(qd, k, metric, self.valid_mask(handle), oversample)
-            if not exact and metric in TWO_PASS_METRICS:
-                end = self._two_pass(qd, k, metric, handle, oversample)
-                return lambda: end(q)
-            if self._fits(metric):
-                return self._exact_submit(qd, k, metric, self.valid_mask(handle))
-            # its transform does not fit beside the copies: pump its exact rows
-            return self._stream_submit(q, qd, k, metric, handle, oversample, True)
+        if self.tier == RESIDENT:  # a mesh corpus's only tier
+            return self._resident_submit(q, qd, k, metric, handle, mode, oversample, exact)
         if self.tier == STREAMING or exact:
             return self._stream_submit(q, qd, k, metric, handle, oversample, exact)
         if metric in TWO_PASS_METRICS:
-            end = self._two_pass(qd, k, metric, handle, oversample)
-            return lambda: end(q)
+            self.last_scanned = 0
+            first = self._first_pass(self._whole(), qd, k, metric, handle, oversample)
+            if first is None:
+                return _empty(q.shape[0])
+            return lambda: self._rescore_fetched(q, *first, metric, k)
         return self._bf16_elem_submit(q, qd, k, metric, handle, oversample, mode == "approx")
 
-    def gather_inputs(self, handle: FilterHandle) -> tuple[torch.Tensor, torch.Tensor]:
-        """The gather route's K11 inputs: the filter's (1, S) int32 row list,
-        shared by every query, and its (1, S) slot keys (-inf for a deleted
-        row, else 0)."""
-        idx = handle.device_indices(self.n, self.epoch, self.device)
-        return idx, torch.where(self.valid_mask()[idx.long()], 0.0, float("-inf"))
+    def _resident_submit(self, q: np.ndarray, qd: torch.Tensor, k: int, metric: Metric, handle,
+                         mode: str, oversample: int, exact: bool):
+        """The resident tier's plans, each written once over a view of the
+        corpus (:meth:`views`: the whole corpus, or each shard of a mesh
+        corpus) and ending in the view's top k with global ids: the
+        approximate plan of the L1 family, the two-pass plan (or its gather
+        route) of IP/L2/cosine, and the exact plan. A mesh corpus's parts
+        are merged by K21a's merge on the home device; there each shard's K3
+        rescores its own shortlist, a superset of the merged shortlist's
+        rescore, never worse. ``last_scanned`` counts the rows scored on
+        every view."""
+        if mode == "approx" and metric not in TWO_PASS_METRICS:
+            plan = functools.partial(self._approx_part,
+                                     c=min(max(k * oversample, k), self.capacity))
+        elif not exact and metric in TWO_PASS_METRICS:
+            plan = functools.partial(self._two_pass_part, oversample=oversample)
+        elif self.mesh is None and not self._fits(metric):
+            # its transform does not fit beside the copies: pump its exact rows
+            return self._stream_submit(q, qd, k, metric, handle, oversample, True)
+        else:
+            plan = self._exact_part
+        self.last_scanned = 0
+        parts = [part for part in (plan(v, qd.to(v.device), k, metric, handle)
+                                   for v in self.views()) if part is not None]
+        if not parts:
+            return _empty(q.shape[0])
+        if len(parts) == 1:
+            dists, ids = parts[0]
+        else:
+            dists, ids = merge_shards(parts, k, metric.ascending, self.device)
+        return lambda: _trim_results(*_fetch(dists, ids))
 
-    def _two_pass(self, qd: torch.Tensor, k: int, metric: Metric, handle, oversample: int):
-        """The two-pass plan over the device's bf16 copy: K2's fused pass (its
-        span lists merged by K5), or the gather route of a selective filter
-        (K4: K11 -> K5 with global ids), then the exact rescore: K3 on the
-        device in the resident tier, the host mirror otherwise (the device
-        never holds the f32 copy there).
-        Returns a resolver that takes the queries' host rows."""
+    def _exact_part(self, v: _View, qs: torch.Tensor, k: int, metric: Metric, handle):
+        """The exact plan on a view: the metric's distance kernel (K1, K6a,
+        K6b or K6c) scores every row, K5 takes the top k. Rows at +inf
+        distance (and NaN) get a -inf key and never reach a result."""
+        self.last_scanned += v.n  # masked scans still touch every row
+        keys = metric_keys(D.query_transform(qs, metric), self.view_transform(v, metric),
+                           self.view_valid(v, handle), metric)
+        top, idx = topk_select(keys, min(k, v.rows))
+        return unorient(top, metric.ascending), v.to_global(idx, top > float("-inf"))
+
+    def _first_pass(self, v: _View, qs: torch.Tensor, k: int, metric: Metric, handle,
+                    oversample: int):
+        """The two-pass plan's first pass over a view's centred bf16 rows:
+        K2's fused pass (its span lists merged by K5), or the gather route
+        of a selective filter, chosen on the corpus's counts (K4: K11 -> K5
+        over the filter's rows in the view). Returns (keys (B, C), the
+        view's row ids (B, C), -1 in empty slots), or None where the view
+        holds none of the filter's rows."""
         if handle is not None and handle.use_gather(self.n):
-            idx, slot = self.gather_inputs(handle)
+            idx, slot = self.gather_inputs(handle, v)
+            if idx.shape[1] == 0:
+                return None
             c = min(self._shortlist_size(k, handle.count, oversample), idx.shape[1])
-            self.last_scanned = handle.count + c  # the subset + exact rescore rows
-            keys = bf16_gather_scores(qd, self._dev16, self.bf16_aux(), idx, slot, metric,
+            self.last_scanned += idx.shape[1] + c  # the subset + exact rescore rows
+            keys = bf16_gather_scores(qs, self.view_x16(v), self.view_aux(v), idx, slot, metric,
                                       shared=True)
             top, local = topk_select(keys, c)
-            gid = torch.where(top > float("-inf"), idx[0][local.long()], -1)
-            del keys
-        else:
-            c = self._shortlist_size(k, self.n, oversample)
-            self.last_scanned = self.n + c  # full first pass + exact rescore rows
-            top, gid = bf16_centered_topc(qd, self._dev16, self.bf16_aux(),
-                                          self.valid_mask(handle), metric, c)
-        if self.tier == RESIDENT:
-            dists, ids = rescore_topk(qd, self._data, top, gid, min(k, c), metric)
-            return lambda q_np: _trim_results(*_fetch(dists, ids))
-        return lambda q_np: self._rescore_fetched(q_np, top, gid, metric, k)
+            return top, torch.where(top > float("-inf"), idx[0][local.long()], -1)
+        c = min(self._shortlist_size(k, self.n, oversample), v.rows)
+        self.last_scanned += v.n + c  # full first pass + exact rescore rows
+        return bf16_centered_topc(qs, self.view_x16(v), self.view_aux(v),
+                                  self.view_valid(v, handle), metric, c)
+
+    def _two_pass_part(self, v: _View, qs: torch.Tensor, k: int, metric: Metric, handle, *,
+                       oversample: int):
+        """The two-pass plan on a view: its first pass, then K3 rescores the
+        shortlist exactly in f32 from the view's rows and sorts on (score,
+        id)."""
+        first = self._first_pass(v, qs, k, metric, handle, oversample)
+        if first is None:
+            return None
+        top, cand = first
+        dists, ids = rescore_topk(qs, self.view_x32(v), top, cand, min(k, top.shape[1]), metric)
+        return dists, v.to_global(ids)
+
+    def _approx_part(self, v: _View, qs: torch.Tensor, k: int, metric: Metric, handle, *,
+                     c: int):
+        """The L1 family's approximate plan on a view (K9): K6c scores the
+        centred bf16 rows with the mean added back, K5 takes a shortlist of
+        k x oversample, K6c's gather mode rescores its f32 rows (K10) and K5
+        orders them on (score, id)."""
+        c = min(c, v.rows)
+        self.last_scanned += v.n + c
+        qt = {"x": qs}
+        keys = elementwise_scores(qt, {"x": self.view_x16(v)}, self.view_valid(v, handle), metric,
+                                  mean=self.view_aux(v)["mean"])
+        top, cand = topk_select(keys, c)
+        del keys
+        cand = torch.where(top > float("-inf"), cand, -1)
+        exact = elementwise_scores(qt, {"x": self.view_x32(v)}, None, metric, ids=cand)
+        best, ids = topk_select(exact, min(k, c), ids=cand)
+        return unorient(best, metric.ascending), v.to_global(ids, best > float("-inf"))
 
     def _bf16_elem_submit(self, q: np.ndarray, qd: torch.Tensor, k: int, metric: Metric, handle,
                           oversample: int, approx: bool):
@@ -1580,38 +1793,71 @@ class DeviceCorpus:
                            metric, ids=torch.from_numpy(ids).to(self.device))
         return np.where(keep, unorient(keys, metric.ascending).cpu().numpy(), np.nan)
 
-    def _approx_submit(self, qd: torch.Tensor, k: int, metric: Metric, valid: torch.Tensor,
-                       oversample: int):
-        """The L1 family's approximate plan (K9): K6c scores the centred bf16
-        copy with the mean added back, K5 takes a shortlist of k x
-        oversample, K6c's gather mode rescores its f32 rows (K10) and K5
-        orders them on (score, id)."""
-        shortlist = min(max(k * oversample, k), self.capacity)
-        self.last_scanned = self.n + shortlist
-        qt = {"x": qd}
-        keys = elementwise_scores(qt, {"x": self._dev16}, valid, metric,
-                                  mean=self.bf16_aux()["mean"])
-        top, cand = topk_select(keys, shortlist)
-        del keys
-        cand = torch.where(top > float("-inf"), cand, -1)
-        exact = elementwise_scores(qt, {"x": self._data}, None, metric, ids=cand)
-        best, ids = topk_select(exact, min(k, shortlist), ids=cand)
-        dists = unorient(best, metric.ascending)
-        ids = torch.where(best > float("-inf"), ids.long(), -1)
-        return lambda: _trim_results(*_fetch(dists, ids))
+    # ── views: the rows each resident plan reads ─────────────────────────
 
-    def _exact_submit(self, qd: torch.Tensor, k: int, metric: Metric, valid: torch.Tensor):
-        """One-pass f32 exact scan: the metric's distance kernel (K1, K6a,
-        K6b or K6c) scores every row, K5 takes the top k. Rows at +inf
-        distance (and NaN) get a -inf key and never reach a result."""
-        self.last_scanned = self.n  # masked scans still touch every row
-        ct = self.transform(metric)
-        keys = metric_keys(D.query_transform(qd, metric), ct, valid, metric)
-        top, idx = topk_select(keys, min(k, self.capacity))
-        del keys
-        dists = unorient(top, metric.ascending)
-        ids = torch.where(top > float("-inf"), idx.long(), -1)
-        return lambda: _trim_results(*_fetch(dists, ids))
+    def _whole(self) -> _View:
+        return _View(self.device, 0, self.capacity, self.n, whole=True)
+
+    def views(self) -> list:
+        """The views the resident plans run on: the whole corpus, or a mesh
+        corpus's shards that hold real rows, in shard order."""
+        self._ensure_staged()
+        if self.mesh is None:
+            return [self._whole()]
+        return [v for v in self._shards if v.n]
+
+    def view_x16(self, v: _View) -> torch.Tensor:
+        """The view's centred bf16 rows (rows, D)."""
+        return self._dev16 if v.whole else v.x16
+
+    def view_aux(self, v: _View) -> dict:
+        """The aux arrays of the view's centred bf16 rows (bf16_aux's)."""
+        return self.bf16_aux() if v.whole else v.aux
+
+    def view_x32(self, v: _View) -> torch.Tensor:
+        """The view's f32 rows (rows, D), staged on first use."""
+        if v.whole:
+            return self._data
+        if v.x32 is None:
+            x32 = torch.zeros((v.rows, self.dim), dtype=torch.float32, device=v.device)
+            x32[: v.n] = torch.from_numpy(
+                np.ascontiguousarray(self._host[v.lo : v.lo + v.n])).to(v.device)
+            v.x32 = x32
+        return v.x32
+
+    def view_valid(self, v: _View, filter_mask=None) -> torch.Tensor:
+        """(rows,) bool on the view's device: its rows in range, not
+        tombstoned and passing the filter."""
+        if v.whole:
+            return self.valid_mask(filter_mask)
+        if v.valid is None or v.valid_epoch != self.epoch:
+            valid = np.zeros(v.rows, dtype=bool)
+            valid[: v.n] = self._host_valid(None)[v.lo : v.lo + v.n]
+            v.valid, v.valid_epoch = torch.from_numpy(valid).to(v.device), self.epoch
+        handle = _handle(filter_mask)
+        if handle is None:
+            return v.valid
+        return v.valid & handle.device_mask(v.lo, v.rows, self.epoch, v.device)
+
+    def view_transform(self, v: _View, metric: Metric) -> dict:
+        """The corpus transform of ``metric`` over the view's f32 rows."""
+        if v.whole:
+            return self.transform(metric)
+        if v.transform is None or v.transform[0] is not metric:
+            v.transform = None  # free before staging another
+            self._check_mesh_fits(self.capacity, metric)
+            v.transform = (metric, D.corpus_transform(self.view_x32(v), metric))
+        return v.transform[1]
+
+    def gather_inputs(self, handle: FilterHandle, v: Optional[_View] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The gather route's K11 inputs over view ``v`` (the whole corpus by
+        default): the filter's (1, S) int32 rows in it, in the view's row
+        ids and shared by every query, and their (1, S) slot keys (-inf for
+        a deleted row, else 0)."""
+        v = self._whole() if v is None else v
+        idx = handle.device_indices(v.lo, v.lo + v.n, self.epoch, v.device)
+        return idx, torch.where(self.view_valid(v)[idx.long()], 0.0, float("-inf"))
 
     def search(self, queries: np.ndarray, k: int, metric: Metric, filter_mask=None,
                mode: str = "auto"):
@@ -1623,7 +1869,7 @@ class DeviceCorpus:
                       filter_mask=None):
         """Approximate scan (explicit opt-in, reference approx_search.rs):
         eps steers the shortlist's oversample. IP/L2/cosine take the default
-        two-pass plan, the L1 family its approximate plan (K9, _approx_submit).
+        two-pass plan, the L1 family its approximate plan (K9, _approx_part).
         Below the engage threshold it is the exact search
         (approx_search.rs:49); a streaming corpus's pass is already a
         two-pass plan."""
@@ -1674,7 +1920,7 @@ class DeviceCorpus:
         if ids.shape[1] == 0:
             return np.zeros(ids.shape, dtype=np.float32)
         self._ensure_staged()
-        if self.tier != RESIDENT or not self._fits(metric):
+        if self.tier != RESIDENT or self.mesh is not None or not self._fits(metric):
             rows = self._host[safe.ravel()].reshape(safe.shape + (self.dim,))
             return self._rows_dists(q, rows, valid, metric)
         ct = self.transform(metric)

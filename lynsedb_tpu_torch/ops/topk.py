@@ -158,3 +158,26 @@ def merge_top_k(dists: torch.Tensor, ids: torch.Tensor, k: int, ascending: bool)
     k = min(k, dists.shape[-1])
     top, pos = topk_select(_masked_keys(dists, ascending, None), k)
     return unorient(top, ascending), torch.gather(ids, 1, pos.long())
+
+
+def merge_shards(parts, k: int, ascending: bool, home: torch.device, *, plain: bool = False):
+    """K21a's cross-shard stage: every shard's ``(dists (B, k_s), ids (B,
+    k_s))``, in shard order, copied to ``home`` (``non_blocking``: nothing
+    on a shared device, a peer copy between cards) and merged into the best
+    ``min(k, sum k_s)`` by K5 over their concatenation (:func:`merge_top_k`:
+    oriented keys, NaN as -inf, ties to the lower position, so to the lower
+    shard). ``plain``: K5's plain version. Returns (dists, ids) on
+    ``home``. ``merge_shards.launches`` counts its K5 launches, which
+    ``topk_select.launches`` counts too."""
+    d = torch.cat([p[0].to(home, non_blocking=True) for p in parts], dim=1)
+    i = torch.cat([p[1].to(home, non_blocking=True) for p in parts], dim=1)
+    if plain:
+        top, pos = topk_select_plain(orient(d, ascending), min(k, d.shape[1]))
+        return unorient(top, ascending), torch.gather(i, 1, pos.long())
+    out = merge_top_k(d, i, k, ascending)
+    if home.type == "cuda":
+        merge_shards.launches += 1
+    return out
+
+
+merge_shards.launches = 0

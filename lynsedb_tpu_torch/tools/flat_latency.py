@@ -5,7 +5,8 @@ mode.
     python3 lynsedb_tpu_torch/tools/flat_latency.py [--corpus isotropic mixture hist geo]
                                                     [--index FLAT-IP FLAT-IP-SQ8 ...]
                                                     [--nprobe N] [--n-clusters N] [--insert N]
-                                                    [--where FILTER] [--package-root DIR]
+                                                    [--where FILTER] [--mesh-shards S]
+                                                    [--package-root DIR]
 
 Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
 1,000,000 x 128 f32 rows with fields {"bucket": i % 10}, then for each
@@ -28,7 +29,9 @@ then adds N more rows of the corpus's kind, commits them (an index links or
 posts them in place), reports the commit's seconds and times the mode again.
 ``--where FILTER`` runs every timed search under that filter (for example
 ``"bucket = 3"``: 100,000 rows, the gather route K11 -> K5 -> K3), after one
-untimed search has resolved it.
+untimed search has resolved it. ``--mesh-shards S`` serves the collection
+from a corpus sharded over S virtual shards of the card (``make_mesh(S,
+devices=["cuda:0"] * S)`` as the default mesh).
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (for example an
 older commit unpacked with ``git archive``), so one script times two trees on
@@ -220,6 +223,8 @@ def main() -> int:
                     help="rows added and committed after a mode's timings, then timed again")
     ap.add_argument("--where", default=None,
                     help='a filter every timed search runs under, e.g. "bucket = 3"')
+    ap.add_argument("--mesh-shards", type=int, default=0,
+                    help="serve from this many virtual shards of the card (0: no mesh)")
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
@@ -230,12 +235,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flat_latency: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.mesh_shards:
+        from lynsedb_tpu_torch.parallel.mesh import make_mesh, set_default_mesh
+
+        set_default_mesh(make_mesh(args.mesh_shards, devices=["cuda:0"] * args.mesh_shards))
     clock = GcClock()
     for kind in args.corpus:
         with tempfile.TemporaryDirectory(prefix="lynse_flat_") as root:
             for out in run(lynse, torch, kind, args.index, args.nprobe, args.n_clusters,
                            args.insert, args.where, root, clock):
                 out["package"] = str(Path(lynse.__file__).resolve().parent)
+                out["mesh_shards"] = args.mesh_shards
                 print(json.dumps(out), flush=True)
     return 0
 

@@ -1799,3 +1799,77 @@ def test_query_windows_match_search(dev, monkeypatch, tmp_path, tier):
                                        rtol=1e-6, atol=1e-6)
     finally:
         client.close()
+
+# ── K21b: the cross-shard k-means reduce; K21a: the sharded search ───────
+
+
+@pytest.mark.parametrize("s,k,d", [(1, 1000, 128), (4, 1000, 128), (2, 5, 1), (7, 33, 130),
+                                   (3, 1, 3), (4, 4000, 8), (5, 17, 0)])
+def test_kmeans_reduce_shards_matches_plain(dev, s, k, d):
+    rng = np.random.default_rng(s * 1000 + k + d)
+    sums = (rng.normal(size=(s, k, d)) * 10.0 ** rng.integers(-4, 5, size=(s, k, d)))
+    sums = torch.from_numpy(sums.astype(np.float32)).to(dev)
+    if d:
+        sums[0, 0, 0] = -0.0  # a negative zero sum keeps its sign at one shard
+    counts = torch.from_numpy(rng.integers(0, 300, size=(s, k)).astype(np.float32)).to(dev)
+    counts[:, k // 2] = 0.0  # an empty cluster
+    old = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(dev)
+    for _ in range(2):  # bit-identical from run to run
+        got = kmeans.kmeans_reduce_shards(sums, counts, old)
+        want = kmeans.kmeans_reduce_shards_plain(sums, counts, old)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[0][k // 2], old[k // 2])
+
+
+def test_sharded_kmeans_step_one_shard_is_lloyd_step(dev):
+    from lynsedb_tpu_torch.parallel import mesh as M
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(20_000, 64)).astype(np.float32)
+    valid = rng.random(20_000) < 0.9
+    cent = torch.from_numpy(x[:100].copy()).to(dev)
+    one = M.make_mesh(1, devices=[dev])
+    xs, vs = M.shard_corpus(one, x, valid)
+    got, counts = M.sharded_kmeans_step_fn(one)(xs, cent, vs)
+    want, want_counts, _ = kmeans._lloyd_step(torch.from_numpy(x).to(dev),
+                                              torch.from_numpy(valid).to(dev), cent)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(counts, want_counts)
+    four = M.make_mesh(4, devices=[dev] * 4)
+    xs, vs = M.shard_corpus(four, x, valid)
+    got4, counts4 = M.sharded_kmeans_step_fn(four)(xs, cent, vs)
+    plain4 = M.sharded_kmeans_step_fn(four, plain=True)(xs, cent, vs)
+    assert torch.equal(counts4, want_counts)
+    assert bool(((got4 - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+    assert torch.equal(counts4, plain4[1])
+
+
+@pytest.mark.parametrize("metric", [Metric.IP, Metric.L2, Metric.L1])
+@pytest.mark.parametrize("data_axis,b,k", [(1, 1, 10), (1, 16, 10), (2, 17, 1000)])
+def test_sharded_search_matches_unsharded(dev, metric, data_axis, b, k):
+    from lynsedb_tpu_torch.parallel import mesh as M
+
+    rng = np.random.default_rng(b + k)
+    n, d = 100_003, 48
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    valid = rng.random(n) < 0.5
+    mesh = M.make_mesh(4, data_axis=data_axis, devices=[dev] * 4)
+    xs, vs = M.shard_corpus(mesh, x, valid)
+    qs, _ = M.shard_queries(mesh, q)
+    got_d, got_i = M.sharded_search_fn(mesh, metric=metric, k=k)(xs, qs, vs)
+    xd, qd = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
+    keys = scan.metric_keys(D.query_transform(qd, metric), D.corpus_transform(xd, metric),
+                            torch.from_numpy(valid).to(dev), metric)
+    top, idx = topk.topk_select(keys, k)
+    torch.cuda.synchronize()
+    want_d = topk.unorient(top, metric.ascending)
+    got_d, got_i = got_d[:b], got_i[:b]
+    err = (got_d - want_d).abs()
+    assert bool((err <= 1e-5 * want_d.abs() + 1e-5).all())
+    for r in range(b):  # an id may differ only at a tie of its key within the row
+        for c in torch.nonzero(got_i[r] != idx[r].long()).flatten().tolist():
+            near = (want_d[r] - want_d[r, c]).abs() <= 1e-5 * want_d[r, c].abs() + 1e-5
+            assert int(near.sum()) > 1, (r, c)
