@@ -16,8 +16,9 @@ Phases (each prints its seconds):
      torch.topk(qc16 @ x16.T, C)), K3 rescore_topk, K5 topk_select (bit-equal,
      on the first pass's (B, N) keys; yardstick torch.topk) at 1,000,000 x
      128 rows, B in {1, 16, 256}, k=10, C=256, IP/L2/cosine, a 10% mask,
-     duplicated rows; K5 at k in {1,000, 1,025, 4,096, 4,097}, and k in
-     {4,096, N} of 20,000 tied keys; K2 and K3 at C = 1,280;
+     duplicated rows; K5 at k in {1,000, 1,025, 4,096, 4,097}, at k = 4,000
+     (a quantized search's shortlist) for B in {1, 16, 64} beside torch.topk,
+     and at k in {4,096, N} of 20,000 tied keys; K2 and K3 at C = 1,280;
      kmeans_assign at N in {256,000, 1,000,000}, K = 1,000 (L2 and IP) and
      kmeans_update at N = 256,000 (twice, bit-identical).
   4. flat path: VectorDBClient(device="cuda") -> create_database ->
@@ -32,7 +33,8 @@ Phases (each prints its seconds):
      row list and slot keys, B in {1, 16, 256, 33}, its bound at the bf16
      peak and the two calls qc16 @ x16.index_select(0, idx).T beside it.
   5. large k: search(k=1000) and search_range(max_results=1000) on the 1M
-     collection (a shortlist of 1,280: K5's sort-and-merge path, K3 via K5).
+     collection (a shortlist of 1,280: K5's large-k mode, K3 via K5), each
+     call's ms on the host clock.
      Then the quantized scans at 1,000,000 x 128: K12 int8_code_scores for
      SQ8 / RaBitQ / PolarVec x IP / L2 / cosine and K13 pq_adc_scores (M=16)
      at B in {1, 16, 64} with the 10% mask, K14 fwht_rotate at B in {1, 64},
@@ -139,7 +141,9 @@ Phases (each prints its seconds):
      reported; no repeated id, no filtered-out or deleted id), large k
      against the exact top 1,000.
  12. the launch counts of each path (counts set to 0 just before a path and
-     read just after; every kernel of the path > 0).
+     read just after; every kernel of the path > 0); K5's row also splits
+     them by mode (launches_by_mode: select for k <= 1,024, large_k above,
+     merge for the merges of sorted runs).
 The corpus is seeded numpy: 1M x 128 f32 rows drawn from a mixture of 2,000
 gaussian clusters (embedding-like data, on which a partition index has
 structure to find), with 1,000 duplicated rows. The line before the last is
@@ -174,9 +178,10 @@ from lynsedb_tpu_torch.parallel import dryrun
 from lynsedb_tpu_torch.parallel import mesh as M
 from lynsedb_tpu_torch.tools.flat_latency import GcClock, device_ms_per_call
 from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, ELEM_DIM_OPS, F32_OPS, HBM_BPS,
-                                              SFU_OPS, assign_bound, binary_tile_bound, bound,
-                                              bound_t, code_scan_bound, elem_tile_bound,
-                                              f32_tile_bound, kmeans_update_bound, prune_bound,
+                                              assign_bound, binary_probe_bound,
+                                              binary_tile_bound, bound, bound_t, code_scan_bound,
+                                              elem_tile_bound, f32_tile_bound,
+                                              kmeans_update_bound, prune_bound, select_bound,
                                               shared_list_bound, topl_bound, walk_bound,
                                               walk_bytes_bound)
 
@@ -319,13 +324,21 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+# K5's launches by mode (topk.topk_select.by_mode), read beside the kernels'
+K5_MODES = tuple(f"K5 {mode}" for mode in topk.topk_select.by_mode)
+
+
 def set_counts(counts: dict) -> None:
     for name, (wrapper, _, _) in KERNELS.items():
         wrapper.launches = counts.get(name, 0)
+    for mode in topk.topk_select.by_mode:
+        topk.topk_select.by_mode[mode] = counts.get(f"K5 {mode}", 0)
 
 
 def read_counts() -> dict:
-    return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
+    counts = {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
+    counts.update({f"K5 {mode}": n for mode, n in topk.topk_select.by_mode.items()})
+    return counts
 
 
 @contextlib.contextmanager
@@ -545,6 +558,20 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
     stats.time("K5 topk_select", f"IP B=16 k={c_big}", lambda: topk.topk_select(keys16, c_big),
                lambda: topk.topk_select_plain(keys16, c_big), lambda: torch.topk(keys16, c_big),
                bound(16 * rows * 4 + 16 * c_big * 8, 0))
+    # K5 at a quantized search's shortlist (S = 4,000 at 1M codes) at its
+    # query slices, on the first pass's keys of 64 queries
+    q64 = torch.from_numpy(rng.normal(size=(64, DIM)).astype(np.float32)).to(DEV)
+    keys64 = scan.bf16_centered_scores_plain(q64, x16, aux, valid, Metric.IP)
+    for b in QUANT_BATCHES:
+        kb = keys64[:b].contiguous()
+        got, want = topk.topk_select(kb, SHORTLIST), topk.topk_select_plain(kb, SHORTLIST)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K5 B={b} k={SHORTLIST}")
+        stats.time("K5 topk_select", f"IP B={b} k={SHORTLIST}",
+                   lambda: topk.topk_select(kb, SHORTLIST),
+                   lambda: topk.topk_select_plain(kb, SHORTLIST),
+                   lambda: torch.topk(kb, SHORTLIST), select_bound(b, rows, SHORTLIST))
+    del keys64, kb, got, want
     # K3 with a shortlist above its shared-memory sort (C = 1,280)
     q16 = torch.from_numpy(rng.normal(size=(16, DIM)).astype(np.float32)).to(DEV)
     cand_keys, cand_idx = scan.bf16_centered_topc(q16, x16, aux, valid, Metric.IP, c_big)
@@ -565,8 +592,9 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
                lambda: scan.rescore_topk_plain(*args3), None,
                bound(n_cand * DIM * 4 + 16 * DIM * 4 + 16 * c_big * 8 + 16 * BIG_K * 12,
                      4 * n_cand * DIM))
-    print(f"   K5 at k in {{{BIG_K}, 1025, 4096, 4097}} and k in {{4096, N = 20,000}} of tied "
-          f"keys, K2 and K3 at C = {c_big}: agree with their plain versions", flush=True)
+    print(f"   K5 at k in {{{BIG_K}, 1025, 4096, 4097}}, k = {SHORTLIST} at B in "
+          f"{list(QUANT_BATCHES)} and k in {{4096, N = 20,000}} of tied keys, K2 and K3 at C = "
+          f"{c_big}: agree with their plain versions", flush=True)
     return corpus
 
 
@@ -1693,20 +1721,17 @@ def binary_ivf_phase(coll, qs: np.ndarray, stats: Stats, mode: str) -> None:
             got, want = ivf.ivf_binary_blocks(*args), ivf.ivf_scan_blocks_plain(*args)
             check(torch.equal(got, want), f"K16b {mode} B={b}: keys differ from the plain version")
             stats.error("K16b ivf_binary_blocks", 0.0)
-            # bound: every distinct probed block's slot ids read once, the
-            # live flag of its real rows, the words and bit count of its live
-            # rows; the keys written; a popcount a word of every scored row
+            # bound (roofline.binary_probe_bound): the distinct probed blocks
             blk = state["cluster_blocks"][top_c.long()].reshape(b, -1)
             distinct = torch.unique(blk[blk >= 0]).long()
             orig = state["block_orig"].view(-1, ivf.BLOCK_SIZE)[distinct]
             real = orig >= 0
             n_live = int((real & live[orig.clamp_min(0).long()]).sum())
-            scored = int(torch.isfinite(got).sum())
             stats.time("K16b ivf_binary_blocks", f"{mode} B={b} nprobe={NPROBE}",
                        lambda: ivf.ivf_binary_blocks(*args),
                        lambda: ivf.ivf_scan_blocks_plain(*args), None,
-                       bound_t(orig.numel() * 4 + int(real.sum()) + n_live * (w * 4 + 4)
-                               + got.numel() * 4, scored * w / SFU_OPS),
+                       binary_probe_bound(len(distinct), int(real.sum()), n_live, w, got.numel(),
+                                          int(torch.isfinite(got).sum())),
                        reps=3 if b == 256 else 10)
             del got, want
     print(f"   K16b {mode}: equal to its plain version at B in {list(BATCHES)}", flush=True)
@@ -2783,12 +2808,21 @@ def main() -> int:
 
         set_counts({})
         with phase("5 large k"):
-            big_views = [coll.search(qv, k=BIG_K) for qv in big_q]
+            big_views, big_s = [], []
+            for qv in big_q:  # each call ends in its result on the host
+                t0 = time.perf_counter()
+                big_views.append(coll.search(qv, k=BIG_K))
+                big_s.append(time.perf_counter() - t0)
             # thresholds that keep about half of each query's top 1,000
             thresholds = [float(np.asarray(v.distances)[BIG_K // 2]) for v in big_views]
-            range_views = [coll.search_range(qv, t, max_results=BIG_K)
-                           for qv, t in zip(big_q, thresholds)]
+            range_views, range_s = [], []
+            for qv, t in zip(big_q, thresholds):
+                t0 = time.perf_counter()
+                range_views.append(coll.search_range(qv, t, max_results=BIG_K))
+                range_s.append(time.perf_counter() - t0)
             sync()
+            report[f"FLAT k={BIG_K} ms"] = [s * 1e3 for s in big_s]
+            report[f"FLAT search_range max_results={BIG_K} ms"] = [s * 1e3 for s in range_s]
         counts["large_k"] = read_counts()
 
         set_counts({})
@@ -2977,6 +3011,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shown[name],
             **COMPOSITE.get(name, {}),
+            **({"launches_by_mode": {m.split()[1]: sum(by_path[p][m] for p in paths)
+                                     for m in K5_MODES}} if name == "K5 topk_select" else {}),
             **({"walk_bound_ms": row["walk_bound_ms"]} if "walk_bound_ms" in row else {}),
             **({"single_device_ms": row["single_ms"]} if "single_ms" in row else {})})
     print(json.dumps({"kernels": kernels}))

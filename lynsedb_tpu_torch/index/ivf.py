@@ -36,6 +36,12 @@ from ..ops.topk import topk_select, unorient
 from ..storage.vector_store import write_atomic
 
 BLOCK_SIZE = 2048
+# K16b's route by batch: from this many queries a block of the index is read
+# once for all the queries that probe it (the b1 tensor-core tile); below it,
+# a row a thread for each (query, slot). On an H100 over an IVF-HAMMING
+# index of 1M fingerprints the tile route wins from 32 queries; at 16 it
+# depends on how many queries share a block (tools/tile_times.py --only K16b)
+BINARY_TILE_MIN_B = 32
 DEFAULT_N_CLUSTERS = 256
 DEFAULT_NPROBE = 32
 DEFAULT_REPLICAS = 1
@@ -119,7 +125,10 @@ def ivf_binary_blocks(q: torch.Tensor, qcnt: torch.Tensor, top_c: torch.Tensor,
     bit-packed rows: ``q`` (B, W) int32 words of the thresholded queries,
     ``qcnt`` (B,) their bit counts, ``blocks`` (n_blocks, BLOCK_SIZE, W)
     int32 words and ``block_cnt`` (n_blocks * BLOCK_SIZE,) bit counts. Keys
-    as ivf_scan_blocks', equal to the bit to the plain version's."""
+    as ivf_scan_blocks', equal to the bit to the plain version's. From
+    ``BINARY_TILE_MIN_B`` queries the kernel inverts the probe (a block of
+    the index read once for every query that probes it); below, a row a
+    thread for each (query, slot)."""
     if q.device.type == "cpu":
         return ivf_scan_blocks_plain(q, qcnt, top_c, cluster_blocks, blocks, block_cnt,
                                      block_orig, live, metric)
@@ -137,9 +146,9 @@ def ivf_binary_blocks(q: torch.Tensor, qcnt: torch.Tensor, top_c: torch.Tensor,
         raise ValueError("ivf_binary_blocks: unexpected dtypes or shapes")
     keys = torch.empty((b, nprobe * max_bpc * BLOCK_SIZE), dtype=torch.float32, device=q.device)
     _cuda.call("lt_ivf_binary_blocks", q.data_ptr(), qcnt.data_ptr(), top_c.data_ptr(), b, nprobe,
-               cluster_blocks.data_ptr(), max_bpc, blocks.data_ptr(), block_cnt.data_ptr(),
-               block_orig.data_ptr(), live.data_ptr(), w, scan._BINARY_CODE[metric],
-               keys.data_ptr(), _cuda.stream_of(q))
+               cluster_blocks.data_ptr(), cluster_blocks.shape[0], max_bpc, blocks.data_ptr(),
+               block_cnt.data_ptr(), block_orig.data_ptr(), live.data_ptr(), w,
+               scan._BINARY_CODE[metric], BINARY_TILE_MIN_B, keys.data_ptr(), _cuda.stream_of(q))
     ivf_binary_blocks.launches += 1
     return keys
 

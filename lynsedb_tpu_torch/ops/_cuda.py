@@ -65,7 +65,8 @@ _SIGNATURES = {
                      _P),
     "lt_robust_prune": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P),
     "lt_pointer_chase": (_P, _I, _I, _P, _P),
-    "lt_ivf_binary_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P),
+    "lt_ivf_binary_blocks": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                             _P),
 }
 
 _LOCK = threading.Lock()

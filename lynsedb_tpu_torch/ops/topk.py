@@ -10,10 +10,14 @@ ties: the order ``jax.lax.top_k`` gives in the JAX package
 select kernel (csrc/topk_select.cu), on a CPU tensor it runs the plain
 version beside it. Any 1 <= k <= N runs a hand-written kernel: k <= 1,024
 reads each key once and keeps a running top k a warp for every span of a
-row (then the same kernel merges the spans' lists), a larger k sorts
-4,096-key chunks and merges the sorted runs. :func:`merge_runs` is K5 over
-rows of runs already sorted (the fused first pass's span lists, K8's
-state): pairwise merges in one or two launches.
+row (then the same kernel merges the spans' lists); up to ``RADIX_CAP`` a
+radix select finds the k-th key in a few passes over the row, writes the
+entries at and above it in column order and sorts only those in shared
+memory; a larger k sorts 4,096-key chunks and merges the sorted runs.
+:func:`merge_runs` is K5 over rows of runs already sorted (the fused first
+pass's span lists, K8's state): pairwise merges in one or two launches.
+``topk_select.by_mode`` splits K5's launches: ``select`` (k <= 1,024),
+``large_k`` (k > 1,024) and ``merge`` (:func:`merge_runs`' own launches).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 from . import _cuda
 
 NEG_INF = float("-inf")
+SELECT_MAX = 1024  # the largest k of the one-read select
+RADIX_CAP = 16384  # the largest k of the radix select (survivors sorted in shared memory)
 
 
 def orient(scores: torch.Tensor, ascending: bool) -> torch.Tensor:
@@ -72,18 +78,20 @@ def topk_select(keys: torch.Tensor, k: int, ids: torch.Tensor | None = None
     if k == 0 or b == 0:
         return out_keys, out_idx
     entries = _cuda.library().lt_topk_scratch(b, n, k)
-    s_keys = torch.empty((2, entries), dtype=torch.float32, device=keys.device)
-    s_idx = torch.empty((2, entries), dtype=torch.int32, device=keys.device)
+    # the two buffers' keys (f32) and ids (int32): four rows of one allocation
+    scratch = torch.empty((4, entries), dtype=torch.int32, device=keys.device)
+    at = scratch.data_ptr()
     _cuda.call(
         "lt_topk_select", keys.data_ptr(), _cuda.ptr(ids), b, n, k, out_keys.data_ptr(),
-        out_idx.data_ptr(), s_keys[0].data_ptr(), s_idx[0].data_ptr(), s_keys[1].data_ptr(),
-        s_idx[1].data_ptr(), _cuda.stream_of(keys),
+        out_idx.data_ptr(), *(at + i * entries * 4 for i in range(4)), _cuda.stream_of(keys),
     )
     topk_select.launches += 1
+    topk_select.by_mode["select" if k <= SELECT_MAX else "large_k"] += 1
     return out_keys, out_idx
 
 
 topk_select.launches = 0
+topk_select.by_mode = {"select": 0, "large_k": 0, "merge": 0}
 
 MERGE_RUN_MAX = 256  # the longest run the merge of sorted runs takes
 # Rows with more runs than this merge in two launches, groups of this many
@@ -121,6 +129,7 @@ def merge_runs(keys: torch.Tensor, ids: torch.Tensor, k: int) -> tuple[torch.Ten
     _cuda.call("lt_topk_merge_runs", keys.data_ptr(), ids.data_ptr(), b, runs, k, per,
                out_keys.data_ptr(), out_idx.data_ptr(), scratch.data_ptr(), _cuda.stream_of(keys))
     topk_select.launches += 1
+    topk_select.by_mode["merge"] += 1
     if groups == 1:
         return out_keys, out_idx
     return merge_runs(out_keys, out_idx, k)

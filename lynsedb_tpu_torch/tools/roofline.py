@@ -175,3 +175,19 @@ def walk_bound(steps: int, load_ms: float):
     neighbours' rows) of ``load_ms`` each (ops/graph.py dependent_load_ms, a
     pointer chase timed on the card)."""
     return 2 * steps * load_ms, "latency"
+
+
+def select_bound(b: int, n: int, k: int, ids: bool = False):
+    """K5 over a (B, N) key matrix: each key (and with ``ids`` each caller
+    id) read once, the (B, k) keys and indices written; its compares bound
+    nothing."""
+    return bound(b * n * (8 if ids else 4) + b * k * 8, 0)
+
+
+def binary_probe_bound(blocks: int, real: int, n_live: int, w: int, keys: int, scored: int):
+    """K16b over the distinct probed ``blocks``: each block's 2,048 row ids
+    read once, the live flag of its ``real`` rows, the W words and bit count
+    of its ``n_live`` live rows, the ``keys`` f32 keys written; a popcount a
+    word of every ``scored`` (query, row) pair at the popcount rate."""
+    return bound_t(blocks * 2048 * 4 + real + n_live * (w * 4 + 4) + keys * 4,
+                   scored * w / SFU_OPS)

@@ -2,12 +2,31 @@
 """Device times of the exact f32 tile (K1, K6a), K6c's f32 tile, K11's
 shared-list tile, the integer tensor-core tiles (K6b, K12), the k-means
 assignment and update (K15a, K15b), the graph walk (K17), the exact top-L
-scan (K19) and the robust prune (K20) on one CUDA card, at chip_smoke.py's
-shapes.
+scan (K19), the robust prune (K20), K5's large-k selection and the binary
+IVF block scan (K16b) on one CUDA card, at chip_smoke.py's shapes.
 
     python3 lynsedb_tpu_torch/tools/tile_times.py [--package-root DIR] [--reps N]
-                            [--only K1 K6a K6c K11 K6b K12 K15a K15b K17 K19 K20]
+                            [--only K1 K6a K6c K11 K6b K12 K15a K15b K17 K19 K20 K5 K16b]
                             [--dump PREFIX] [--compare PREFIX]
+
+K5 (``topk.topk_select``) past k = 1,024 over 1,000,000 f32 keys a row
+(normal, distinct) at k = 1,280 (the k = 1,000 search's shortlist) for B = 1
+and 16 and at k = 4,000 (a quantized search's shortlist at 1M codes) for B
+= 1, 16 and 64 (and at 16 with every other key -inf, a half filter), and
+over 250,000 keys (a mesh shard's) at k = 4,000 and B = 1, beside
+``torch.topk`` and the plain version, with ``kernel_parts_ms``
+by kernel (the parent's chunk sort and merge levels, or the radix passes,
+compaction and sort); the keys and indices held to the plain version's bit
+for bit (max_abs_err 0, else inf), the sign of a zero included. K16b
+(``ivf.ivf_binary_blocks``) over an IVF-HAMMING index built as
+chip_smoke.py builds its own (1,010,000 ECFP-like rows of 1,024 bits from
+2,000 scaffolds, the port's k-means into 1,000 clusters, blocks of 2,048
+rows; the k-means cached in build/), every other row filtered out, nprobe =
+32 clusters a query (its K6b -> K5 probe), queries from the scaffolds, at B
+= 1, 4, 16, 32, 64 and 256, and IVF-JACCARD at 16 and 256, beside the plain
+version (no library call), each route of the change timed apart
+(``BINARY_TILE_MIN_B`` set to force it), the keys held to the plain
+version's bit for bit and their SHA-256 to the other tree's.
 
 K1 under IP over 1,000,000 x 128 f32 rows at B = 1, 16, 17, 64 and 256, beside
 ``q @ x.T`` (one f32 matmul, the same function without the mask); K6a under
@@ -95,9 +114,9 @@ import numpy as np
 
 # roofline.py sits beside this script (sys.path[0]), so this tree's formulas
 # hold whichever --package-root is timed
-from roofline import (assign_bound, binary_tile_bound, code_scan_bound, elem_tile_bound,
-                      f32_tile_bound, kmeans_update_bound, prune_bound, shared_list_bound,
-                      topl_bound, walk_bound, walk_bytes_bound)
+from roofline import (assign_bound, binary_probe_bound, binary_tile_bound, code_scan_bound,
+                      elem_tile_bound, f32_tile_bound, kmeans_update_bound, prune_bound,
+                      select_bound, shared_list_bound, topl_bound, walk_bound, walk_bytes_bound)
 
 N, DIM, SHARED_EVERY = 1_000_000, 128, 10
 BITS_DIM, BITS_DENSITY = 1024, 0.1
@@ -106,7 +125,8 @@ TOPL_CHUNK, TOPL_L, TOPL_METRIC_CHUNK, TOPL_METRIC_N = 4096, 64, 1024, 1_010_000
 # pair (both points' radians and cosines formed for each pair)
 HAVERSINE_OPS = (12, 6)
 PRUNE_NODES, PRUNE_EXTRA, PRUNE_R, KEYS_NODES = 4096, 8, 32, 1024
-KERNELS = ("K1", "K6a", "K6c", "K11", "K6b", "K12", "K15a", "K15b", "K17", "K19", "K20")
+KERNELS = ("K1", "K6a", "K6c", "K11", "K6b", "K12", "K15a", "K15b", "K17", "K19", "K20", "K5",
+           "K16b")
 # the kernels' names, this tree's and earlier ones' (torch.profiler keys)
 K1_NAMES, K11_NAMES = ("f32_tile_kernel", "tile_scores_kernel"), ("shared_list_kernel",
                                                                   "bf16_gather_kernel")
@@ -119,6 +139,13 @@ K15B_NAMES = ("count_kernel", "scan_kernel", "scatter_kernel", "sum_kernel",
               "kmeans_update_kernel")
 K15A_NAMES = ("assign_fma_kernel", "assign_small_kernel", "kmeans_assign_kernel")
 K17_NAMES = ("beam_kernel",)
+K5_NAMES = ("radix_count_kernel", "radix_compact_kernel", "radix_sort_kernel", "sort_chunk_kernel",
+            "merge_runs_kernel", "Memset")
+K16B_NAMES = ("ivf_binary_tile_kernel", "ivf_binary_rows_kernel", "ivf_binary_blocks_kernel")
+# K16b: an IVF-HAMMING layout of the 1M fingerprints' size (chip_smoke.py
+# phase 10: 1,010,000 rows, 1,000 clusters, nprobe 32), 10% of rows deleted
+PROBE_N, PROBE_SCAFFOLDS, PROBE_CLUSTERS, PROBE_NPROBE = 1_010_000, 2000, 1000, 32
+PROBE_CACHE = Path(__file__).resolve().parents[2] / "build" / "tile_times_probe_kmeans.npz"
 KM_N, KM_K, KM_CENTERS, PQ_N, PQ_K, PQ_D = 256_000, 1000, 2000, 65_536, 256, 8
 PQ_TRAIN = 131_072  # ops/quantize.py PQ.TRAIN_SAMPLE
 # K17: a Vamana graph of degree 32 (HNSW's layer 0 at m = 16) over the 1M
@@ -176,10 +203,13 @@ def main() -> int:
                 parts[hit] = parts.get(hit, 0.0) + ev.self_device_time_total / 1e3 / args.reps
         return parts
 
-    def row(kernel, shape, fn, library, bnd, err, names, library_reps=None, **extra):
+    def row(kernel, shape, fn, library, bnd, err, names, library_reps=None, plain=None,
+            plain_reps=None, **extra):
         parts = kernel_ms(fn, names)
         if len(parts) > 1:
             extra["kernel_parts_ms"] = parts
+        if plain is not None:
+            extra["plain_ms"] = ms(plain, plain_reps)
         print(json.dumps({"package": str(args.package_root), "kernel": kernel, "shape": shape,
                           "ms": ms(fn), "kernel_ms": sum(parts.values()) if parts else None,
                           "library_ms": None if library is None else ms(library, library_reps),
@@ -204,6 +234,10 @@ def main() -> int:
         topl_rows(row, dev, args.dump, args.compare)
     if "K20" in args.only:
         prune_rows(row, dev, args.dump, args.compare)
+    if "K5" in args.only:
+        select_rows(row, dev, args.dump, args.compare)
+    if "K16b" in args.only:
+        probe_rows(row, dev, args.dump, args.compare)
     return 0
 
 
@@ -735,6 +769,153 @@ def prune_rows(row, dev, dump, compare) -> None:
             row("K20 robust_prune", shape, fn, lib, bnd_, err_, K20_NAMES,
                 **held(dump, compare, tag, arrays))
         del got, gathered, near, cands
+
+
+def select_rows(row, dev, dump, compare) -> None:
+    """K5 past k = 1,024 at the main path's shapes, against the plain
+    version bit for bit and beside torch.topk."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for b, n, k, masked in ((1, N, 1280, False), (16, N, 1280, False), (1, N, 4000, False),
+                            (16, N, 4000, False), (64, N, 4000, False), (1, N // 4, 4000, False),
+                            (16, N, 4000, True)):
+        keys = torch.randn((b, n), generator=gen, device=dev)
+        if masked:  # a half filter: every other row at -inf
+            keys[:, 1::2] = float("-inf")
+        got, want = topk.topk_select(keys, k), topk.topk_select_plain(keys, k)
+        same = torch.equal(got[1], want[1]) and torch.equal(got[0].view(torch.int32),
+                                                            want[0].view(torch.int32))
+        outs = {"keys": got[0].cpu().numpy(), "idx": got[1].cpu().numpy()}
+        row("K5 topk_select", f"B={b} N={n} k={k}{' half -inf' if masked else ''}",
+            lambda: topk.topk_select(keys, k),
+            lambda: torch.topk(keys, k), select_bound(b, n, k), 0.0 if same else float("inf"),
+            K5_NAMES, plain=lambda: topk.topk_select_plain(keys, k),
+            **held(dump, compare, f"K5_{b}_{n}_{k}{'_masked' if masked else ''}", outs))
+        del keys, got, want
+
+
+def probe_layout(dev):
+    """An IVF-HAMMING index as chip_smoke.py phase 10 builds one: PROBE_N
+    ECFP-like rows of BITS_DIM bits (one of PROBE_SCAFFOLDS scaffolds at
+    BITS_DENSITY with 2% of its bits flipped), the port's k-means (L2 over
+    the {0, 1} rows, seed 42) into PROBE_CLUSTERS clusters, the rows posted
+    to their cluster in row order and laid out in blocks of 2,048 as
+    index/ivf.py's _layout does, with their words and bit counts in block
+    order (padding rows zero). The k-means result is cached in build/, so
+    every tree of a call times the same index. Returns (cluster_blocks,
+    blocks, counts, block_orig, centroids' transform, scaffolds) on ``dev``."""
+    import torch
+
+    from lynsedb_tpu_torch.index import ivf
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import distance as D
+    from lynsedb_tpu_torch.ops.kmeans import train_kmeans
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    protos = (torch.rand((PROBE_SCAFFOLDS, BITS_DIM), generator=gen, device=dev)
+              < BITS_DENSITY).to(torch.uint8)
+    rows01 = torch.empty((PROBE_N, BITS_DIM), dtype=torch.uint8, device=dev)
+    for lo in range(0, PROBE_N, 1 << 16):
+        m = min(1 << 16, PROBE_N - lo)
+        pick = torch.randint(0, PROBE_SCAFFOLDS, (m,), generator=gen, device=dev)
+        rows01[lo : lo + m] = protos[pick] ^ (torch.rand((m, BITS_DIM), generator=gen,
+                                                         device=dev) < 0.02).to(torch.uint8)
+    if PROBE_CACHE.exists():
+        cached = np.load(PROBE_CACHE)
+        centroids, assigns = cached["centroids"], cached["assigns"]
+    else:
+        centroids, assigns = train_kmeans(rows01.float().cpu().numpy(), PROBE_CLUSTERS, seed=42,
+                                          device=dev)
+        PROBE_CACHE.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(PROBE_CACHE, centroids=centroids, assigns=assigns)
+    sizes = np.bincount(assigns, minlength=PROBE_CLUSTERS)
+    bpc = -(-sizes // ivf.BLOCK_SIZE)
+    cluster_blocks = np.full((PROBE_CLUSTERS, max(int(bpc.max()), 1)), -1, np.int32)
+    block_orig = np.full((int(bpc.sum()), ivf.BLOCK_SIZE), -1, np.int32)
+    order, at, nb = np.argsort(assigns, kind="stable").astype(np.int32), 0, 0
+    for c, n in enumerate(sizes):
+        for i in range(int(bpc[c])):
+            seg = order[at + i * ivf.BLOCK_SIZE : at + min(n, (i + 1) * ivf.BLOCK_SIZE)]
+            block_orig[nb, : len(seg)] = seg
+            cluster_blocks[c, i] = nb
+            nb += 1
+        at += n
+    words = D.words_for(BITS_DIM)
+    bits = torch.empty((PROBE_N, words), dtype=torch.int32, device=dev)
+    cnt = torch.empty(PROBE_N, dtype=torch.float32, device=dev)
+    for lo in range(0, PROBE_N, 1 << 16):
+        ct = D.corpus_transform(rows01[lo : lo + (1 << 16)].float(), Metric.HAMMING)
+        bits[lo : lo + len(ct["cnt"])], cnt[lo : lo + len(ct["cnt"])] = ct["bits"], ct["cnt"]
+    del rows01
+    flat = torch.from_numpy(block_orig.reshape(-1)).to(dev)
+    pad = flat >= 0
+    blocks = (bits[flat.clamp_min(0).long()] * pad[:, None]).view(-1, ivf.BLOCK_SIZE, words)
+    counts = cnt[flat.clamp_min(0).long()] * pad
+    cent = D.corpus_transform(torch.from_numpy(centroids).to(dev), Metric.HAMMING)
+    return torch.from_numpy(cluster_blocks).to(dev), blocks.contiguous(), counts, flat, cent, protos
+
+
+def probe_rows(row, dev, dump, compare) -> None:
+    """K16b at B = 1, 4, 16, 32, 64 and 256 under Hamming (and Jaccard at 16
+    and 256), against the plain version bit for bit; the change's two
+    routes apart."""
+    import hashlib
+
+    import torch
+
+    from lynsedb_tpu_torch.index import ivf
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import distance as D
+
+    cluster_blocks, blocks, counts, block_orig, cent, protos = probe_layout(dev)
+    w = blocks.shape[2]
+    live = torch.arange(PROBE_N, device=dev) % 10 < 5  # chip_smoke.py's half filter
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    routes = [("auto", None)]
+    if hasattr(ivf, "BINARY_TILE_MIN_B"):
+        routes += [("rows", 1 << 20), ("tile", 1)]
+    shapes = [(Metric.HAMMING, b) for b in (1, 4, 16, 32, 64, 256)]
+    for metric, b in shapes + [(Metric.JACCARD, 16), (Metric.JACCARD, 256)]:
+        pick = torch.randint(0, PROBE_SCAFFOLDS, (b,), generator=gen, device=dev)
+        q = (protos[pick] ^ (torch.rand((b, BITS_DIM), generator=gen, device=dev) < 0.02)
+             .to(torch.uint8)).float()
+        qt = D.query_transform(q, metric)
+        top_c = ivf._top_clusters(q, cent, metric, PROBE_NPROBE)
+        args = (qt["bits"], qt["cnt"], top_c, cluster_blocks, blocks, counts, block_orig, live,
+                metric)
+        want = ivf.ivf_scan_blocks_plain(*args)
+        slot_blk = cluster_blocks[top_c.long()].reshape(b, -1)
+        distinct = torch.unique(slot_blk[slot_blk >= 0]).long()
+        orig = block_orig.view(-1, ivf.BLOCK_SIZE)[distinct]
+        real = orig >= 0
+        n_live = int((real & live[orig.clamp_min(0).long()]).sum())
+        bnd = binary_probe_bound(len(distinct), int(real.sum()), n_live, w, want.numel(),
+                                 int(torch.isfinite(want).sum()))
+        saved = getattr(ivf, "BINARY_TILE_MIN_B", None)
+        for route, min_b in routes:
+            if min_b is not None:
+                ivf.BINARY_TILE_MIN_B = min_b
+            try:
+                got = ivf.ivf_binary_blocks(*args)
+                err = 0.0 if torch.equal(got, want) else float("inf")
+                sha = np.frombuffer(hashlib.sha256(got.cpu().numpy().tobytes()).digest(), np.uint8)
+                del got
+                extra = held(dump, compare, f"K16b_{metric.value}_{b}", {"sha": sha}) \
+                    if route == "auto" else {}
+                row("K16b ivf_binary_blocks", f"{metric.value} B={b} nprobe={PROBE_NPROBE} "
+                    f"route={route}", lambda: ivf.ivf_binary_blocks(*args), None, bnd, err,
+                    K16B_NAMES, plain=(lambda: ivf.ivf_scan_blocks_plain(*args))
+                    if route == "auto" else None, plain_reps=1 if b > 16 else 3, **extra)
+            finally:
+                if saved is not None:
+                    ivf.BINARY_TILE_MIN_B = saved
+        del want
 
 
 if __name__ == "__main__":

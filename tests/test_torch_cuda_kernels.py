@@ -68,7 +68,10 @@ def _tie_keys(rng, b, n):
                                    (3, 70000, 1025), (2, 9000, 4096), (1, 4097, 1500),
                                    (2, 20000, 20000), (2, 3000, 3000), (70000, 16, 3),
                                    (3, 70001, 4000), (2, 4097, 4097), (16, 1_000_000, 4096),
-                                   (256, 1_000_000, 256), (7, 100_003, 1)])
+                                   (256, 1_000_000, 256), (7, 100_003, 1),
+                                   (64, 1_000_000, 4000), (1, 250_000, 4000),
+                                   (16, 1_000_000, 1280), (2, 16384, 16384), (2, 16385, 16384),
+                                   (3, 50_000, 16385), (1, 16386, 1025)])
 def test_topk_select_matches_plain(dev, b, n, k):
     keys = torch.from_numpy(_tie_keys(np.random.default_rng(n), b, n)).to(dev)
     got_k, got_i = topk.topk_select(keys, k)
@@ -76,6 +79,24 @@ def test_topk_select_matches_plain(dev, b, n, k):
     torch.cuda.synchronize()
     assert torch.equal(got_k, want_k)
     assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("ids", [False, True])
+def test_topk_select_large_k_signed_zeros(dev, ids):
+    """K5 past k = 1,024 returns each key as it came, -0.0 kept apart from
+    +0.0 in its sign (the two tie as one key: lower column or id first), as
+    the plain version does."""
+    rng = np.random.default_rng(5)
+    keys = np.where(rng.random((3, 40_000)) < 0.5, 0.0, -0.0).astype(np.float32)
+    keys[:, ::7] = rng.normal(size=keys[:, ::7].shape).astype(np.float32)
+    kt = torch.from_numpy(keys).to(dev)
+    it = torch.from_numpy(rng.integers(0, 30_000, size=keys.shape).astype(np.int32)).to(dev)
+    for k in (1025, 6000, 16384):
+        got = topk.topk_select(kt, k, ids=it if ids else None)
+        want = topk.topk_select_plain(kt, k, it if ids else None)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
 def _sorted_runs(rng, b, runs, r):
@@ -367,6 +388,14 @@ def test_topk_select_ids_match_plain(dev):
     ids = ids.expand(256, -1).contiguous()
     for k in (256, 4096):
         got, want = topk.topk_select(keys, k, ids=ids), topk.topk_select_plain(keys, k, ids)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # (16, 1,280) in ids mode: the k = 1,000 search's span merge, over 1M keys
+    # and over a merge's width of sorted runs, ids tied and (-inf, -1) tails
+    for n in (1_000_000, 131 * 1280):
+        keys = torch.from_numpy(_tie_keys(rng, 16, n)).to(dev)
+        ids = torch.from_numpy(rng.integers(-1, 4000, size=(16, n)).astype(np.int32)).to(dev)
+        got, want = topk.topk_select(keys, 1280, ids=ids), topk.topk_select_plain(keys, 1280, ids)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
@@ -1641,6 +1670,70 @@ def test_binary_ivf_index_cuda_matches_cpu(dev, tmp_path, mode, bits):
     for got, want in zip(*answers):  # ids may differ only among equal distances
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.distances, w.distances)
+
+
+def binary_probe_state(rng, bits: int, sizes, n_rows: int, live_frac: float = 0.8):
+    """An IVF-HAMMING index's device arrays by hand: cluster c holds sizes[c]
+    rows (a cluster of more than 2 x 2,048 rows spans three blocks, a cluster
+    of 0 rows none), its blocks -1 padded in ``cluster_blocks``, the rows'
+    bit-packed words and counts in block order with zero padding rows; the
+    last block's rows all deleted. Returns (cluster_blocks, blocks, counts,
+    block_orig, live) as CPU tensors."""
+    bs = ivf.BLOCK_SIZE
+    bpc = [-(-n // bs) for n in sizes]
+    max_bpc = max(max(bpc), 1)
+    cluster_blocks = np.full((len(sizes), max_bpc), -1, np.int32)
+    block_orig = np.full((max(sum(bpc), 1), bs), -1, np.int32)
+    rows = rng.permutation(n_rows)
+    at = nb = 0
+    for c, n in enumerate(sizes):
+        for i in range(bpc[c]):
+            seg = rows[at + i * bs : at + min(n, (i + 1) * bs)]
+            block_orig[nb, : len(seg)] = seg
+            cluster_blocks[c, i] = nb
+            nb += 1
+        at += n
+    x = torch.from_numpy(rng.random((n_rows, bits)) < 0.2).float()
+    ct = D.corpus_transform(x, Metric.HAMMING)
+    flat = torch.from_numpy(block_orig.reshape(-1))
+    pad = flat >= 0
+    words = (ct["bits"][flat.clamp_min(0).long()] * pad[:, None]).view(-1, bs, ct["bits"].shape[1])
+    counts = ct["cnt"][flat.clamp_min(0).long()] * pad
+    live = torch.from_numpy(rng.random(n_rows) < live_frac)
+    live[torch.from_numpy(block_orig[nb - 1][block_orig[nb - 1] >= 0]).long()] = False
+    return torch.from_numpy(cluster_blocks), words.contiguous(), counts, flat, live
+
+
+@pytest.mark.parametrize("bits", [100, 1024])
+@pytest.mark.parametrize("b", [1, 16, 17, 256])
+@pytest.mark.parametrize("metric", [Metric.HAMMING, Metric.JACCARD])
+def test_binary_ivf_blocks_routes_match_plain(dev, metric, b, bits):
+    """K16b on both routes (a row a thread, and the inverted probe's b1 tile)
+    at B in {1, 16, 17, 256}, W = 4 and 32, equal to the bit to the plain
+    version: clusters of 0 to three blocks, padding, deleted rows, a block
+    whose rows are all deleted, queries probing a popular cluster together."""
+    rng = np.random.default_rng(b * bits)
+    sizes = [5000, 0, 2048, 1, 700, 3000] + [int(v) for v in rng.integers(1, 900, 20)]
+    n_rows = sum(sizes)
+    state = [t.to(dev) for t in binary_probe_state(rng, bits, sizes, n_rows)]
+    cluster_blocks, blocks, counts, block_orig, live = state
+    nprobe = 6
+    q = torch.from_numpy(rng.random((b, bits)) < 0.2).float().to(dev)
+    qt = D.query_transform(q, metric)
+    top_c = torch.from_numpy(np.stack([rng.permutation(len(sizes))[:nprobe] for _ in range(b)])
+                             .astype(np.int32)).to(dev)
+    top_c[: b // 2, 0] = 0  # half the batch probes the three-block cluster
+    args = (qt["bits"], qt["cnt"], top_c, cluster_blocks, blocks, counts, block_orig, live, metric)
+    want = ivf.ivf_scan_blocks_plain(*args)
+    saved = ivf.BINARY_TILE_MIN_B
+    try:
+        for route_min_b in (1, 1 << 20):
+            ivf.BINARY_TILE_MIN_B = route_min_b
+            got = ivf.ivf_binary_blocks(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+    finally:
+        ivf.BINARY_TILE_MIN_B = saved
 
 
 @pytest.mark.parametrize("mode", ["HNSW-L1", "HNSW-JENSEN-SHANNON", "HNSW-HAVERSINE"])
