@@ -38,7 +38,11 @@ Phases (each prints its seconds):
      Then the quantized scans at 1,000,000 x 128: K12 int8_code_scores for
      SQ8 / RaBitQ / PolarVec x IP / L2 / cosine and K13 pq_adc_scores (M=16)
      at B in {1, 16, 64} with the 10% mask, K14 fwht_rotate at B in {1, 64},
-     K11 bf16_gather_scores at S = 4,000 (a K2 shortlist), B in {1, 16, 64},
+     K11 bf16_gather_scores at S = 4,000 (a K2 shortlist), B in {1, 16, 64}:
+     the per-query mode, and the fused second stage (bf16_gather_topc, its
+     keys and top C = 64 in one cluster launch) against its plain chain
+     (keys within K11's tolerance, rows but at near-ties) and, under IP,
+     against the per-query mode and K5 bit for bit; timed under IP,
      and kmeans_assign at (1,000,000, 8) x 256 (PQ's encode) and at PQ's
      training sample, (131,072, 8) x 256.
   6. IVF path: build_index("IVF-L2", n_clusters=1000), then "IVF-IP", on the
@@ -143,7 +147,10 @@ Phases (each prints its seconds):
  12. the launch counts of each path (counts set to 0 just before a path and
      read just after; every kernel of the path > 0); K5's row also splits
      them by mode (launches_by_mode: select for k <= 1,024, large_k above,
-     merge for the merges of sorted runs).
+     merge for the merges of sorted runs), K11's (fused, per_query,
+     shared) and K6c's (f32_tile, bf16: K9, gather: K10); the quantized
+     and mesh paths' second stage is the fused launch alone (K11's
+     per-query mode 0).
 The corpus is seeded numpy: 1M x 128 f32 rows drawn from a mixture of 2,000
 gaussian clusters (embedding-like data, on which a partition index has
 structure to find), with 1,000 duplicated rows. The line before the last is
@@ -181,7 +188,8 @@ from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, ELEM_DIM_OPS, F32_OPS,
                                               assign_bound, binary_probe_bound,
                                               binary_tile_bound, bound, bound_t, code_scan_bound,
                                               elem_tile_bound, f32_tile_bound,
-                                              kmeans_update_bound, prune_bound, select_bound,
+                                              gather_topc_bound, kmeans_update_bound,
+                                              prune_bound, rescore_bound, select_bound,
                                               shared_list_bound, topl_bound, walk_bound,
                                               walk_bytes_bound)
 
@@ -200,6 +208,7 @@ DEV = torch.device("cuda")
 QUANT_MODES = {"FLAT-IP-SQ8": 0.95, "FLAT-L2-SQ8": 0.95, "FLAT-IP-PQ": 0.70,
                "FLAT-IP-RABITQ": 0.70, "FLAT-IP-POLARVEC": 0.70}
 SHORTLIST, QUANT_BATCHES = 4000, (1, 16, 64)  # S at 1M rows and k=10; the query slice
+QUANT_C = 64  # the quantized search's C at k = 10: max(64, 4 k)
 GC = GcClock()  # garbage-collection seconds, read around each timed batch call
 # the upstream gate's graph modes and setting (benchmarks/gate_index_modes.py:49-52)
 GRAPH_NPROBE, GRAPH_RECALL_FLOOR = 100, 0.90
@@ -324,20 +333,31 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-# K5's launches by mode (topk.topk_select.by_mode), read beside the kernels'
-K5_MODES = tuple(f"K5 {mode}" for mode in topk.topk_select.by_mode)
+# launches by mode of the kernels whose wrappers split them (read beside the
+# kernels' counts as "<row's short name> <mode>"): K5 select / large_k /
+# merge, K11 fused / per_query / shared, K6c f32_tile / bf16 (K9) / gather
+# (K10)
+MODES = {"K5 topk_select": topk.topk_select.by_mode,
+         "K11 bf16_gather_scores": scan.bf16_gather_scores.by_mode,
+         "K6c elementwise_scores": scan.elementwise_scores.by_mode}
+
+
+def mode_key(name: str, mode: str) -> str:
+    return f"{name.split()[0]} {mode}"
 
 
 def set_counts(counts: dict) -> None:
     for name, (wrapper, _, _) in KERNELS.items():
         wrapper.launches = counts.get(name, 0)
-    for mode in topk.topk_select.by_mode:
-        topk.topk_select.by_mode[mode] = counts.get(f"K5 {mode}", 0)
+    for name, modes in MODES.items():
+        for mode in modes:
+            modes[mode] = counts.get(mode_key(name, mode), 0)
 
 
 def read_counts() -> dict:
     counts = {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
-    counts.update({f"K5 {mode}": n for mode, n in topk.topk_select.by_mode.items()})
+    counts.update({mode_key(name, mode): n for name, modes in MODES.items()
+                   for mode, n in modes.items()})
     return counts
 
 
@@ -514,11 +534,17 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
             check_ids(gi.cpu().numpy(), wi.cpu().numpy(), wd_np,
                       1e-4 + 1e-5 * np.abs(wd_np).max(axis=1))
             stats.error("K3 rescore_topk", err3.max())
+            if b == 16:
+                # both block widths (256 and 1,024 threads) give the plan's
+                # outputs bit for bit
+                for wide in (False, True):
+                    cd, ci = scan.rescore_topk(*args3, wide=wide)
+                    check(torch.equal(cd.view(torch.int32), gd.view(torch.int32))
+                          and torch.equal(ci, gi), f"K3 {metric} B={b} wide={wide}")
             if ip:
                 stats.time("K3 rescore_topk", f"IP B={b} C={C}", lambda: scan.rescore_topk(*args3),
                            lambda: scan.rescore_topk_plain(*args3), None,
-                           bound(n_cand * DIM * 4 + b * DIM * 4 + b * C * 8 + b * K * 12,
-                                 4 * n_cand * DIM))
+                           rescore_bound(b, C, DIM, n_cand, K))
         print(f"   {metric.value}: K1, K2, K3, K5 agree with their plain versions", flush=True)
 
     # K1 at the edge of its routes: B = 17 is the first batch on the FMA
@@ -590,8 +616,7 @@ def flat_kernel_phase(x: np.ndarray, rng, stats: Stats) -> DeviceCorpus:
     stats.error("K3 rescore_topk", err3.max())
     stats.time("K3 rescore_topk", f"IP B=16 C={c_big}", lambda: scan.rescore_topk(*args3),
                lambda: scan.rescore_topk_plain(*args3), None,
-               bound(n_cand * DIM * 4 + 16 * DIM * 4 + 16 * c_big * 8 + 16 * BIG_K * 12,
-                     4 * n_cand * DIM))
+               rescore_bound(16, c_big, DIM, n_cand, BIG_K))
     print(f"   K5 at k in {{{BIG_K}, 1025, 4096, 4097}}, k = {SHORTLIST} at B in "
           f"{list(QUANT_BATCHES)} and k in {{4096, N = 20,000}} of tied keys, K2 and K3 at C = "
           f"{c_big}: agree with their plain versions", flush=True)
@@ -700,6 +725,38 @@ def check_gather(got, want, q, aux, ids, metric, what: str, stats: Stats) -> Non
     err = (got - want).abs()
     check(bool((err[fin] <= tol.expand_as(err)[fin]).all()), what)
     stats.error("K11 bf16_gather_scores", err[fin].max())
+
+
+def check_gather_topc(got, want, q, x16, aux, metric, what: str, stats: Stats) -> int:
+    """K11's fused stage against its plain chain: the same live slots, keys
+    descending, each key within check_gather's tolerance of its row's plain
+    key, the plain chain's rows but for near-ties of the C-th key (within
+    twice the tolerance). Returns the number of queries whose rows differ."""
+    (gk, gi), (wk, wi) = got, want
+    live = gi >= 0
+    check(torch.equal(live, wi >= 0) and torch.equal(live, gk > float("-inf")),
+          f"{what}: empty slots")
+    check(bool((gk[:, :-1] >= gk[:, 1:]).all()), f"{what}: keys not descending")
+    plain = scan.bf16_gather_scores_plain(q, x16, aux, gi, None, metric)
+    safe = gi.clamp_min(0).long()
+    tol = 1e-5 * (q - aux["mean"][None, :]).norm(dim=1)[:, None] * torch.sqrt(
+        aux["xc_sq"][safe]) + 1e-5
+    if metric is Metric.COSINE:
+        tol = tol / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][safe]).clamp_min(1e-30)
+    err = torch.where(live, (gk - plain).abs(), 0.0)
+    check(bool((err <= tol).all()), f"{what}: keys outside the tolerance")
+    stats.error("K11 bf16_gather_scores", err.max())
+    rows = torch.nonzero((gi != wi).any(1)).flatten().tolist()
+    for r in rows:
+        swapped = set(gi[r][live[r]].tolist()) ^ set(wi[r][live[r]].tolist())
+        if not swapped:
+            continue
+        ids = torch.tensor(sorted(swapped), dtype=torch.int32, device=gi.device)[None]
+        k_rows = scan.bf16_gather_scores_plain(q[r : r + 1], x16, aux, ids, None, metric)[0]
+        kth = float(wk[r][live[r]][-1])
+        check(bool(((k_rows - kth).abs() <= 2 * tol[r][live[r]].max()).all()),
+              f"{what}: query {r}'s rows {sorted(swapped)} are no near-ties of the C-th key")
+    return len(rows)
 
 
 def gather_route_phase(coll, rng, stats: Stats) -> None:
@@ -831,17 +888,33 @@ def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
         for b in QUANT_BATCHES:
             q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(DEV)
             top, cand = scan.bf16_centered_topc(q, x16, aux, valid, metric, SHORTLIST)
+            # the per-query mode (the route past GATHER_TOPC_MAX)
             got = scan.bf16_gather_scores(q, x16, aux, cand, top, metric)
             want = scan.bf16_gather_scores_plain(q, x16, aux, cand, top, metric)
             check_gather(got, want, q, aux, cand, metric, f"K11 {metric} B={b}", stats)
+            # the fused second stage: keys, then the top C, in one launch
+            args = (q, x16, aux, cand, top, metric, QUANT_C)
+            fused = scan.bf16_gather_topc(*args)
+            n_differ = check_gather_topc(fused, scan.bf16_gather_topc_plain(*args), q, x16, aux,
+                                         metric, f"K11 fused {metric} B={b}", stats)
+            two = scan.topk_select(got, QUANT_C)
+            two = (two[0], torch.where(two[0] > float("-inf"), cand.gather(1, two[1].long()), -1))
+            same = torch.equal(fused[1], two[1]) and torch.equal(
+                (fused[0] + 0.0).view(torch.int32), (two[0] + 0.0).view(torch.int32))
+            check(metric is not Metric.IP or same,
+                  f"K11 fused IP B={b}: not bit-equal to K11's per-query mode and K5")
+            print(f"   K11 fused {metric} B={b}: {n_differ} rows off the plain chain (near-ties), "
+                  f"{'bit-equal' if same else 'not bit-equal'} to the two-launch chain",
+                  flush=True)
             if metric is Metric.IP:
                 n_cand = int((top > float("-inf")).sum())  # the rows it gathers
-                stats.time("K11 bf16_gather_scores", f"IP B={b} S={SHORTLIST}",
-                           lambda: scan.bf16_gather_scores(q, x16, aux, cand, top, metric),
-                           lambda: scan.bf16_gather_scores_plain(q, x16, aux, cand, top, metric),
-                           None, bound(n_cand * (DIM * 2 + 4) + b * SHORTLIST * 12 + b * DIM * 2,
-                                       2 * n_cand * DIM))
-    print(f"   K11 bf16_gather_scores S={SHORTLIST}: agrees with its plain version", flush=True)
+                stats.time("K11 bf16_gather_scores", f"IP B={b} S={SHORTLIST} C={QUANT_C} fused",
+                           lambda: scan.bf16_gather_topc(*args),
+                           lambda: scan.bf16_gather_topc_plain(*args), None,
+                           gather_topc_bound(b, DIM, SHORTLIST, QUANT_C, n_cand))
+            del got, want, fused, two
+    print(f"   K11 bf16_gather_scores S={SHORTLIST}: the per-query mode and the fused stage "
+          f"(C = {QUANT_C}) agree with their plain versions", flush=True)
 
     # kmeans_assign at PQ's shapes: every row's 8-wide subspace x 256 (the
     # encode) and the codebook fit's training sample (PQ.TRAIN_SAMPLE rows)
@@ -2968,6 +3041,9 @@ def main() -> int:
             print(f"   {path}: {by_path[path]}")
             for name in names:
                 check(by_path[path][name] > 0, f"{name} was never launched on the {path} path")
+        for path in ("quantized", "mesh"):  # the second stage: one fused launch
+            check(by_path[path]["K11 fused"] > 0 and by_path[path]["K11 per_query"] == 0,
+                  f"{path}: K11's second stage did not run fused")
         ivf_l2 = counts["ivf IVF-L2"]
         for name in PATHS["ivf"]:  # the IP build and queries launch them again
             check(counts["ivf"][name] > ivf_l2[name], f"{name} not launched for IVF-IP")
@@ -2981,7 +3057,7 @@ def main() -> int:
              "K15 kmeans_assign": f"L2 N={N_CLUSTERS * 256} K={N_CLUSTERS}",
              "K15 kmeans_update": f"N={N_CLUSTERS * 256} K={N_CLUSTERS}",
              "K16 ivf_scan_blocks": f"IVF-L2 B=16 nprobe={NPROBE}",
-             "K11 bf16_gather_scores": f"IP B=16 S={SHORTLIST}",
+             "K11 bf16_gather_scores": f"IP B=16 S={SHORTLIST} C={QUANT_C} fused",
              "K12 int8_code_scores": "sq8 IP B=16", "K13 pq_adc_scores": "M=16 IP B=16",
              "K14 fwht_rotate": "B=64", "K17 beam_search": "DISKANN-IP bf16 ip B=16 beam=125",
              "K19 topl_scan": f"L2 chunk=4096 N={N} L=64",
@@ -3011,8 +3087,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shown[name],
             **COMPOSITE.get(name, {}),
-            **({"launches_by_mode": {m.split()[1]: sum(by_path[p][m] for p in paths)
-                                     for m in K5_MODES}} if name == "K5 topk_select" else {}),
+            **({"launches_by_mode": {m: sum(by_path[p][mode_key(kern, m)] for p in paths)
+                                     for m in MODES[kern]}} if name in MODES else {}),
             **({"walk_bound_ms": row["walk_bound_ms"]} if "walk_bound_ms" in row else {}),
             **({"single_device_ms": row["single_ms"]} if "single_ms" in row else {})})
     print(json.dumps({"kernels": kernels}))

@@ -348,6 +348,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// Appends the warp's items (`take` on a lane) to a shared list through one
+// atomicAdd a warp, in lane order; returns this lane's position (garbage
+// where `take` is false). Every lane of the warp calls it.
+__device__ __forceinline__ int warp_append(int* count, bool take) {
+  const unsigned mask = __ballot_sync(0xffffffffu, take);
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (mask && lane == 0) base = atomicAdd(count, __popc(mask));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  return base + __popc(mask & ((1u << lane) - 1));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -47,7 +47,7 @@ _SIGNATURES = {
                               _P, _P),
     "lt_bf16_centered_topc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                               _P, _P),
-    "lt_rescore_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "lt_rescore_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "lt_rescore_keys": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "lt_pq_adc_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "lt_bf16_gather_scores": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                               _P),
+    "lt_bf16_gather_topc": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _P),
     "lt_beam_search": (_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I,
                        _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P),
     "lt_topl_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,

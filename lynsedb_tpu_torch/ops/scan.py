@@ -55,7 +55,9 @@ kernels' gather mode for the rest (K10).
 
 The quantized FLAT indexes (index/quantized.py) end in the same K3 rescore:
 their code scan's top S goes through :func:`shortlist_device_rescore_ids`
-(K5, then K11 ``bf16_gather_scores`` on the centred bf16 copy, then K5).
+(K5, then K11's fused stage ``bf16_gather_topc``: the bf16 rescore of those
+rows from the centred copy and its top C in one cluster launch; past
+``GATHER_TOPC_MAX`` K11's per-query mode, then K5).
 
 On a mesh (parallel/mesh.py: a ``(data, corpus)`` grid of devices, a device
 may repeat, so several virtual shards can share one card) the corpus shards
@@ -114,8 +116,34 @@ STAGE_ROWS = 1 << 17
 # materialises.
 PLAIN_ELEMENTS = 1 << 25
 
-# Largest shortlist K3 sorts in shared memory; a larger one goes through K5.
+# Largest shortlist K3 selects in shared memory; a larger one goes through K5.
 RESCORE_SORT_MAX = 1024
+# K3 gives a query a 1,024-thread block (32 warps of 4 rows) in place of 256
+# threads (8 warps of 8) for shortlists of at least RESCORE_WIDE_MIN_C slots
+# (three or more rounds of the smaller block) at up to RESCORE_WIDE_MAX_B
+# queries: measured on the H100 (PERF.md, K3), it is ahead at C = 256 to B =
+# 16 and behind at C = 64 and at B = 256.
+RESCORE_WIDE_MIN_C = 129
+RESCORE_WIDE_MAX_B = 16
+
+# K11's fused second stage of a quantized search (bf16_gather_topc): the
+# largest C it keeps (C = max(64, 4 k), so k <= 64; above it K11's per-query
+# mode writes the (B, S) keys and K5 selects).
+GATHER_TOPC_MAX = 256
+# Its plan: the fewest slots a block of a query's cluster takes, and each
+# warp's cp.async ring in bytes (rows of D not a multiple of 8, unaligned
+# ones and those whose ring of one row a stage would not fit the block's
+# shared memory load straight from memory).
+TOPC_MIN_SLOTS = 256
+TOPC_RING_BYTES = 4096
+# Its block's layout (csrc/bf16_gather_scores.cu kTopcWarps, kTopcStages,
+# kTopcChunk) and the dynamic shared memory a block may take: the card's
+# 227 KiB less 1 KiB kept for the kernel's static arrays, as
+# lt_bf16_gather_topc checks it.
+TOPC_WARPS = 16
+TOPC_STAGES = 4
+TOPC_CHUNK = 1024
+TOPC_SMEM_BYTES = 227 * 1024 - 1024
 
 # The device budget of one corpus in bytes. 0 (the default) is the card's
 # free memory plus what the corpus holds already (no limit for a CPU corpus).
@@ -426,10 +454,14 @@ def elementwise_scores(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric
         _cuda.ptr(ids), b, n, d, c, _ELEM_CODE[metric], keys.data_ptr(), _cuda.stream_of(q),
     )
     elementwise_scores.launches += 1
+    elementwise_scores.by_mode["f32_tile" if ids is None and not bf16 else
+                               "gather" if ids is not None else "bf16"] += 1
     return keys
 
 
 elementwise_scores.launches = 0
+# K6c's launches by mode: the f32 tile, the bf16 tile (K9) and gather (K10)
+elementwise_scores.by_mode = {"f32_tile": 0, "bf16": 0, "gather": 0}
 
 
 def metric_keys(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metric,
@@ -559,15 +591,23 @@ def rescore_topk_plain(q, x32, cand_keys, cand_idx, k: int, metric: Metric):
     return dists.contiguous(), torch.where(kept, safe.gather(1, order), -1).contiguous()
 
 
+def _rescore_wide(b: int, c: int) -> bool:
+    """Whether K3 takes its 1,024-thread block a query (RESCORE_WIDE_MIN_C
+    <= C <= RESCORE_SORT_MAX at B <= RESCORE_WIDE_MAX_B)."""
+    return RESCORE_WIDE_MIN_C <= c <= RESCORE_SORT_MAX and b <= RESCORE_WIDE_MAX_B
+
+
 def rescore_topk(q: torch.Tensor, x32: torch.Tensor, cand_keys: torch.Tensor,
-                 cand_idx: torch.Tensor, k: int, metric: Metric):
+                 cand_idx: torch.Tensor, k: int, metric: Metric, wide: Optional[bool] = None):
     """Exact f32 rescore of a (B, C) shortlist (``cand_idx`` int32 row ids,
     ``cand_keys`` the first-pass keys, -inf for an empty slot) against the f32
     corpus ``x32``: best k by (score desc, id asc), non-finite scores dropped.
     Returns (dists (B, k) f32, ids (B, k) int64) with +inf/-inf and -1 in
     the slots nothing filled. Up to ``RESCORE_SORT_MAX`` slots one kernel
-    scores and sorts; above it the kernel writes the (B, C) exact keys and
-    K5 selects the top k with the row ids as its tie-break."""
+    scores and selects (a 1,024-thread block a query where ``wide``, else
+    256 threads; :func:`_rescore_wide`'s choice when None); above it the
+    kernel writes the (B, C) exact keys and K5 selects the top k with the
+    row ids as its tie-break."""
     if q.device.type == "cpu":
         return rescore_topk_plain(q, x32, cand_keys, cand_idx, k, metric)
     code = _kernel_metric("rescore_topk", metric)
@@ -582,12 +622,14 @@ def rescore_topk(q: torch.Tensor, x32: torch.Tensor, cand_keys: torch.Tensor,
         raise ValueError(f"rescore_topk: need 1 <= k <= C, got k={k}, C={c}")
     stream = _cuda.stream_of(q)
     if c <= RESCORE_SORT_MAX:
+        if wide is None:
+            wide = _rescore_wide(b, c)
         dists = torch.empty((b, k), dtype=torch.float32, device=q.device)
         ids = torch.empty((b, k), dtype=torch.int64, device=q.device)
         _cuda.call(
             "lt_rescore_topk", q.data_ptr(), x32.data_ptr(), cand_keys.data_ptr(),
-            cand_idx.data_ptr(), b, c, d, k, code, int(metric.ascending), dists.data_ptr(),
-            ids.data_ptr(), stream,
+            cand_idx.data_ptr(), b, c, d, k, code, int(metric.ascending), int(wide),
+            dists.data_ptr(), ids.data_ptr(), stream,
         )
         rescore_topk.launches += 1
         return dists, ids
@@ -680,22 +722,117 @@ def bf16_gather_scores(q: torch.Tensor, x16: torch.Tensor, aux: dict, idx: torch
         _cuda.stream_of(q),
     )
     bf16_gather_scores.launches += 1
+    bf16_gather_scores.by_mode["shared" if stride == 0 else "per_query"] += 1
     return keys
 
 
 bf16_gather_scores.launches = 0
+# K11's launches by mode: the fused second stage (bf16_gather_topc), one
+# list a query, one list shared by every query
+bf16_gather_scores.by_mode = {"fused": 0, "per_query": 0, "shared": 0}
+
+
+def bf16_gather_topc_plain(q, x16, aux: dict, cand, top, metric: Metric, c: int):
+    """Plain version of :func:`bf16_gather_topc`: K11's plain keys of the
+    slots, their top C, the slots mapped to row ids."""
+    keys = bf16_gather_scores_plain(q, x16, aux, cand, top, metric)
+    top2, j = topk_select_plain(keys, min(c, keys.shape[1]))
+    return top2, torch.where(top2 > float("-inf"), cand.gather(1, j.long()), -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _gather_topc_smem(d: int, c: int, rw: int) -> int:
+    """The fused stage's dynamic shared memory in bytes at width ``d``, C
+    ``c`` and ``rw`` rows a ring stage: the cluster's 8 lists of kp entries,
+    the block's next list, a chunk's entries and live slots, the query, and
+    each warp's ring of rows and their two aux words."""
+    kp = 8
+    while kp < c:
+        kp *= 2
+    return ((9 * kp + TOPC_CHUNK) * 8 + ((d + 3) & ~3) * 4 + TOPC_CHUNK * 8
+            + TOPC_WARPS * TOPC_STAGES * rw * (2 * d + 8))
+
+
+def _gather_topc_plan(b: int, s: int, d: int, c: int, aligned: bool = True, sms: int = 132):
+    """The fused stage's launch: (cs, rw). cs blocks a query (a cluster of
+    1, 2, 4 or 8 over disjoint slot ranges): the most that keep B x cs
+    within 1.75 blocks an SM (two of its 512-thread blocks fit an SM; the
+    margin keeps the clusters of a batch in one wave) and at least
+    TOPC_MIN_SLOTS slots a block. rw rows a stage of each warp's four-stage
+    cp.async ring (TOPC_RING_BYTES a warp, 1 to 16 rows), for D a multiple
+    of 8 over a 16-byte aligned corpus, the most whose shared memory fits
+    TOPC_SMEM_BYTES at this D and C; else 0, the rows loaded straight from
+    memory."""
+    cs = 8
+    while cs > 1 and (b * cs > 7 * sms // 4 or s // cs < TOPC_MIN_SLOTS):
+        cs //= 2
+    rw = 0
+    if d % 8 == 0 and aligned:
+        rw = max(1, min(16, TOPC_RING_BYTES // (4 * 2 * d)))
+        while rw > 0 and _gather_topc_smem(d, c, rw) > TOPC_SMEM_BYTES:
+            rw -= 1
+    return cs, rw
+
+
+def bf16_gather_topc(q: torch.Tensor, x16: torch.Tensor, aux: dict, cand: torch.Tensor,
+                     top: torch.Tensor, metric: Metric, c: int):
+    """K11's fused second stage: the bf16 keys of the rows ``cand`` (B, S)
+    int32 of the mean-centred corpus ``x16`` for f32 queries ``q`` (B, D),
+    as :func:`bf16_gather_scores` forms them (a slot is empty where its id
+    is negative or its K5 key in ``top`` (B, S) is -inf), and their top
+    min(C, S) in one launch: (keys (B, C) f32 in K5's order, key descending
+    and the lower slot first between equal keys, row ids (B, C) int32; -inf
+    and -1 past the live slots). A query's slots are split over a cluster of
+    blocks, each keeping its best C in shared memory; the first block merges
+    them through distributed shared memory. The (B, S) keys never reach
+    device memory. C <= GATHER_TOPC_MAX. A refused launch raises."""
+    b, d = q.shape
+    s = cand.shape[1]
+    c = min(c, s)
+    if q.device.type == "cpu":
+        return bf16_gather_topc_plain(q, x16, aux, cand, top, metric, c)
+    code = _kernel_metric("bf16_gather_topc", metric)
+    if not 1 <= c <= GATHER_TOPC_MAX:
+        raise ValueError(f"bf16_gather_topc: C={c} outside [1, {GATHER_TOPC_MAX}]")
+    if cand.dtype != torch.int32 or cand.shape != (b, s) or top.shape != (b, s) \
+            or top.dtype != torch.float32:
+        raise ValueError("bf16_gather_topc: cand (B, S) int32 and top (B, S) float32 expected")
+    if x16.dtype != torch.bfloat16 or x16.shape[1] != d or q.dtype != torch.float32:
+        raise ValueError("bf16_gather_topc: q (B, D) float32 and x16 (N, D) bfloat16 expected")
+    _cuda.require_cuda("bf16_gather_topc", q, aux["mean"], x16, aux["xm"], aux["xc_sq"],
+                       aux["xsq_true"], top, cand)
+    cs, rw = _gather_topc_plan(b, s, d, c, x16.data_ptr() % 16 == 0, _sm_count(q.device))
+    keys = torch.empty((b, c), dtype=torch.float32, device=q.device)
+    ids = torch.empty((b, c), dtype=torch.int32, device=q.device)
+    _cuda.call(
+        "lt_bf16_gather_topc", q.data_ptr(), aux["mean"].data_ptr(), x16.data_ptr(),
+        aux["xm"].data_ptr(), aux["xc_sq"].data_ptr(), aux["xsq_true"].data_ptr(),
+        top.data_ptr(), cand.data_ptr(), b, s, d, c, cs, rw, code, int(metric.ascending),
+        keys.data_ptr(), ids.data_ptr(), _cuda.stream_of(q),
+    )
+    bf16_gather_scores.launches += 1
+    bf16_gather_scores.by_mode["fused"] += 1
+    return keys, ids
 
 
 def shortlist_device_rescore_ids(q: torch.Tensor, approx_keys: torch.Tensor, x16: torch.Tensor,
                                  aux: dict, metric: Metric, s: int, c: int):
     """The quantized indexes' second stage: the top S of the approximate
-    code-scan keys (B, N) (K5), a bf16 rescore of those S rows gathered from
-    the centred corpus (K11), then the top C (K5). Returns (keys (B, C) f32,
-    row ids (B, C) int32): the ids and keys K3 rescores exactly, -inf and -1
-    in slots nothing filled."""
+    code-scan keys (B, N) (K5), then a bf16 rescore of those S rows gathered
+    from the centred corpus and its top C: K11's fused stage in one launch
+    (:func:`bf16_gather_topc`) up to GATHER_TOPC_MAX, else K11's per-query
+    mode and K5. Returns (keys (B, C) f32, row ids (B, C) int32): the ids
+    and keys K3 rescores exactly, -inf and -1 in slots nothing filled."""
     top, cand = topk_select(approx_keys, min(s, approx_keys.shape[1]))
+    c = min(c, top.shape[1])
+    if c <= GATHER_TOPC_MAX:
+        return bf16_gather_topc(q, x16, aux, cand, top, metric, c)
     keys = bf16_gather_scores(q, x16, aux, cand, top, metric)
-    top2, j = topk_select(keys, min(c, keys.shape[1]))
+    top2, j = topk_select(keys, c)
     gid = cand.gather(1, j.long())
     return top2, torch.where(top2 > float("-inf"), gid, -1)
 

@@ -191,3 +191,23 @@ def binary_probe_bound(blocks: int, real: int, n_live: int, w: int, keys: int, s
     word of every ``scored`` (query, row) pair at the popcount rate."""
     return bound_t(blocks * 2048 * 4 + real + n_live * (w * 4 + 4) + keys * 4,
                    scored * w / SFU_OPS)
+
+
+def gather_topc_bound(b: int, d: int, s: int, c: int, n_live: int, aux_words: int = 1):
+    """K11's fused second stage (a quantized search after K5's top S): each
+    live slot's bf16 row and its ``aux_words`` per-row terms read once (IP
+    and L2 one, cosine two), the (B, S) slot keys and row ids read, the f32
+    queries and the mean read, the (B, C) keys and row ids written; 2 n_live
+    d flops at the bf16 peak (the products of bf16 operands). The (B, S)
+    keys of the two-launch route are not counted: the fused kernel keeps
+    them on chip."""
+    return bound(n_live * (2 * d + 4 * aux_words) + b * s * 8 + (b + 1) * d * 4 + b * c * 8,
+                 2 * n_live * d, BF16_FLOPS)
+
+
+def rescore_bound(b: int, c: int, d: int, n_live: int, k: int):
+    """K3, the exact rescore of a (B, C) shortlist: each live slot's f32 row
+    read once, the queries and the (B, C) first-pass keys and row ids read,
+    the (B, k) f32 distances and int64 ids written; two FMAs (four flops) a
+    live element at the f32 peak."""
+    return bound(n_live * d * 4 + b * d * 4 + b * c * 8 + b * k * 12, 4 * n_live * d)

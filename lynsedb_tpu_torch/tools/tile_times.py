@@ -115,8 +115,9 @@ import numpy as np
 # roofline.py sits beside this script (sys.path[0]), so this tree's formulas
 # hold whichever --package-root is timed
 from roofline import (assign_bound, binary_probe_bound, binary_tile_bound, code_scan_bound,
-                      elem_tile_bound, f32_tile_bound, kmeans_update_bound, prune_bound,
-                      select_bound, shared_list_bound, topl_bound, walk_bound, walk_bytes_bound)
+                      elem_tile_bound, f32_tile_bound, gather_topc_bound, kmeans_update_bound,
+                      prune_bound, rescore_bound, select_bound, shared_list_bound, topl_bound,
+                      walk_bound, walk_bytes_bound)
 
 N, DIM, SHARED_EVERY = 1_000_000, 128, 10
 BITS_DIM, BITS_DENSITY = 1024, 0.1
@@ -126,7 +127,7 @@ TOPL_CHUNK, TOPL_L, TOPL_METRIC_CHUNK, TOPL_METRIC_N = 4096, 64, 1024, 1_010_000
 HAVERSINE_OPS = (12, 6)
 PRUNE_NODES, PRUNE_EXTRA, PRUNE_R, KEYS_NODES = 4096, 8, 32, 1024
 KERNELS = ("K1", "K6a", "K6c", "K11", "K6b", "K12", "K15a", "K15b", "K17", "K19", "K20", "K5",
-           "K16b")
+           "K16b", "K11q", "K3")
 # the kernels' names, this tree's and earlier ones' (torch.profiler keys)
 K1_NAMES, K11_NAMES = ("f32_tile_kernel", "tile_scores_kernel"), ("shared_list_kernel",
                                                                   "bf16_gather_kernel")
@@ -153,6 +154,11 @@ PQ_TRAIN = 131_072  # ops/quantize.py PQ.TRAIN_SAMPLE
 # graph); per-query starts, each query's 8 nearest of a 4,096-node sample
 WALK_R, WALK_L, WALK_SAMPLE, WALK_STARTS = 32, 64, 4096, 8
 WALK_CACHE = Path(__file__).resolve().parents[2] / "build" / "tile_times_walk_graph.npy"
+# K11q: a quantized search's second stage at 1M codes and k = 10 (S = 4,000,
+# C = 64), at the query slices; K3 at the two-pass plan's shortlists
+SHORTLIST_S, SHORTLIST_C, SHORTLIST_B = 4000, 64, (1, 16, 64)
+RESCORE_CASES = [(c, b, k, m) for c, k in ((64, 10), (256, 10), (1280, 1000))
+                 for b, m in ((1, "ip"), (16, "ip"), (256, "ip"), (16, "l2"), (16, "cosine"))]
 
 
 def main() -> int:
@@ -198,7 +204,12 @@ def main() -> int:
             torch.cuda.synchronize()
         parts = {}
         for ev in prof.key_averages():
-            hit = next((n for n in names if n in ev.key), None)
+            # names None: every kernel of the call by its name (a split of the call;
+            # the operators' and the runtime's own events left out)
+            if names is None:
+                hit = None if ev.key.startswith(("aten::", "cuda", "Activity")) else ev.key[:72]
+            else:
+                hit = next((n for n in names if n in ev.key), None)
             if hit and getattr(ev, "self_device_time_total", 0.0):
                 parts[hit] = parts.get(hit, 0.0) + ev.self_device_time_total / 1e3 / args.reps
         return parts
@@ -238,6 +249,10 @@ def main() -> int:
         select_rows(row, dev, args.dump, args.compare)
     if "K16b" in args.only:
         probe_rows(row, dev, args.dump, args.compare)
+    if "K11q" in args.only:
+        shortlist_rows(row, dev, args.dump, args.compare)
+    if "K3" in args.only:
+        rescore_rows(row, dev, args.dump, args.compare)
     return 0
 
 
@@ -916,6 +931,175 @@ def probe_rows(row, dev, dump, compare) -> None:
                 if saved is not None:
                     ivf.BINARY_TILE_MIN_B = saved
         del want
+
+def unfused_stage(q, x16, aux, cand, top, metric, c):
+    """The quantized search's second stage as two launches: K11's per-query
+    mode writes the (B, S) keys, K5 takes their top C, a gather maps the
+    slots to row ids (-1 where the key is -inf)."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import scan, topk
+
+    keys = scan.bf16_gather_scores(q, x16, aux, cand, top, metric)
+    top2, j = topk.topk_select(keys, min(c, keys.shape[1]))
+    return top2, torch.where(top2 > float("-inf"), cand.gather(1, j.long()), -1)
+
+
+def plain_stage(q, x16, aux, cand, top, metric, c):
+    """The second stage's plain version: K11's plain keys, the plain top C,
+    the gather."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import scan, topk
+
+    keys = scan.bf16_gather_scores_plain(q, x16, aux, cand, top, metric)
+    top2, j = topk.topk_select_plain(keys, min(c, keys.shape[1]))
+    return top2, torch.where(top2 > float("-inf"), cand.gather(1, j.long()), -1)
+
+
+def gather_tol(q, aux, ids, metric):
+    """chip_smoke.py's check_gather tolerance a (query, row): 1e-5 |q - m|
+    |x - m| + 1e-5, over the norms' product under cosine."""
+    import torch
+
+    from lynsedb_tpu_torch.metrics import Metric
+
+    safe = ids.clamp_min(0).long()
+    tol = 1e-5 * (q - aux["mean"][None, :]).norm(dim=1)[:, None] * torch.sqrt(
+        aux["xc_sq"][safe]) + 1e-5
+    if metric is Metric.COSINE:
+        tol = tol / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][safe]).clamp_min(1e-30)
+    return tol
+
+
+def stage_against(q, x16, aux, metric, keys, ids, other: dict | None) -> dict:
+    """The stage's keys against the plain keys of the same rows (within
+    gather_tol) and, given the other tree's output, the slots that differ
+    from it (ids, or keys to the bit, a zero's sign aside) and whether every
+    row in one list but not the other is a near-tie: its plain key within
+    twice the tolerance of the plain C-th key."""
+    import torch
+
+    from lynsedb_tpu_torch.ops import scan
+
+    live = ids >= 0
+    plain = scan.bf16_gather_scores_plain(q, x16, aux, ids, None, metric)
+    tol = gather_tol(q, aux, ids, metric)
+    err = torch.where(live, (keys - plain).abs(), 0.0)
+    out = {"max_abs_err": float(err.max()), "within_tol": bool((err <= tol).all())}
+    if other is None:
+        return out
+    o_keys = torch.from_numpy(other["keys"]).to(keys.device)
+    o_ids = torch.from_numpy(other["ids"]).to(keys.device)
+    differ = (o_ids != ids) | ((o_keys + 0.0).view(torch.int32) != (keys + 0.0).view(torch.int32))
+    near = True
+    for r in torch.nonzero(differ.any(1)).flatten().tolist():
+        swapped = set(ids[r][live[r]].tolist()) ^ set(o_ids[r][o_ids[r] >= 0].tolist())
+        if not swapped:
+            continue
+        rows = torch.tensor(sorted(swapped), dtype=torch.int32, device=keys.device)[None]
+        k_rows = scan.bf16_gather_scores_plain(q[r : r + 1], x16, aux, rows, None, metric)[0]
+        kth = float(plain[r][live[r]].min())
+        t_max = float(torch.where(live[r], tol[r], 0.0).max())
+        near &= bool(((k_rows - kth).abs() <= 2 * t_max).all())
+    out.update({"slots_differ_from_other_tree": int(differ.sum()),
+                "differing_rows_near_ties": near,
+                "equal_to_other_tree": not bool(differ.any())})
+    return out
+
+
+def shortlist_rows(row, dev, dump, compare) -> None:
+    """A quantized search's second stage after K5's top S = 4,000 of a 1M x
+    128 mixture's first-pass keys (its K5 input): the fused launch where the
+    tree has one, else the two-launch chain, and in a tree with both the
+    chain too (route=unfused); IP, L2 and cosine at B = 1, 16 and 64, C = 64.
+    ``kernel_parts_ms`` splits the call by kernel (every launch of it)."""
+    import torch
+
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import scan, topk
+
+    rng = np.random.default_rng(11)
+    corpus = scan.DeviceCorpus(DIM, device=dev)
+    corpus.append(mixture(rng, N))
+    x16, aux = corpus.data16, corpus.bf16_aux()
+    valid = corpus.valid_mask()
+    fused = hasattr(scan, "bf16_gather_topc")
+    for metric in (Metric.IP, Metric.L2, Metric.COSINE):
+        for b in SHORTLIST_B:
+            q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(dev)
+            first = scan.bf16_centered_scores_plain(q, x16, aux, valid, metric)
+            top, cand = topk.topk_select_plain(first, SHORTLIST_S)
+            del first
+            args = (q, x16, aux, cand, top, metric, SHORTLIST_C)
+            n_live = int((top > float("-inf")).sum())
+            bnd = gather_topc_bound(b, DIM, SHORTLIST_S, SHORTLIST_C, n_live,
+                                    2 if metric is Metric.COSINE else 1)
+            routes = [("auto", (lambda: scan.bf16_gather_topc(*args)) if fused
+                       else (lambda: unfused_stage(*args)))]
+            if fused:
+                routes.append(("unfused", lambda: unfused_stage(*args)))
+            for route, fn in routes:
+                keys, ids = fn()
+                tag = f"K11q_{metric.value}_{b}"
+                other = dict(np.load(f"{compare}_{tag}.npz")) if compare and route == "auto" \
+                    else None
+                extra = stage_against(q, x16, aux, metric, keys, ids, other)
+                if dump and route == "auto":
+                    np.savez(f"{dump}_{tag}.npz", keys=(keys + 0.0).cpu().numpy(),
+                             ids=ids.cpu().numpy())
+                err = extra.pop("max_abs_err")
+                row("K11q second stage", f"{metric.value} S={SHORTLIST_S} C={SHORTLIST_C} B={b} "
+                    f"route={route}", fn, None, bnd, err, None,
+                    plain=(lambda: plain_stage(*args)) if route == "auto" else None,
+                    plain_reps=3, **extra)
+                del keys, ids
+
+
+def rescore_rows(row, dev, dump, compare) -> None:
+    """K3 over 1M x 128 f32 mixture rows: shortlists of C = 64 and 256 (k =
+    10) and 1,280 (k = 1,000: the route through K5) of random rows, keys
+    descending, at B = 1, 16 and 256 under IP and at B = 16 under L2 and
+    cosine, beside the plain version; where the tree chooses K3's block
+    width (``_rescore_wide``), each width under IP apart (256 and 1,024
+    threads, up to RESCORE_SORT_MAX slots). The distances and ids are held
+    to the other tree's bit for bit."""
+    import torch
+
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import scan
+
+    rng = np.random.default_rng(12)
+    x32 = torch.from_numpy(mixture(rng, N)).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    for c, b, k, name in RESCORE_CASES:
+        metric = Metric(name)
+        q = torch.from_numpy(rng.normal(size=(b, DIM)).astype(np.float32)).to(dev)
+        cand = torch.randint(0, N, (b, c), generator=gen, device=dev, dtype=torch.int32)
+        keys = torch.sort(torch.randn((b, c), generator=gen, device=dev), dim=1,
+                          descending=True).values
+        args = (q, x32, keys, cand, k, metric)
+        got_d, got_i = scan.rescore_topk(*args)
+        want_d, want_i = scan.rescore_topk_plain(*args)
+        fin = torch.isfinite(want_d)
+        err = float((got_d[fin] - want_d[fin]).abs().max()) if bool(fin.any()) else 0.0
+        routes = [("auto", {})]
+        if hasattr(scan, "_rescore_wide") and c <= scan.RESCORE_SORT_MAX and name == "ip":
+            routes += [("narrow", {"wide": False}), ("wide", {"wide": True})]
+        for route, kw in routes:
+            d_r, i_r = scan.rescore_topk(*args, **kw)
+            same = bits_equal(d_r.cpu().numpy(), got_d.cpu().numpy()) and torch.equal(i_r, got_i)
+            extra = held(dump, compare, f"K3_{name}_{c}_{b}",
+                         {"d": got_d.cpu().numpy(), "i": got_i.cpu().numpy()}) \
+                if route == "auto" else {"equal_to_auto_route": same}
+            if route == "auto" and hasattr(scan, "_rescore_wide"):
+                extra["wide"] = scan._rescore_wide(b, c)
+            row("K3 rescore_topk", f"{name} C={c} B={b} k={k} route={route}",
+                lambda: scan.rescore_topk(*args, **kw), None, rescore_bound(b, c, DIM, b * c, k),
+                err, None, plain=(lambda: scan.rescore_topk_plain(*args))
+                if route == "auto" else None, plain_reps=3, **extra)
+        del got_d, got_i, want_d, want_i
 
 
 if __name__ == "__main__":

@@ -1966,3 +1966,185 @@ def test_sharded_search_matches_unsharded(dev, metric, data_axis, b, k):
         for c in torch.nonzero(got_i[r] != idx[r].long()).flatten().tolist():
             near = (want_d[r] - want_d[r, c]).abs() <= 1e-5 * want_d[r, c].abs() + 1e-5
             assert int(near.sum()) > 1, (r, c)
+
+
+INT_MAX = 2**31 - 1
+
+
+def _shortlist(rng, b: int, s: int, n: int, dev, dups: bool = False):
+    """A top-S shortlist a query as K5 leaves it: row ids (B, S) int32 and
+    keys descending; a -1 id at slot 3, -inf keys on the last 5 slots and
+    K5's pad id (INT_MAX) on the last 3 of them; with ``dups`` slot 1 lists
+    slot 0's row again; query 0 of a batch of more than 2 all empty."""
+    cand = np.stack([rng.choice(n, s, replace=n < s) for _ in range(b)]).astype(np.int32)
+    keys = -np.sort(-rng.normal(size=(b, s)).astype(np.float32), axis=1)
+    if dups and s > 4:
+        cand[:, 1] = cand[:, 0]
+    if s > 8:
+        cand[:, 3] = -1
+        keys[:, -5:] = -np.inf
+        cand[:, -3:] = INT_MAX
+    if b > 2:
+        keys[0] = -np.inf
+    return torch.from_numpy(cand).to(dev), torch.from_numpy(keys).to(dev)
+
+
+def _gather_tol(q, aux, ids, metric):
+    """K2's bound a (query, row): 1e-5 |q - m| |x - m| + 1e-5 (cosine: over
+    its denominator)."""
+    safe = ids.clamp_min(0).long()
+    tol = 1e-5 * (q - aux["mean"][None, :]).norm(dim=1)[:, None] * torch.sqrt(
+        aux["xc_sq"][safe]) + 1e-5
+    if metric is Metric.COSINE:
+        tol = tol / torch.sqrt((q * q).sum(-1)[:, None] * aux["xsq_true"][safe]).clamp_min(1e-30)
+    return tol
+
+
+def _two_launch_stage(q, x16, aux, cand, top, metric, c):
+    """The second stage as two kernels: K11's per-query mode, then K5."""
+    keys = scan.bf16_gather_scores(q, x16, aux, cand, top, metric)
+    top2, j = topk.topk_select(keys, min(c, keys.shape[1]))
+    return top2, torch.where(top2 > float("-inf"), cand.gather(1, j.long()), -1)
+
+
+def _assert_stage(q, x16, aux, metric, got, want, chain=None):
+    """The fused stage against the plain chain: the same live slots, keys
+    descending, each key within K2's bound of its row's plain key, the plain
+    chain's rows but for near-ties of the C-th key (within twice the bound);
+    under IP against the two-launch kernel chain (``chain``) bit for bit,
+    the sign of a zero aside."""
+    (gk, gi), (wk, wi) = got, want
+    assert gk.shape == wk.shape and gi.shape == wi.shape and gi.dtype == torch.int32
+    live = gi >= 0
+    assert torch.equal(live, wi >= 0) and torch.equal(live, gk > float("-inf"))
+    assert bool((gk[:, :-1] >= gk[:, 1:]).all())
+    plain = scan.bf16_gather_scores_plain(q, x16, aux, gi, None, metric)
+    tol = _gather_tol(q, aux, gi, metric)
+    assert bool(((gk - plain).abs() <= tol)[live].all())
+    for r in torch.nonzero((gi != wi).any(1)).flatten().tolist():
+        swapped = set(gi[r][live[r]].tolist()) ^ set(wi[r][live[r]].tolist())
+        if not swapped:
+            continue
+        rows = torch.tensor(sorted(swapped), dtype=torch.int32, device=gi.device)[None]
+        k_rows = scan.bf16_gather_scores_plain(q[r : r + 1], x16, aux, rows, None, metric)[0]
+        kth = float(wk[r][live[r]][-1])
+        assert bool(((k_rows - kth).abs() <= 2 * tol[r][live[r]].max()).all()), (r, swapped)
+    if chain is not None and metric is Metric.IP:
+        assert torch.equal(gi, chain[1])
+        assert torch.equal((gk + 0.0).view(torch.int32), (chain[0] + 0.0).view(torch.int32))
+
+
+_STAGE_CASES = [  # (b, s, d, c, dups): each cluster size, route and edge of the fused stage
+    (1, 4000, 128, 64, False), (16, 4000, 128, 64, True), (64, 4000, 128, 64, False),
+    (300, 3000, 64, 100, False), (5, 3000, 130, 256, True), (3, 2500, 7, 64, False),
+    (4, 1500, 256, 64, False), (2, 1000, 768, 256, False), (2, 700, 2560, 16, True),
+    (9, 50, 64, 64, False), (70_000, 16, 8, 8, False), (2, 1000, 1536, 256, False),
+    (3, 800, 1536, 64, True), (3, 800, 2048, 64, False),
+]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b,s,d,c,dups", _STAGE_CASES)
+def test_bf16_gather_topc_matches_plain(dev, metric, b, s, d, c, dups):
+    """K11's fused second stage against the plain chain and the two-launch
+    kernel chain: clusters of 8, 4 and 1 blocks (B = 1 and 16, 64, 300 and
+    70,000: past one grid dimension), several 1,024-slot chunks a block (B
+    = 300), the half-warp and whole-warp ring (D <= 128, D = 256 and 768;
+    one row a stage at D = 1,536 and C = 64), the direct route (D = 7 and
+    130, not multiples of 8; D = 1,536 at C = 256 and D = 2,048 and 2,560,
+    where no ring fits the block's shared memory), C not a power of two and
+    at its limit of 256, S below C, a row
+    listed twice, -1 and INT_MAX ids, -inf slots and an all-empty query."""
+    rng = np.random.default_rng(b + s + d)
+    n = 5000 if d > 1000 else 20_000
+    corpus = _gather_corpus(rng, d, dev, n)
+    aux, x16 = corpus.bf16_aux(), corpus._dev16
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    cand, top = _shortlist(rng, b, s, n, dev, dups)
+    args = (q, x16, aux, cand, top, metric, c)
+    got = scan.bf16_gather_topc(*args)
+    want = scan.bf16_gather_topc_plain(*args)
+    # K11's per-query mode takes at most 65,535 queries (a grid dimension)
+    chain = _two_launch_stage(*args) if b <= 65_535 else None
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, min(c, s))
+    if b > 2:
+        assert bool((got[1][0] == -1).all())
+    _assert_stage(q, x16, aux, metric, got, want, chain)
+
+
+def test_bf16_gather_topc_unaligned_and_routing(dev):
+    """The fused stage over a corpus base 2 bytes past 16-byte alignment
+    (the direct route at D = 64), and shortlist_device_rescore_ids' routes:
+    C <= GATHER_TOPC_MAX one fused launch, above it K11's per-query mode and
+    K5 (two launches), the same rows but at near-ties."""
+    rng = np.random.default_rng(31)
+    corpus = _gather_corpus(rng, 64, dev, 20_000)
+    aux, x16 = corpus.bf16_aux(), corpus._dev16
+    q = torch.from_numpy(rng.normal(size=(6, 64)).astype(np.float32)).to(dev)
+    cand, top = _shortlist(rng, 6, 2000, 20_000, dev)
+    for metric in METRICS:
+        args = (q, _unaligned(x16), aux, cand, top, metric, 64)
+        got, want = scan.bf16_gather_topc(*args), scan.bf16_gather_topc_plain(*args)
+        torch.cuda.synchronize()
+        _assert_stage(q, x16, aux, metric, got, want)
+    approx = torch.from_numpy(rng.normal(size=(6, 20_000)).astype(np.float32)).to(dev)
+    for c in (64, scan.GATHER_TOPC_MAX, 300):
+        before = dict(scan.bf16_gather_scores.by_mode)
+        got = scan.shortlist_device_rescore_ids(q, approx, x16, aux, Metric.IP, 2000, c)
+        mode = "fused" if c <= scan.GATHER_TOPC_MAX else "per_query"
+        assert scan.bf16_gather_scores.by_mode[mode] == before[mode] + 1
+        t, cd = topk.topk_select(approx, 2000)
+        _assert_stage(q, x16, aux, Metric.IP, got,
+                      scan.bf16_gather_topc_plain(q, x16, aux, cd, t, Metric.IP, c))
+
+
+_RESCORE_CASES = [  # (b, c, d, k): the rank and sort selections, every D step, B past a grid dim
+    (1, 64, 128, 10), (16, 256, 128, 10), (3, 1, 96, 1), (5, 100, 130, 100), (2, 257, 7, 20),
+    (4, 1024, 1, 1000), (33, 64, 96, 64), (70_000, 16, 8, 4),
+]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("b,c,d,k", _RESCORE_CASES)
+def test_rescore_topk_routes_match_plain(dev, metric, b, c, d, k):
+    """K3 in both block widths (256 and 1,024 threads) and the plan's own
+    choice against each other bit for bit and against the plain version
+    (K3's tolerance, ids equal but
+    at ties within it), with duplicated rows and a row listed twice (ties
+    broken by id, both copies kept), rows with a NaN or an infinity (scores
+    dropped), empty slots and k above the live slots; under IP against the
+    model of the kernel's float32 sum order (tests/test_torch_rescore_plan.py)
+    bit for bit."""
+    from test_torch_rescore_plan import rescore_model
+
+    rng = np.random.default_rng(b + c + d + k)
+    n = 3000
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[10:14] = x[20]
+    x[30, 0], x[31, -1] = np.nan, np.inf
+    x32 = torch.from_numpy(x).to(dev)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    cand = rng.integers(0, n, size=(b, c)).astype(np.int32)
+    cand[:, : min(c, 6)] = np.array([10, 11, 12, 20, 30, 31])[: min(c, 6)]
+    if c > 8:
+        cand[:, 7] = cand[:, 6]
+    keys = rng.normal(size=(b, c)).astype(np.float32)
+    keys[:, c - c // 3 :] = -np.inf
+    args = (q, x32, torch.from_numpy(keys).to(dev), torch.from_numpy(cand).to(dev), k, metric)
+    outs = [scan.rescore_topk(*args)] + [scan.rescore_topk(*args, wide=w) for w in (False, True)]
+    want_d, want_i = scan.rescore_topk_plain(*args)
+    torch.cuda.synchronize()
+    nd, ni = outs[0]
+    for wd_, wi_ in outs[1:]:
+        assert torch.equal(nd.view(torch.int32), wd_.view(torch.int32)) and torch.equal(ni, wi_)
+    fin = torch.isfinite(want_d)
+    assert torch.equal(fin, torch.isfinite(nd))
+    torch.testing.assert_close(nd[fin], want_d[fin], rtol=1e-5, atol=1e-4)
+    wd = torch.where(fin, want_d, 0.0).cpu().numpy()
+    _assert_ids_match(ni.cpu().numpy(), want_i.cpu().numpy(), wd,
+                      1e-5 * np.abs(wd).max(axis=1) + 1e-4)
+    if metric is Metric.IP and b <= 64:
+        md, mi = rescore_model(q.cpu().numpy(), x, keys, cand, k, metric)
+        assert np.array_equal(nd.cpu().numpy().view(np.uint32), md.view(np.uint32))
+        assert np.array_equal(ni.cpu().numpy(), mi)
