@@ -81,11 +81,11 @@ Phases (each prints its seconds):
      bytes bound and its latency bound, the longest walk's steps x two
      dependent loads of a pointer chase), K19 (one 4,096-query chunk, L=64)
      and K20 (one 4,096-node chunk, L=72) against their plain versions; then
-     10,000 rows added and committed (the layer-0 insert: the f32 beam at
+     2,500 rows added and committed (the layer-0 insert: the f32 beam at
      B=1,024 and K20's pair keys) and searched again. build_index
      ("DISKANN-IP") (r=32, l=96, layered: PQ and SQ8 fitted) on the grown
      collection, the same queries, the SQ8 and PQ tiers (100 queries each),
-     K17 in all four tiers at beam 125; then 1% of the rows tombstoned and
+     K17 in all four tiers at beam 125; then 0.25% of the rows tombstoned and
      committed (the delete repair) and searched again. HNSW-IP and
      DISKANN-L2 on a 100,000-row prefix collection.
   9. metrics path: the same collection rebuilt as FLAT-L1, -CHEBYSHEV,
@@ -97,22 +97,24 @@ Phases (each prints its seconds):
      1,000,000 (lon, lat) points uniform on the sphere (100 with |lat| > 90)
      as FLAT-HAVERSINE; phase 4's 2,000-row collection as FLAT-L2 (K1). Each mode: 100 single queries and a batch at B=16 and
      B=256, unfiltered and with where="bucket = 3"; the L1 family also
-     approx=True at B=16 (K6c bf16 -> K5 -> K6c gather -> K5); FLAT-L1 also
+     approx=True at B=16 (K9 -> K5's merge -> K6c gather -> K5); FLAT-L1 also
      search_range(max_results=1000). Every id and distance against a float64
      brute force on the card (recall@10 >= 0.999 exact, >= 0.90 approx, ties
      within the distance tolerance counted; no filtered-out row, no row at
      +inf). K6a / K6b / K6c against their plain versions on the staged
-     transforms at B in {1, 16, 256}, with the bf16 and gather modes.
+     transforms at B in {1, 16, 256}, with the gather mode; K9 (K6c's pass
+     over the bf16 copy fused with its top C) under L1, Chebyshev, Canberra
+     and Bray-Curtis at B in {1, 16, 256} and C in {80, 256}.
  10. index-metrics path: IVF-HAMMING and IVF-JACCARD on phase 9's
-     fingerprints (n_clusters=1000, nprobe=32), HNSW-L1 on the 1.01M
-     mixture rows, HNSW-HAVERSINE on the geo points, HNSW-CHEBYSHEV and
+     fingerprints (n_clusters=1000, nprobe=32), HNSW-L1 and HNSW-HAVERSINE
+     on the first 250,000 mixture rows and geo points, HNSW-CHEBYSHEV and
      -CORRELATION on phase 8's 100,000-row prefix, HNSW-HELLINGER,
      -WASSERSTEIN and -JENSEN-SHANNON on the histograms' first 100,000 rows
      (nprobe=100). Each mode: 100 single queries and a batch at B=16 and
      B=256, unfiltered and with where="bucket < 5", against the float64
      brute force (HNSW >= 0.90 unfiltered, IVF-HAMMING >= 0.85; IVF-JACCARD
      >= 0.999 against the exact answer over the clusters its probe picks,
-     its full recall reported); 10,000 rows then added to HNSW-L1 and
+     its full recall reported); 2,500 rows then added to HNSW-L1 and
      IVF-HAMMING, committed and searched again. K16b ivf_binary_blocks and
      the domain-metric forms of K17, K19 and K20 (K6g) against their plain
      versions at the path's shapes, with times, bounds and library calls.
@@ -120,7 +122,7 @@ Phases (each prints its seconds):
      mixture in a fresh FLAT-IP collection (1,000 rows deleted), its budget
      (ops/scan.DEVICE_BYTES) set from the port's byte counts so the corpus
      takes the host-rescore tier, then the streaming tier (at least four
-     blocks a pass): FLAT-IP with 100 single queries and B=16 and 256 under
+     blocks a pass): FLAT-IP with 30 single queries and B=16 and 256 under
      no filter, "bucket = 3" (the compact host scan when streaming) and
      "bucket < 5" (per-block masks), search_stream of 1,000 queries and
      search_range(max_results=1000); FLAT-L2 and FLAT-L1 with 20 singles
@@ -129,17 +131,19 @@ Phases (each prints its seconds):
      0.999, distances within the family's tolerance, no filtered-out or
      deleted row) and against the resident tier's ids (ties aside). K8 (a
      pass of every block) against its plain version on the card under IP
-     (bf16 blocks through K2), L1 (bf16 blocks through K6c) and Tanimoto
+     (bf16 blocks through K2), L1 (bf16 blocks through K9) and Tanimoto
      (f32 blocks through K6b); search_stream of 1,000 resident queries, a
      submit a window. HNSW-L2 and DISKANN-IP on a 100,000-row
      collection forced to stream: HNSW's exact fallback (>= 0.999) and a
-     deferred 10,000-row commit; DiskANN's lazy code fit, its SQ8 or PQ
-     walk (>= 0.90) and a 10,000-row commit linked in place (every new row
-     with in-edges, no backlog). A 20M x 128 DeviceCorpus forced to stream
-     at a 2 GiB budget: each pass's blocks, host fill rate, H2D and scan ms
+     deferred 2,500-row commit; DiskANN's lazy code fit, its SQ8 or PQ
+     walk (>= 0.90) and a 2,500-row commit linked in place (every new row
+     with in-edges, no backlog); 30 single queries each. An 8M x 128
+     DeviceCorpus forced to stream at a 2 GiB budget (at least four blocks
+     a pass): each pass's blocks, host fill rate, H2D and scan ms
      a block (CUDA events), the compute stream's busy share, the link
      bound, B=16 and 256 latency.
- 11. checks: recall@10 and distances against a chunked numpy brute force
+ 11. checks: recall@10 and distances against a chunked float64 brute force
+     on the card (torch's matmul and topk)
      (FLAT >= 0.999, IVF >= 0.85, SQ8 >= 0.95, PQ / RaBitQ / PolarVec >= 0.70,
      HNSW / DiskANN >= 0.90 unfiltered in every tier, the half filter
      reported; no repeated id, no filtered-out or deleted id), large k
@@ -187,8 +191,9 @@ from lynsedb_tpu_torch.tools.flat_latency import GcClock, device_ms_per_call
 from lynsedb_tpu_torch.tools.roofline import (BF16_FLOPS, ELEM_DIM_OPS, F32_OPS, HBM_BPS,
                                               assign_bound, binary_probe_bound,
                                               binary_tile_bound, bound, bound_t, code_scan_bound,
-                                              elem_tile_bound, f32_tile_bound,
-                                              gather_topc_bound, kmeans_update_bound,
+                                              elem_tile_bound, elem_topc_bound, f32_tile_bound,
+                                              gather_topc_bound, ivf_probe_bound,
+                                              kmeans_update_bound,
                                               prune_bound, rescore_bound, select_bound,
                                               shared_list_bound, topl_bound, walk_bound,
                                               walk_bytes_bound)
@@ -212,7 +217,9 @@ QUANT_C = 64  # the quantized search's C at k = 10: max(64, 4 k)
 GC = GcClock()  # garbage-collection seconds, read around each timed batch call
 # the upstream gate's graph modes and setting (benchmarks/gate_index_modes.py:49-52)
 GRAPH_NPROBE, GRAPH_RECALL_FLOOR = 100, 0.90
-GRAPH_INSERT, GRAPH_DELETE, PREFIX = 10_000, 0.01, 100_000
+# the rows a graph commit links and the share one deletes, sized to keep the
+# script well inside its time limit
+GRAPH_INSERT, GRAPH_DELETE, PREFIX = 2_500, 0.0025, 100_000
 
 KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
     "K1 flat_scores_f32": (scan.flat_scores_f32, "lynsedb_tpu_torch/csrc/flat_scores_f32.cu",
@@ -255,6 +262,10 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
                                "lynsedb_tpu/ops/distance.py:199"),
     "K16b ivf_binary_blocks": (ivf.ivf_binary_blocks, "lynsedb_tpu_torch/csrc/ivf_scan_blocks.cu",
                                "lynsedb_tpu/index/ivf.py:43"),
+    # K6c's pass over the centred bf16 copy fused with its top C (its
+    # launches also count in K6c's row, mode bf16_topc)
+    "K9 elementwise_topc": (scan.elementwise_topc, "lynsedb_tpu_torch/csrc/elementwise_scores.cu",
+                            "lynsedb_tpu/ops/scan.py:681"),
     # K8 chains the kernels above (K2 or K6, then K5) in ops/scan.py
     "K8 stream_block": (scan.stream_block, "lynsedb_tpu_torch/ops/scan.py",
                         "lynsedb_tpu/ops/scan.py:610"),
@@ -270,7 +281,8 @@ KERNELS = {  # name -> (wrapper, source, the JAX function it replaces)
 # what their launches count (a reader adding launches by kernel skips them)
 COMPOSITE = {"K21 sharded_search": {
     "composite_of": ["K1 flat_scores_f32", "K5 topk_select"],
-    "launches_are": "K5 merges across shards, also counted in K5's row"}}
+    "launches_are": "K5 merges across shards, also counted in K5's row"},
+    "K9 elementwise_topc": {"launches_are": "K6c's bf16_topc mode, also counted in K6c's row"}}
 # the kernels each path must launch
 PATHS = {
     "flat": ("K1 flat_scores_f32", "K2 bf16_centered_topc", "K3 rescore_topk",
@@ -284,11 +296,12 @@ PATHS = {
     "graph": ("K1 flat_scores_f32", "K5 topk_select", "K17 beam_search", "K19 topl_scan",
               "K20 robust_prune"),
     "metrics": ("K1 flat_scores_f32", "K5 topk_select", "K6a gemm_metric_scores", "K6b binary_scores",
-                "K6c elementwise_scores"),
+                "K6c elementwise_scores", "K9 elementwise_topc"),
     "index_metrics": ("K5 topk_select", "K6b binary_scores", "K16b ivf_binary_blocks",
                       "K17 beam_search", "K19 topl_scan", "K20 robust_prune"),
     "streaming": ("K1 flat_scores_f32", "K2 bf16_centered_topc", "K5 topk_select",
                   "K6b binary_scores", "K6c elementwise_scores", "K8 stream_block",
+                  "K9 elementwise_topc",
                   "K11 bf16_gather_scores", "K17 beam_search",
                   "K20 robust_prune"),
     "mesh": ("K1 flat_scores_f32", "K2 bf16_centered_topc", "K3 rescore_topk", "K5 topk_select",
@@ -335,11 +348,13 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 # launches by mode of the kernels whose wrappers split them (read beside the
 # kernels' counts as "<row's short name> <mode>"): K5 select / large_k /
-# merge, K11 fused / per_query / shared, K6c f32_tile / bf16 (K9) / gather
-# (K10)
+# merge, K11 fused / per_query / shared, K6c f32_tile / bf16_topc (K9, the
+# fused bf16 pass; also K9's row) / gather (K10), K16 rows / tile / warp /
+# shared (the card's pick of tile or warp)
 MODES = {"K5 topk_select": topk.topk_select.by_mode,
          "K11 bf16_gather_scores": scan.bf16_gather_scores.by_mode,
-         "K6c elementwise_scores": scan.elementwise_scores.by_mode}
+         "K6c elementwise_scores": scan.elementwise_scores.by_mode,
+         "K16 ivf_scan_blocks": ivf.ivf_scan_blocks.by_mode}
 
 
 def mode_key(name: str, mode: str) -> str:
@@ -938,24 +953,27 @@ def quant_kernel_phase(corpus: DeviceCorpus, rng, stats: Stats) -> None:
               flush=True)
 
 
-def exact_topk(x: np.ndarray, rows: np.ndarray, q: np.ndarray, k: int, metric=Metric.IP,
-               xsq: np.ndarray | None = None):
-    """Chunked numpy brute force: the top-k of ``rows`` (global ids) by IP,
-    or by L2 (ranked on 2 q.x - |x|^2). Returns (keys, ids)."""
-    best_d = np.full((len(q), 0), -np.inf, np.float32)
-    best_i = np.zeros((len(q), 0), np.int64)
+def exact_topk(x: np.ndarray, rows: np.ndarray, q: np.ndarray, k: int, metric=Metric.IP):
+    """Chunked float64 brute force on the card (torch's matmul and topk,
+    none of the port's kernels): the top-k of ``rows`` (global ids) by IP,
+    or by L2 (ranked on 2 q.x - |x|^2), the earlier chunk first between
+    equal keys. Returns (keys, ids) as numpy arrays."""
+    qd = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32)).to(DEV, torch.float64)
+    best_d = torch.empty((len(q), 0), dtype=torch.float64, device=DEV)
+    best_i = torch.empty((len(q), 0), dtype=torch.int64, device=DEV)
     for lo in range(0, len(rows), 131072):
-        ids = rows[lo : lo + 131072]
-        s = q @ x[ids].T
+        ids = np.asarray(rows[lo : lo + 131072], dtype=np.int64)
+        xc = torch.from_numpy(np.ascontiguousarray(x[ids], dtype=np.float32)).to(DEV)
+        xc = xc.double()
+        s = qd @ xc.T
         if metric is Metric.L2:
-            s = 2.0 * s - xsq[ids][None, :]
-        part = np.argpartition(-s, min(k, s.shape[1] - 1), axis=1)[:, :k]
-        best_d = np.concatenate([best_d, np.take_along_axis(s, part, 1)], axis=1)
-        best_i = np.concatenate([best_i, ids[part]], axis=1)
-        order = np.argsort(-best_d, axis=1, kind="stable")[:, :k]
-        best_d = np.take_along_axis(best_d, order, 1)
-        best_i = np.take_along_axis(best_i, order, 1)
-    return best_d, best_i
+            s = 2.0 * s - (xc * xc).sum(1)[None, :]
+        top, part = torch.topk(s, min(k, s.shape[1]), dim=1)
+        best_d = torch.cat([best_d, top], 1)
+        best_i = torch.cat([best_i, torch.from_numpy(ids).to(DEV)[part]], 1)
+        best_d, order = torch.sort(best_d, dim=1, descending=True, stable=True)
+        best_d, best_i = best_d[:, :k], best_i.gather(1, order)[:, :k]
+    return best_d.cpu().numpy(), best_i.cpu().numpy()
 
 
 def exact_dists(x, ids, q, metric):
@@ -1030,8 +1048,13 @@ def submit_phase(coll, rng) -> None:
 
 
 def ivf_scan_phase(coll, q_sets, stats: Stats, mode: str) -> None:
-    """ivf_scan_blocks against its plain version on the built index, at
-    B in {1, 16, 256}, under the half filter."""
+    """K16 against its plain version on the built index, at B in {1, 16,
+    256}, under the half filter: the route the batch takes, timed; the rows,
+    tile and warp routes (ivf.scan_blocks_route) within K16's tolerance of
+    the plain keys with the -inf pattern equal, rows and tile equal to each
+    other to the bit; the shared launch forced to either side of its choice
+    (min_share 0 and inf) equal to that route's keys to the bit, and the
+    batch's own launch to the route it takes (ivf.shared_route)."""
     eng = coll._engine
     idx = eng._index
     state = idx._device_state(eng)
@@ -1044,13 +1067,29 @@ def ivf_scan_phase(coll, q_sets, stats: Stats, mode: str) -> None:
             top_c = ivf._top_clusters(qd, state["centroids"], metric, NPROBE)
             args = (qd, (qd * qd).sum(-1), top_c, state["cluster_blocks"], state["blocks"],
                     state["block_sq"], state["block_orig"], live, metric)
-            got, want = ivf.ivf_scan_blocks(*args), ivf.ivf_scan_blocks_plain(*args)
+            want = ivf.ivf_scan_blocks_plain(*args)
             fin = torch.isfinite(want)
-            check(torch.equal(fin, torch.isfinite(got)), f"ivf_scan_blocks {mode} B={b}: masks")
-            err = (got[fin] - want[fin]).abs()
-            check(bool((err <= 1e-4 + 1e-5 * want[fin].abs()).all()),
-                  f"ivf_scan_blocks {mode} B={b}")
-            stats.error("K16 ivf_scan_blocks", err.max())
+            routes = {}
+            for route in ("rows", "tile", "warp"):
+                got = ivf.scan_blocks_route(*args, route)
+                check(torch.equal(fin, torch.isfinite(got)),
+                      f"ivf_scan_blocks {mode} B={b} {route}: masks")
+                err = (got[fin] - want[fin]).abs()
+                check(bool((err <= 1e-4 + 1e-5 * want[fin].abs()).all()),
+                      f"ivf_scan_blocks {mode} B={b} {route}")
+                stats.error("K16 ivf_scan_blocks", err.max())
+                routes[route] = got.view(torch.int32)
+            check(torch.equal(routes["rows"], routes["tile"]),
+                  f"ivf_scan_blocks {mode} B={b}: the rows and tile routes' keys differ")
+            for min_share, side in ((0.0, "tile"), (float("inf"), "warp")):
+                got = ivf.scan_blocks_route(*args, "shared", min_share).view(torch.int32)
+                check(torch.equal(got, routes[side]),
+                      f"ivf_scan_blocks {mode} B={b}: the shared launch's {side} side differs")
+            route = ivf._scan_route(b)
+            taken = route if route == "rows" else ivf.shared_route(top_c, state["cluster_blocks"])
+            check(torch.equal(ivf.ivf_scan_blocks(*args).view(torch.int32), routes[taken]),
+                  f"ivf_scan_blocks {mode} B={b}: the batch's launch is not its {taken} route")
+            del routes
             # bound: every distinct probed block's slot ids read once, the
             # live flag of its real rows, the data (and |x|^2 for L2) of its
             # live rows; the keys written
@@ -1058,17 +1097,19 @@ def ivf_scan_phase(coll, q_sets, stats: Stats, mode: str) -> None:
             distinct = torch.unique(blk[blk >= 0]).long()
             orig = state["block_orig"].view(-1, ivf.BLOCK_SIZE)[distinct]
             real = orig >= 0
-            n_real = int(real.sum())
             n_live = int((real & live[orig.clamp_min(0).long()]).sum())
-            row_bytes = DIM * 4 + (0 if metric is Metric.IP else 4)
-            scored = int(fin.sum())
             stats.time("K16 ivf_scan_blocks", f"{mode} B={b} nprobe={NPROBE}",
                        lambda: ivf.ivf_scan_blocks(*args), lambda: ivf.ivf_scan_blocks_plain(*args),
-                       None, bound(orig.numel() * 4 + n_real + n_live * row_bytes
-                                   + got.numel() * 4, 2 * scored * DIM))
-            del got, want, fin
+                       None, ivf_probe_bound(len(distinct), int(real.sum()), n_live, DIM,
+                                             want.numel(), int(fin.sum()),
+                                             metric is not Metric.IP),
+                       route=route, route_on_card=taken,
+                       probes_a_probed_block=ivf.probe_share(top_c, state["cluster_blocks"]),
+                       empty_slot_share=float((blk < 0).float().mean()))
+            del want, fin
     print(f"   {mode}: ivf_scan_blocks agrees with its plain version at B in "
-          f"{[len(qs) for qs in q_sets]}", flush=True)
+          f"{[len(qs) for qs in q_sets]} on every route, rows and tile bit for bit, the "
+          f"shared launch as it chose", flush=True)
 
 
 def _keys64(q, x, ids, metric):
@@ -1271,10 +1312,10 @@ def graph_path(db, coll, x, centers, rng, q_sets, report, stats):
     coll.add(vectors=extra, fields=[{"bucket": i % 10} for i in range(N, N + GRAPH_INSERT)])
     coll.commit()  # links the rows into layer 0 in place
     sync()
-    report["HNSW-L2 insert_10k_s"] = time.perf_counter() - t0
+    report["HNSW-L2 insert_s"] = time.perf_counter() - t0
     check(eng._index.built_rows == N + GRAPH_INSERT, "HNSW-L2: the new rows were not linked")
     print(f"   add + commit {GRAPH_INSERT} rows (layer-0 insert): "
-          f"{report['HNSW-L2 insert_10k_s']:.2f} s", flush=True)
+          f"{report['HNSW-L2 insert_s']:.2f} s", flush=True)
     out[("HNSW-L2 inserted", None)] = run_queries(coll, singles, [], [], None, nprobe=GRAPH_NPROBE)
 
     build(coll, "DISKANN-IP")
@@ -1299,9 +1340,9 @@ def graph_path(db, coll, x, centers, rng, q_sets, report, stats):
     coll.delete(dead.tolist())
     coll.commit()  # repairs the edges into the deleted nodes in place
     sync()
-    report["DISKANN-IP delete_1pct_s"] = time.perf_counter() - t0
+    report["DISKANN-IP delete_s"] = time.perf_counter() - t0
     print(f"   delete + commit {len(dead)} rows (edge repair): "
-          f"{report['DISKANN-IP delete_1pct_s']:.2f} s", flush=True)
+          f"{report['DISKANN-IP delete_s']:.2f} s", flush=True)
     out[("DISKANN-IP deleted", None)] = run_queries(coll, singles, [], [], None,
                                                     nprobe=GRAPH_NPROBE)
 
@@ -1316,7 +1357,7 @@ def graph_path(db, coll, x, centers, rng, q_sets, report, stats):
 
 
 def check_graph(out, x, extra, dead, q_all, report) -> None:
-    """recall@10 of every graph result set against numpy's exact top 10 over
+    """recall@10 of every graph result set against the exact top 10 over
     the rows that set could return (>= 0.90 unfiltered; the half filter's
     recall reported, every id passing it); no repeated, filtered-out or
     deleted id; distances exact."""
@@ -1324,7 +1365,6 @@ def check_graph(out, x, extra, dead, q_all, report) -> None:
     ids_all = np.arange(len(x_all))
     live = np.ones(len(x_all), dtype=bool)
     live[dead] = False
-    xsq = (x_all.astype(np.float64) ** 2).sum(1).astype(np.float32)
     cells = [  # label, metric, rows the index could return
         ("HNSW-L2", Metric.L2, ids_all[:N]),
         ("HNSW-L2 inserted", Metric.L2, ids_all),
@@ -1342,7 +1382,7 @@ def check_graph(out, x, extra, dead, q_all, report) -> None:
             views, lat, calls = out[(label, where)]
             sel = rows if where is None else rows[rows % 10 < 5]
             n_q = 100 + sum(len(views[b]) for b in (16, 256) if b in views)
-            _, gt = exact_topk(x_all, sel, q_all[:n_q], K, metric, xsq)
+            _, gt = exact_topk(x_all, sel, q_all[:n_q], K, metric)
             name = f"{label} {'unfiltered' if where is None else where}"
             floor = GRAPH_RECALL_FLOOR if where is None else 0.0
             for b, lo, hi in ((1, 0, 100), (16, 100, 164), (256, 164, len(q_all))):
@@ -1372,6 +1412,10 @@ METRIC_MODES = {  # collection -> its FLAT modes
 APPROX_MODES = ("FLAT-L1", "FLAT-CHEBYSHEV", "FLAT-CANBERRA", "FLAT-BRAY-CURTIS")
 APPROX_RECALL_FLOOR = 0.90  # tests/test_approx.py:34
 BITS_N, BITS_DIM, BITS_DENSITY, GEO_N = 1_000_000, 1024, 0.1, 1_000_000
+# K9's C: 80 (K10's timed shortlist, K x 8; an approximate plan's k x
+# oversample) and 256 (the host-rescore tier's and K8's shortlist at 1M rows,
+# the timed one)
+ELEM_TOPC_C = (80, 256)
 N_MQ = 100 + 16 + 256  # the singles, one B=16 batch, one B=256 batch
 SQUARED = (Metric.HELLINGER, Metric.JENSEN_SHANNON)  # held on the squared distance
 
@@ -1606,19 +1650,55 @@ def metric_kernel_phase(corpus: DeviceCorpus, metric: Metric, qs: np.ndarray, st
           f"the gather mode", flush=True)
     if metric not in (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS):
         return
-    mean, x16 = corpus.bf16_aux()["mean"], corpus.data16  # the bf16 mode (K9)
+    mean, x16 = corpus.bf16_aux()["mean"], corpus.data16  # K9: the fused bf16 pass
     for b in BATCHES:
-        qt = {"x": torch.from_numpy(np.ascontiguousarray(qs[:b])).to(DEV)}
-        got = scan.elementwise_scores(qt, {"x": x16}, valid, metric, mean=mean)
-        want = scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean)
-        stats.error(name, keys_error(metric, got, want, f"{name} {metric.value} bf16 B={b}"))
-        if metric is Metric.L1 and b == 16:
-            stats.time(name, "l1 bf16 B=16",
-                       lambda: scan.elementwise_scores(qt, {"x": x16}, valid, metric, mean=mean),
-                       lambda: scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean),
-                       None, bound_t(n_live * d * 2 + d * 4 + 16 * rows * 4 + rows + 16 * d * 4,
-                                     16 * n_live * d * 3 / F32_OPS))
-    print(f"   {name} {metric.value} bf16 mode: agrees with its plain version", flush=True)
+        q = torch.from_numpy(np.ascontiguousarray(qs[:b])).to(DEV)
+        full = scan.metric_keys_plain({"x": q}, {"x": x16}, valid, metric, mean=mean)
+        for c in ELEM_TOPC_C:
+            got = scan.elementwise_topc(q, x16, mean, valid, metric, c)
+            stats.error("K9 elementwise_topc",
+                        check_elem_topc(metric, got, full, c, f"K9 {metric.value} B={b} C={c}"))
+            del got
+        del full
+        c = ELEM_TOPC_C[-1]
+        stats.time("K9 elementwise_topc", f"{metric.value} B={b} C={c}",
+                   lambda: scan.elementwise_topc(q, x16, mean, valid, metric, c),
+                   lambda: scan.elementwise_topc_plain(q, x16, mean, valid, metric, c), None,
+                   elem_topc_bound(metric.value, b, d, n_live, rows, c),
+                   reps=10 if b < 256 else 3, plain_reps=1 if b == 256 else 3)
+    print(f"   K9 {metric.value}: the fused bf16 pass agrees with its plain chain at B in "
+          f"{BATCHES} and C in {ELEM_TOPC_C}", flush=True)
+
+
+def check_elem_topc(metric: Metric, got, full: torch.Tensor, c: int, what: str) -> float:
+    """K9's (keys, ids) against the plain keys ``full`` (B, N) of the same
+    inputs: keys best first, each within keys_error's tolerance of the plain
+    key of its row; the ids the plain top C's, but a row only one side holds
+    lies within that tolerance of the plain C-th key (Chebyshev: equal to
+    the plain chain's). Returns the largest key error."""
+    keys, ids = got
+    want_k, want_i = topk.topk_select_plain(full, c)
+    if metric is Metric.CHEBYSHEV:
+        check(torch.equal(keys, want_k) and torch.equal(ids, want_i), f"{what}: differs")
+        return 0.0
+    check(bool((keys[:, 1:] <= keys[:, :-1]).all()), f"{what}: keys out of order")
+    err = keys_error(metric, keys, full.gather(1, ids.long()), what)
+    fin = torch.isfinite(want_k)
+    scale = float(want_k[fin].abs().max()) if bool(fin.any()) else 0.0
+    diff = 0
+    for r in range(len(ids)):
+        only = torch.tensor(sorted(set(ids[r].tolist()) ^ set(want_i[r].tolist())),
+                            dtype=torch.long, device=DEV)
+        if len(only):
+            diff += len(only)
+            gap = (full[r, only].double() - want_k[r, -1].double()).abs()
+            same_inf = torch.isinf(full[r, only]) & torch.isinf(want_k[r, -1])
+            check(bool((same_inf | (gap <= 2e-5 * scale + 1e-5)).all()),
+                  f"{what}: a row beyond a near-tie of the C-th key")
+    if diff:
+        print(f"   {what}: {diff} ids differ from the plain chain's, each a near-tie",
+              flush=True)
+    return err
 
 
 def metric_collection(db, name: str, x: np.ndarray):
@@ -1752,12 +1832,17 @@ def metrics_path(db, coll, x, extra, dead, centers, rng, report, stats) -> None:
 
 INDEX_METRIC_MODES = {  # data set -> its modes
     "bits": ("IVF-HAMMING", "IVF-JACCARD"),
-    "real": ("HNSW-L1",),
-    "geo": ("HNSW-HAVERSINE",),
+    "real graph prefix": ("HNSW-L1",),
+    "geo graph prefix": ("HNSW-HAVERSINE",),
     "real prefix": ("HNSW-CHEBYSHEV", "HNSW-CORRELATION"),
     "hist prefix": ("HNSW-HELLINGER", "HNSW-WASSERSTEIN", "HNSW-JENSEN-SHANNON"),
 }
-INSERTED = ("HNSW-L1", "IVF-HAMMING")  # GRAPH_INSERT rows added and searched again
+INSERTED = ("HNSW-L1", "IVF-HAMMING")  # INDEX_METRIC_INSERT rows added, searched again
+# HNSW-L1 and HNSW-HAVERSINE build on the first rows of the mixture and of
+# the geo points (each 1M build took 17-27 s; the phase's depth, not its
+# paths, was cut to keep the script inside its time limit)
+GRAPH_METRIC_ROWS = 250_000
+INDEX_METRIC_INSERT = 2_500  # the rows INSERTED's modes take (phase 8: GRAPH_INSERT)
 # recall@10 floors against the full brute force. IVF-JACCARD is held instead
 # to the exact answer over the clusters its probe picks (probed_kth): the
 # reference's probe, the query's Jaccard distance to the centroids
@@ -1805,7 +1890,7 @@ def binary_ivf_phase(coll, qs: np.ndarray, stats: Stats, mode: str) -> None:
                        lambda: ivf.ivf_scan_blocks_plain(*args), None,
                        binary_probe_bound(len(distinct), int(real.sum()), n_live, w, got.numel(),
                                           int(torch.isfinite(got).sum())),
-                       reps=3 if b == 256 else 10)
+                       reps=3 if b == 256 else 10, plain_reps=1 if b > 1 else 3)
             del got, want
     print(f"   K16b {mode}: equal to its plain version at B in {list(BATCHES)}", flush=True)
 
@@ -1914,21 +1999,26 @@ def metric_graph_phase(eng, mode: str, qs: np.ndarray, stats: Stats, timed: bool
 
 def index_metrics_path(db, sets: dict, prefix_coll, centers, rng, report, stats) -> None:
     """The index-metrics phase: IVF-HAMMING and IVF-JACCARD on the 1M
-    fingerprints (n_clusters=1000, nprobe=32), HNSW-L1 on the 1.01M mixture
-    rows, HNSW-HAVERSINE on the 1M geo points, HNSW-CHEBYSHEV and
+    fingerprints (n_clusters=1000, nprobe=32), HNSW-L1 on the mixture rows'
+    and HNSW-HAVERSINE on the geo points' first GRAPH_METRIC_ROWS, HNSW-CHEBYSHEV and
     -CORRELATION on phase 8's 100,000-row mixture prefix, HNSW-HELLINGER,
     -WASSERSTEIN and -JENSEN-SHANNON on the histograms' 100,000-row prefix
     (nprobe=100 for every graph). Each mode: 100 single queries and a batch at
     B = 16 and 256, unfiltered and ``bucket < 5``, against the float64 brute
     force (graph >= 0.90 unfiltered, IVF >= 0.85; no repeated, filtered-out
-    or deleted id); HNSW-L1 and IVF-HAMMING take GRAPH_INSERT new rows and
+    or deleted id); HNSW-L1 and IVF-HAMMING take INDEX_METRIC_INSERT new rows and
     answer again; the kernels against their plain versions."""
     c_hist, x_hist, _, q_hist = sets["hist"]
     hist_prefix, t_add = metric_collection(db, "hist_prefix", x_hist[:PREFIX])
     report["index metrics hist prefix add+commit_s"] = t_add
-    data = {"bits": sets["bits"], "real": sets["real"], "geo": sets["geo"],
+    data = {"bits": sets["bits"],
             "real prefix": (prefix_coll, sets["real"][1][:PREFIX], None, sets["real"][3]),
             "hist prefix": (hist_prefix, x_hist[:PREFIX], None, q_hist)}
+    for kind in ("real", "geo"):  # the graph builds' prefixes
+        rows, qs = sets[kind][1][:GRAPH_METRIC_ROWS], sets[kind][3]
+        c, t_add = metric_collection(db, f"{kind}_graph_prefix", rows)
+        report[f"index metrics {kind} graph prefix add+commit_s"] = t_add
+        data[f"{kind} graph prefix"] = (c, rows, None, qs)
     for kind, modes in INDEX_METRIC_MODES.items():
         c, rows, live_np, qs = data[kind]
         rows_d = rows if torch.is_tensor(rows) else torch.from_numpy(rows).to(DEV)
@@ -1948,23 +2038,23 @@ def index_metrics_path(db, sets: dict, prefix_coll, centers, rng, report, stats)
             print(f"   first search: {time.perf_counter() - t0:.2f} s", flush=True)
             for inserted in ((False, True) if mode in INSERTED else (False,)):
                 if inserted:
-                    new = (fingerprints_like(rows_d, GRAPH_INSERT) if ivf_mode
-                           else torch.from_numpy(mixture_queries(rng, centers,
-                                                                 GRAPH_INSERT)).to(DEV))
+                    m = INDEX_METRIC_INSERT
+                    new = (fingerprints_like(rows_d, m) if ivf_mode
+                           else torch.from_numpy(mixture_queries(rng, centers, m)).to(DEV))
                     n0 = len(rows_d)
                     t0 = time.perf_counter()
                     c.add(vectors=new.cpu().numpy().astype(np.float32),
-                          fields=[{"bucket": i % 10} for i in range(n0, n0 + GRAPH_INSERT)])
+                          fields=[{"bucket": i % 10} for i in range(n0, n0 + m)])
                     c.commit()  # links / posts the new rows in place
                     sync()
-                    report[f"{mode} insert_{GRAPH_INSERT}_s"] = time.perf_counter() - t0
-                    check(c._engine._index.built_rows == n0 + GRAPH_INSERT,
+                    report[f"{mode} insert_{m}_s"] = time.perf_counter() - t0
+                    check(c._engine._index.built_rows == n0 + m,
                           f"{mode}: the new rows were not indexed")
-                    print(f"   add + commit {GRAPH_INSERT} rows: "
-                          f"{report[f'{mode} insert_{GRAPH_INSERT}_s']:.2f} s", flush=True)
+                    print(f"   add + commit {m} rows: {report[f'{mode} insert_{m}_s']:.2f} s",
+                          flush=True)
                     rows_d = torch.cat([rows_d, new.to(rows_d.dtype)])
                     if live_np is not None:
-                        live_np = np.concatenate([live_np, np.ones(GRAPH_INSERT, bool)])
+                        live_np = np.concatenate([live_np, np.ones(m, bool)])
                 n = len(rows_d)
                 ok = (torch.ones(n, dtype=torch.bool, device=DEV) if live_np is None
                       else torch.from_numpy(live_np).to(DEV))
@@ -2057,11 +2147,15 @@ def fingerprints_like(rows: torch.Tensor, n: int) -> torch.Tensor:
 
 STREAM_MODES = ("FLAT-IP", "FLAT-L2", "FLAT-L1")
 STREAM_WHERES = (None, "bucket = 3", "bucket < 5")
+STREAM_IP_Q = 30  # FLAT-IP's single queries in each tier
 STREAM_REPEAT_Q = 20  # single queries of the repeated modes (L2, L1, Tanimoto)
 STREAM_DELETED = 1000  # rows deleted from the streaming collection
 STREAM_N_Q = 1000  # search_stream's queries
-SCALE_N, SCALE_BUDGET = 20_000_000, 2 << 30  # the scale point: 20M x 128 at a 2 GiB budget
+# the scale point: 8M x 128 at a 2 GiB budget, at least four blocks a pass
+# at B = 16 (20M until the script neared its time limit)
+SCALE_N, SCALE_BUDGET = 8_000_000, 2 << 30
 GRAPH_STREAM_N = 100_000  # the graph collection forced to stream
+GRAPH_STREAM_Q = 30  # its single queries a check
 
 
 def tier_budget(corpus: DeviceCorpus, tier: str) -> int:
@@ -2336,11 +2430,11 @@ def windows_timing(c, qs: np.ndarray, report) -> None:
 
 def graph_stream_path(db, x, centers, rng, report) -> None:  # noqa: C901
     """HNSW-L2 and DISKANN-IP on a 100,000-row mixture collection forced to
-    stream: HNSW by the exact fallback, a 10,000-row commit deferred;
-    DiskANN's lazy PQ and SQ8 fit, its SQ8 or PQ walk, and a 10,000-row
+    stream: HNSW by the exact fallback, a 2,500-row commit deferred;
+    DiskANN's lazy PQ and SQ8 fit, its SQ8 or PQ walk, and a 2,500-row
     commit linked by _on_commit_streaming."""
     rows = x[:GRAPH_STREAM_N]
-    qs = mixture_queries(rng, centers, 100)
+    qs = mixture_queries(rng, centers, GRAPH_STREAM_Q)
     extra = mixture_queries(rng, centers, GRAPH_INSERT)
     out = {}
     for mode in ("HNSW-L2", "DISKANN-IP"):
@@ -2353,7 +2447,7 @@ def graph_stream_path(db, x, centers, rng, report) -> None:  # noqa: C901
         idx = g._engine._index
         t0 = time.perf_counter()
         out[mode] = [g.search(qv, k=K, nprobe=GRAPH_NPROBE) for qv in qs]
-        report[f"stream {mode} 100 singles_s"] = time.perf_counter() - t0
+        report[f"stream {mode} {GRAPH_STREAM_Q} singles_s"] = time.perf_counter() - t0
         if mode == "DISKANN-IP":
             check(idx.layered, "DISKANN-IP: no codes fitted on the streaming corpus")
             report["stream DISKANN-IP tier"] = idx._tier(corpus)
@@ -2372,31 +2466,31 @@ def graph_stream_path(db, x, centers, rng, report) -> None:  # noqa: C901
             linked = np.isin(np.arange(GRAPH_STREAM_N, n_all), idx.graph_np[idx.graph_np >= 0])
             check(bool(linked.all()), "DISKANN-IP: a new row has no in-edge")
             out["DISKANN-IP new rows"] = [g.search(qv, k=K, nprobe=GRAPH_NPROBE)
-                                          for qv in extra[:100]]
+                                          for qv in extra[:GRAPH_STREAM_Q]]
         out[f"{mode} grown"] = [g.search(qv, k=K, nprobe=GRAPH_NPROBE) for qv in qs]
         print(f"   {mode} streaming: tier {corpus.tier}, commit of {GRAPH_INSERT} rows "
               f"{report[f'stream {mode} commit_{GRAPH_INSERT}_s']:.2f} s", flush=True)
         scan.DEVICE_BYTES = 0
     allx = np.concatenate([rows, extra])
-    xsq = (allx.astype(np.float64) ** 2).sum(1).astype(np.float32)
     for mode, metric, floor in (("HNSW-L2", Metric.L2, RECALL_FLOOR),
                                 ("DISKANN-IP", Metric.IP, GRAPH_RECALL_FLOOR)):
         for key, data in ((mode, rows), (f"{mode} grown", allx)):
-            gt = exact_topk(data, np.arange(len(data)), qs, K, metric, xsq[: len(data)])[1]
+            gt = exact_topk(data, np.arange(len(data)), qs, K, metric)[1]
             report[f"stream {key} recall"] = check_results(
                 data, qs, out[key], gt, f"{key} streaming", metric, floor)
     # the linked rows are found: queries at the new rows, whose exact top 10
     # is mostly new rows
-    gt = exact_topk(allx, np.arange(len(allx)), extra[:100], K)[1]
+    gt = exact_topk(allx, np.arange(len(allx)), extra[:GRAPH_STREAM_Q], K)[1]
     report["stream DISKANN-IP new rows recall"] = check_results(
-        allx, extra[:100], out["DISKANN-IP new rows"], gt, "DISKANN-IP linked rows streaming",
+        allx, extra[:GRAPH_STREAM_Q], out["DISKANN-IP new rows"], gt,
+        "DISKANN-IP linked rows streaming",
         Metric.IP, GRAPH_RECALL_FLOOR)
     report["stream DISKANN-IP new rows in the exact top 10"] = float(
         np.mean(gt >= GRAPH_STREAM_N))
 
 
 def scale_point(rng, report, h2d_bps: float) -> None:
-    """A 20M x 128 DeviceCorpus of the mixture forced to stream at a 2 GiB
+    """A SCALE_N x 128 DeviceCorpus of the mixture forced to stream at a 2 GiB
     budget: the host fill rate, K8's time per block and per pass against
     its link bound, the compute stream's busy share, B = 16 and 256
     latency."""
@@ -2418,7 +2512,7 @@ def scale_point(rng, report, h2d_bps: float) -> None:
     del x
     corpus.finalize()
     report["scale stage_s"] = time.perf_counter() - t0
-    check(corpus.streaming, "the 20M corpus did not stream at a 2 GiB budget")
+    check(corpus.streaming, "the scale corpus did not stream at a 2 GiB budget")
     for b in (16, 256):
         corpus.search(qs[:b], K, Metric.IP)  # warm
         tr = pass_trace(corpus, lambda: corpus.search(qs[:b], K, Metric.IP))
@@ -2430,9 +2524,10 @@ def scale_point(rng, report, h2d_bps: float) -> None:
         check(d.shape == (b, K) and bool(np.isfinite(d).all()), f"scale B={b}: results")
         tr["latency_s"] = lat
         tr["link_bound_ms"] = tr["bytes"] / h2d_bps * 1e3
-        report[f"scale 20M B={b}"] = tr
-        print(f"   20M x {DIM} streaming B={b}: {tr}", flush=True)
-    # the answers of a slice against numpy's exact top 10 over every row
+        check(tr["blocks"] >= 4, f"the scale pass took {tr['blocks']} blocks")
+        report[f"scale {SCALE_N} B={b}"] = tr
+        print(f"   {SCALE_N} x {DIM} streaming B={b}: {tr}", flush=True)
+    # the answers of a slice against the exact top 10 over every row
     want = exact_topk(corpus._host[: corpus.n], np.arange(corpus.n), qs[:4], K)[1]
     got = corpus.search(qs[:4], K, Metric.IP)[1]
     hits = sum(len(set(got[r].tolist()) & set(want[r].tolist())) for r in range(4))
@@ -2445,11 +2540,11 @@ def scale_point(rng, report, h2d_bps: float) -> None:
 def streaming_path(db, x, centers, rng, sets, report, stats) -> None:
     """The streaming phase: the 1M mixture in a fresh FLAT-IP collection
     (1,000 rows deleted) forced into the host-rescore tier and then the
-    streaming tier, under FLAT-IP (100 singles, B = 16 and 256, three
+    streaming tier, under FLAT-IP (30 singles, B = 16 and 256, three
     filters, search_stream of 1,000, search_range), FLAT-L2 and FLAT-L1
     (20 singles and the batches); FLAT-TANIMOTO-BINARY on phase 9's
     fingerprints (5 singles and the batches); K8 against its plain version
-    under IP, L1 and Tanimoto; the graph collections forced to stream; the 20M scale
+    under IP, L1 and Tanimoto; the graph collections forced to stream; the scale
     point."""
     h2d_bps = pinned_h2d_rate()
     report["pinned H2D GB/s"] = h2d_bps / 1e9
@@ -2472,8 +2567,8 @@ def streaming_path(db, x, centers, rng, sets, report, stats) -> None:
     with uncounted():
         force_tier(c, "resident")
         windows_timing(c, stream_q, report)
-    stream_mode_checks(c, "FLAT-IP", rows_d, ok, qs, 100, ("host_rescore", "streaming"), report,
-                       stream_q)
+    stream_mode_checks(c, "FLAT-IP", rows_d, ok, qs, STREAM_IP_Q, ("host_rescore", "streaming"),
+                       report, stream_q)
     k8_check(corpus, qs[:16], stats, "IP B=16 N=1M", h2d_bps, True)
     k8_check(corpus, qs[:256], stats, "IP B=256 N=1M", h2d_bps, False)
     tr = pass_trace(corpus, lambda: corpus.search(qs[:16], K, Metric.IP))
@@ -2966,7 +3061,7 @@ def main() -> int:
         counts["streaming"] = read_counts()
         client.close()
 
-    with phase("11 checks against numpy brute force"):
+    with phase("11 checks against a float64 brute force"):
         all_rows = np.arange(N)
         for where, rows in ((None, all_rows), ("bucket = 3", np.nonzero(all_rows % 10 == 3)[0])):
             label = "unfiltered" if where is None else where
@@ -2987,9 +3082,8 @@ def main() -> int:
         for r, view in enumerate(small_views):
             check(np.array_equal(np.asarray(view.ids), gi[r]), f"small: ids differ at query {r}")
             np.testing.assert_allclose(np.asarray(view.distances), gd[r], rtol=1e-5, atol=1e-5)
-        print(f"   small collection: {len(small_views)} queries equal numpy's exact top-{K}")
-        small_sq = (small.astype(np.float64) ** 2).sum(1).astype(np.float32)
-        gi = exact_topk(small, np.arange(len(small)), small_q, K, Metric.L2, small_sq)[1]
+        print(f"   small collection: {len(small_views)} queries equal the exact top-{K}")
+        gi = exact_topk(small, np.arange(len(small)), small_q, K, Metric.L2)[1]
         check_results(small, small_q, small_l2, gi, "small FLAT-L2", Metric.L2)
 
         gd, gi = exact_topk(x, all_rows, big_q, BIG_K)
@@ -3011,7 +3105,6 @@ def main() -> int:
               f"search_range(max_results={BIG_K}): every row in range, none outside")
         check(report[f"FLAT recall@{BIG_K}"] >= RECALL_FLOOR, f"k={BIG_K} recall")
 
-        xsq = (x.astype(np.float64) ** 2).sum(1).astype(np.float32)
         gts = {}  # (metric, where) -> the exact top 10 of the mixture queries
         modes = [("IVF-L2", Metric.L2, IVF_RECALL_FLOOR, ivf_out),
                  ("IVF-IP", Metric.IP, IVF_RECALL_FLOOR, ivf_out)]
@@ -3022,7 +3115,7 @@ def main() -> int:
                 label = f"{mode} {'unfiltered' if where is None else where}"
                 views, lat, calls = out[(mode, where)]
                 if (metric, where) not in gts:
-                    gts[(metric, where)] = exact_topk(x, rows, ivf_q, K, metric, xsq)[1]
+                    gts[(metric, where)] = exact_topk(x, rows, ivf_q, K, metric)[1]
                 gt = gts[(metric, where)]
                 report[f"{label} recall_single"] = check_results(
                     x, ivf_q[:100], views[1], gt[:100], f"{label} single", metric, floor)
@@ -3044,6 +3137,8 @@ def main() -> int:
         for path in ("quantized", "mesh"):  # the second stage: one fused launch
             check(by_path[path]["K11 fused"] > 0 and by_path[path]["K11 per_query"] == 0,
                   f"{path}: K11's second stage did not run fused")
+        for route in ("rows", "shared"):  # the card picks tile or warp in the shared launch
+            check(by_path["ivf"][f"K16 {route}"] > 0, f"ivf: K16's {route} launch never ran")
         ivf_l2 = counts["ivf IVF-L2"]
         for name in PATHS["ivf"]:  # the IP build and queries launch them again
             check(counts["ivf"][name] > ivf_l2[name], f"{name} not launched for IVF-IP")
@@ -3063,10 +3158,10 @@ def main() -> int:
              "K19 topl_scan": f"L2 chunk=4096 N={N} L=64",
              "K20 robust_prune": "L2 nodes=4096 L=72 r=32",
              "K6a gemm_metric_scores": "correlation B=16", "K6b binary_scores": "tanimoto B=16",
-             "K6c elementwise_scores": "l1 B=16",
+             "K6c elementwise_scores": "l1 B=16", "K9 elementwise_topc": "l1 B=16 C=256",
              "K16b ivf_binary_blocks": f"IVF-HAMMING B=16 nprobe={NPROBE}",
              "K6g beam_search": f"HNSW-L1 B=16 beam={GRAPH_NPROBE}",
-             "K6g topl_scan": f"HNSW-L1 chunk={TOPL_CHUNK} N={N + GRAPH_INSERT} L=64",
+             "K6g topl_scan": f"HNSW-L1 chunk={TOPL_CHUNK} N={GRAPH_METRIC_ROWS} L=64",
              "K6g robust_prune": "HNSW-L1 nodes=4096 L=72 r=32",
              "K8 stream_block": "IP B=16 N=1M",
              "K21 sharded_search": f"IP B=16 S={MESH_SHARDS}",

@@ -152,6 +152,10 @@ __device__ __forceinline__ void warp_sort256(uint64_t (&v)[8]) {
 // keys; 192 for K19, whose threads append a tile's 128 keys through a shared
 // counter rather than offer()).
 //
+// A list that has kept nothing reads as pads (flush reads no kept entry
+// while `kept` is 0), so a caller may leave the kept entries unwritten
+// until the first flush writes all kp of them (K9).
+//
 // An entry joins the pending ones only if it is larger than the k-th kept
 // so far (or than the caller's start value while fewer than k are kept), so
 // after the first few rounds almost every offer costs one compare. flush()
@@ -208,7 +212,7 @@ struct WarpTopkT {
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const uint64_t o = __shfl_xor_sync(0xffffffffu, v[7 - e], lanes - 1);
-      const uint64_t kv = mine ? list[lane * 8 + e] : 0;
+      const uint64_t kv = mine ? (kept > 0 ? list[lane * 8 + e] : kPadEntry) : 0;
       x[e] = kv > o ? kv : o;
     }
     for (int m = lanes >> 1; m > 0; m >>= 1) {
@@ -244,6 +248,7 @@ struct WarpTopkT {
   __device__ __forceinline__ void merge_path(int kp) {
     const int lane = threadIdx.x & 31;
     const uint64_t* pending = list + kp;
+    const auto held = [&](int i) { return kept > 0 ? list[i] : kPadEntry; };
     for (int c = (kp - 1) >> 8; c >= 0; --c) {
       const int d0 = c * 256 + lane * 8;
       uint64_t out[8];
@@ -251,14 +256,14 @@ struct WarpTopkT {
       int lo = max(0, d0 - kPend), hi = d0;
       while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (pending[d0 - 1 - mid] > list[mid]) hi = mid;
+        if (pending[d0 - 1 - mid] > held(mid)) hi = mid;
         else lo = mid + 1;
       }
       int i = lo, j = d0 - lo;
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const bool take_b = j < kPend && (i >= kp || pending[j] > list[i]);
-        out[e] = take_b ? pending[j] : list[i];
+        const bool take_b = j < kPend && (i >= kp || pending[j] > held(i));
+        out[e] = take_b ? pending[j] : held(i);
         i += !take_b;
         j += take_b;
       }

@@ -1,5 +1,8 @@
 // The exact f32 score tile of K1 and K6a (flat_scores_f32.cu), K6c's f32
-// tile mode (elementwise_scores.cu) and K19 (topl_scan.cu): each query's dot
+// tile mode and K9 (elementwise_scores.cu: Bf16Span, the centred bf16 rows
+// with the mean added back), K16 (ivf_scan_blocks.cu: ProbeSpan, a block of
+// the IVF index, dead rows never read, the queries through its probe list)
+// and K19 (topl_scan.cu): each query's dot
 // product with each corpus row as one f32 FMA chain over the dimensions in
 // order (no TF32, no tensor cores); on either route the inner step may
 // instead be an elementwise metric's accumulate<M> (metrics.cuh), one
@@ -71,8 +74,22 @@ struct BytesTile {
   static constexpr size_t kSmem = (size_t)kStages * kStageFloats * sizeof(float);
 };
 
+// Four values of a row from dimension d (zeros past D): one 16-byte load
+// (vec) or four scalar ones.
+__device__ __forceinline__ float4 load_piece(const float* src, int d, int D, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(src + d));
+  float4 v = make_float4(__ldg(src + d), 0.f, 0.f, 0.f);
+  if (d + 1 < D) v.y = __ldg(src + d + 1);
+  if (d + 2 < D) v.z = __ldg(src + d + 2);
+  if (d + 3 < D) v.w = __ldg(src + d + 3);
+  return v;
+}
+
 // One block's work: queries [q0, q0 + nq) of q (B, D) against rows [row0,
 // row_end) of x (N, D). vec: 16-byte loads (D % 4 == 0, aligned bases).
+// The FMA route reads a span's rows and queries four values at a time
+// (row_piece, query_piece), and skips a row whose row_live() is false (a
+// zero row to the tile); the spans below change what these read.
 struct F32Span {
   const float* q;
   const float* x;
@@ -80,13 +97,82 @@ struct F32Span {
   bool vec;
   int q0, nq;
   int64_t row0, row_end;
+
+  __device__ __forceinline__ bool row_live(int64_t) const { return true; }
+  __device__ __forceinline__ float4 row_piece(int64_t n, int d) const {
+    return load_piece(x + n * D, d, D, vec);
+  }
+  __device__ __forceinline__ const float* query_row(int j) const {
+    return q + (int64_t)(q0 + j) * D;
+  }
+  __device__ __forceinline__ float4 query_piece(int j, int d) const {
+    return load_piece(query_row(j), d, D, vec);
+  }
+};
+
+// K16's spans over a block of the IVF index: rows whose flag in `live`
+// (shared memory, rows from live_base) is 0 are never read; with `probes`
+// (K16's tile route), query j of the group is row probes[q0 + j] / nprobe
+// of q (the probe's query).
+struct ProbeSpan : F32Span {
+  const uint8_t* live;
+  int64_t live_base;
+  const int* probes;
+  int nprobe;
+
+  __device__ __forceinline__ bool row_live(int64_t n) const { return live[n - live_base] != 0; }
+  __device__ __forceinline__ const float* query_row(int j) const {
+    return probes != nullptr ? q + (int64_t)(probes[q0 + j] / nprobe) * D
+                             : F32Span::query_row(j);
+  }
+  __device__ __forceinline__ float4 query_piece(int j, int d) const {
+    return load_piece(query_row(j), d, D, vec);
+  }
+};
+
+// K9's span: the mean-centred bf16 copy x16 (N, D) with the mean (D,) added
+// back in f32, each value one rounded add, as the parent tile's
+// load_row does; f32 queries. vec: D % 8 == 0 and 16-byte aligned bases
+// (the FMA route then loads 8 bytes of a row at a time, the bytes route
+// 16).
+struct Bf16Span {
+  const float* q;
+  const __nv_bfloat16* x16;
+  const float* mean;
+  int D;
+  bool vec;
+  int q0, nq;
+  int64_t row0, row_end;
+
+  __device__ __forceinline__ bool row_live(int64_t) const { return true; }
+  __device__ __forceinline__ float4 row_piece(int64_t n, int d) const {
+    const __nv_bfloat16* src = x16 + n * D;
+    if (vec) {
+      const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src + d));
+      const float4 m = __ldg(reinterpret_cast<const float4*>(mean + d));
+      return make_float4(__fadd_rn(__uint_as_float(raw.x << 16), m.x),
+                         __fadd_rn(__uint_as_float(raw.x & 0xffff0000u), m.y),
+                         __fadd_rn(__uint_as_float(raw.y << 16), m.z),
+                         __fadd_rn(__uint_as_float(raw.y & 0xffff0000u), m.w));
+    }
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < D) v[e] = __fadd_rn(__bfloat162float(src[d + e]), __ldg(mean + d + e));
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ __forceinline__ float4 query_piece(int j, int d) const {
+    return load_piece(q + (int64_t)(q0 + j) * D, d, D, vec);
+  }
 };
 
 // Stage `step` (tile step / kchunks, dimensions from (step % kchunks) * KC)
 // into dst by cp.async, 16 bytes a copy (sp.vec) or 4: TM rows, then TN
-// queries; zeros past D, past the span and past the group.
-template <class Tile>
-__device__ __forceinline__ void stream_load_stage(const F32Span& sp, float* dst, int step,
+// queries; zeros past D, past the span, past the group and for a row that is
+// not row_live() (its data is never read).
+template <class Tile, class Span,
+          class = std::enable_if_t<std::is_base_of<F32Span, Span>::value>>
+__device__ __forceinline__ void stream_load_stage(const Span& sp, float* dst, int step,
                                                   int kchunks) {
   const int64_t r0 = sp.row0 + (int64_t)(step / kchunks) * Tile::TM;
   const int k0 = (step % kchunks) * Tile::KC;
@@ -97,11 +183,11 @@ __device__ __forceinline__ void stream_load_stage(const F32Span& sp, float* dst,
     const float* src = sp.x;
     bool ok;
     if (r < Tile::TM) {
-      ok = r0 + r < sp.row_end && d < sp.D;
+      ok = r0 + r < sp.row_end && d < sp.D && sp.row_live(r0 + r);
       if (ok) src = sp.x + (r0 + r) * sp.D + d;
     } else {
       ok = r - Tile::TM < sp.nq && d < sp.D;
-      if (ok) src = sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D + d;
+      if (ok) src = sp.query_row(r - Tile::TM) + d;
     }
     if (sp.vec) {
       cp_async16(dst + r * Tile::kStride + col, src, ok ? 16 : 0);
@@ -175,7 +261,7 @@ __device__ __forceinline__ int span_kchunks(int D, int KC) {
 // acc[j] op= the thread's row against query j over one stage, dimension by
 // dimension (a rolled step: one dimension an iteration, TN steps).
 template <class Tile, class Step>
-__device__ __forceinline__ void stream_stage(const float* st,
+__device__ __forceinline__ void stream_stage(const F32Span&, const float* st,
                                              typename Step::Value (&acc)[Tile::TN],
                                              const Step& step) {
   const float* xs = st + threadIdx.x * Tile::kStride;
@@ -203,15 +289,106 @@ __device__ __forceinline__ void stream_stage(const float* st,
   }
 }
 
+// ── the bytes route over bf16 rows (K9) ──────────────────────────────────
+
+// BytesTile's shape over the centred bf16 copy: a stage holds the tile's
+// 128 rows x 32 dimensions as bf16 (80 bytes a row: its 16-byte reads fall
+// on distinct banks), then the QB queries' 32 f32 values, then the mean's
+// 32 values; three stages (38 KB at QB = 16). Every copy is 16 bytes
+// (Bf16Span::vec: D % 8 == 0, aligned bases; any other shape takes the FMA
+// route). Thread t converts its row's values to f32 and adds the mean, one
+// rounded add each, once for all the queries.
+template <int QB>
+struct Bf16BytesTile {
+  static constexpr int TM = 128, TN = QB, KC = 32, kStages = 3;
+  static constexpr int kThreads = TM;
+  static constexpr int kXStride = KC + 8;  // bf16 a staged row
+  static constexpr int kQStride = KC + 4;  // floats a staged query
+  static constexpr int kXBytes = TM * kXStride * 2;
+  static constexpr int kStageFloats = kXBytes / 4 + TN * kQStride + KC;
+  static constexpr size_t kSmem = (size_t)kStages * kStageFloats * sizeof(float);
+};
+
+template <class Tile>
+__device__ __forceinline__ void stream_load_stage(const Bf16Span& sp, float* dst, int step,
+                                                  int kchunks) {
+  const int64_t r0 = sp.row0 + (int64_t)(step / kchunks) * Tile::TM;
+  const int k0 = (step % kchunks) * Tile::KC;
+  constexpr int kRow = Tile::KC / 8, kQuery = Tile::KC / 4;  // 16-byte copies a row, a query
+  constexpr int kRows = Tile::TM * kRow, kQueries = kRows + Tile::TN * kQuery;
+  unsigned char* xs = reinterpret_cast<unsigned char*>(dst);
+  float* qs = dst + Tile::kXBytes / 4;
+  for (int c = threadIdx.x; c < kQueries + kQuery; c += Tile::kThreads) {
+    if (c < kRows) {
+      const int r = c / kRow, col = (c % kRow) * 8, d = k0 + col;
+      const bool ok = r0 + r < sp.row_end && d < sp.D;
+      cp_async16(xs + (r * Tile::kXStride + col) * 2, ok ? sp.x16 + (r0 + r) * sp.D + d : sp.x16,
+                 ok ? 16 : 0);
+    } else if (c < kQueries) {
+      const int j = (c - kRows) / kQuery, col = ((c - kRows) % kQuery) * 4, d = k0 + col;
+      const bool ok = j < sp.nq && d < sp.D;
+      cp_async16(qs + j * Tile::kQStride + col, ok ? sp.q + (int64_t)(sp.q0 + j) * sp.D + d : sp.q,
+                 ok ? 16 : 0);
+    } else {
+      const int col = (c - kQueries) * 4, d = k0 + col;
+      cp_async16(qs + Tile::TN * Tile::kQStride + col, d < sp.D ? sp.mean + d : sp.mean,
+                 d < sp.D ? 16 : 0);
+    }
+  }
+}
+
+template <class Tile, class Step>
+__device__ __forceinline__ void stream_stage(const Bf16Span&, const float* st,
+                                             typename Step::Value (&acc)[Tile::TN],
+                                             const Step& step) {
+  const __nv_bfloat16* xs =
+      reinterpret_cast<const __nv_bfloat16*>(st) + threadIdx.x * Tile::kXStride;
+  const float* qs = st + Tile::kXBytes / 4;
+  const float* ms = qs + Tile::TN * Tile::kQStride;
+  if constexpr (Step::kRolled) {
+#pragma unroll 1
+    for (int k = 0; k < Tile::KC; ++k) {
+      const float xv = __fadd_rn(__bfloat162float(xs[k]), ms[k]);
+#pragma unroll
+      for (int j = 0; j < Tile::TN; ++j) step(acc[j], xv, qs[j * Tile::kQStride + k]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < Tile::KC; k += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(xs + k);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      float xv[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xv[2 * e] = __fadd_rn(__uint_as_float(w[e] << 16), ms[k + 2 * e]);
+        xv[2 * e + 1] = __fadd_rn(__uint_as_float(w[e] & 0xffff0000u), ms[k + 2 * e + 1]);
+      }
+#pragma unroll
+      for (int j = 0; j < Tile::TN; ++j) {
+        const float4 qa = *reinterpret_cast<const float4*>(qs + j * Tile::kQStride + k);
+        const float4 qb = *reinterpret_cast<const float4*>(qs + j * Tile::kQStride + k + 4);
+        step(acc[j], xv[0], qa.x);
+        step(acc[j], xv[1], qa.y);
+        step(acc[j], xv[2], qa.z);
+        step(acc[j], xv[3], qa.w);
+        step(acc[j], xv[4], qb.x);
+        step(acc[j], xv[5], qb.y);
+        step(acc[j], xv[6], qb.z);
+        step(acc[j], xv[7], qb.w);
+      }
+    }
+  }
+}
+
 // The bytes route over the block's span (Step: the inner step, FmaStep's dot
 // product unless given): epi(tile_row, acc) after each tile's last stage,
 // acc[j] the running value of row tile_row + thread against query q0 + j
 // (rows past the span and queries past the group run on zeros and are the
 // epilogue's to skip). `ring` is Tile::kSmem bytes of dynamic shared memory.
-// The ring runs on across tile boundaries.
-template <class Tile, class Step = FmaStep, class Epi>
-__device__ __forceinline__ void stream_span_scores(const F32Span& sp, float* ring,
-                                                   const Epi& epi) {
+// The ring runs on across tile boundaries. Span: F32Span or ProbeSpan with
+// BytesTile, Bf16Span with Bf16BytesTile.
+template <class Tile, class Step = FmaStep, class Span, class Epi>
+__device__ __forceinline__ void stream_span_scores(const Span& sp, float* ring, const Epi& epi) {
   const int kchunks = span_kchunks(sp.D, Tile::KC);
   const int tiles = (int)((sp.row_end - sp.row0 + Tile::TM - 1) / Tile::TM);
   const int steps = tiles * kchunks;
@@ -229,7 +406,7 @@ __device__ __forceinline__ void stream_span_scores(const F32Span& sp, float* rin
       stream_load_stage<Tile>(sp, ring + (next % Tile::kStages) * Tile::kStageFloats, next,
                               kchunks);
     cp_async_commit();
-    stream_stage<Tile>(ring + (s % Tile::kStages) * Tile::kStageFloats, acc, Step{});
+    stream_stage<Tile>(sp, ring + (s % Tile::kStages) * Tile::kStageFloats, acc, Step{});
     if (s % kchunks != kchunks - 1) continue;
     epi(sp.row0 + (int64_t)(s / kchunks) * Tile::TM, acc);
 #pragma unroll
@@ -272,10 +449,11 @@ struct FmaTile {
 
 // The next stage's 16-byte pieces, loaded into registers while the current
 // stage computes: piece c = thread + 256 p covers dimensions 4 (c % (KC /
-// 4)) .. of row c / (KC / 4) (the rows, then the queries); zeros past D, the
-// span and the group.
-template <class Tile>
-__device__ __forceinline__ void fma_load(const F32Span& sp, int step, int kchunks,
+// 4)) .. of row c / (KC / 4) (the rows, then the queries), as the span
+// reads them (row_piece, query_piece); zeros past D, the span and the group,
+// and for a row that is not row_live().
+template <class Tile, class Span>
+__device__ __forceinline__ void fma_load(const Span& sp, int step, int kchunks,
                                          float4 (&pf)[Tile::kLoads]) {
   const int64_t r0 = sp.row0 + (int64_t)(step / kchunks) * Tile::TM;
   const int k0 = (step % kchunks) * Tile::KC;
@@ -284,21 +462,12 @@ __device__ __forceinline__ void fma_load(const F32Span& sp, int step, int kchunk
   for (int p = 0; p < Tile::kLoads; ++p) {
     const int c = threadIdx.x + p * Tile::kThreads, r = c / kPieces;
     const int d = k0 + 4 * (c % kPieces);
-    const float* src = nullptr;
-    if (r < Tile::TM) {
-      if (r0 + r < sp.row_end) src = sp.x + (r0 + r) * sp.D;
-    } else if (r < Tile::TM + Tile::TN && r - Tile::TM < sp.nq) {
-      src = sp.q + (int64_t)(sp.q0 + r - Tile::TM) * sp.D;
-    }
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (src != nullptr && d < sp.D) {
-      if (sp.vec) {
-        v = __ldg(reinterpret_cast<const float4*>(src + d));
-      } else {
-        v.x = __ldg(src + d);
-        if (d + 1 < sp.D) v.y = __ldg(src + d + 1);
-        if (d + 2 < sp.D) v.z = __ldg(src + d + 2);
-        if (d + 3 < sp.D) v.w = __ldg(src + d + 3);
+    if (d < sp.D) {
+      if (r < Tile::TM) {
+        if (r0 + r < sp.row_end && sp.row_live(r0 + r)) v = sp.row_piece(r0 + r, d);
+      } else if (r < Tile::TM + Tile::TN && r - Tile::TM < sp.nq) {
+        v = sp.query_piece(r - Tile::TM, d);
       }
     }
     pf[p] = v;
@@ -404,8 +573,8 @@ __device__ __forceinline__ void fma_scores_to_smem(
 // barrier lies between; when it has one (D <= KC), every step is a last one,
 // and a barrier after the epilogue keeps a fast warp from overwriting scores
 // that others still read.
-template <class Tile, class Step = FmaStep, class Epi>
-__device__ __forceinline__ void fma_span_scores(const F32Span& sp, float* smem, const Epi& epi) {
+template <class Tile, class Step = FmaStep, class Span, class Epi>
+__device__ __forceinline__ void fma_span_scores(const Span& sp, float* smem, const Epi& epi) {
   const int kchunks = span_kchunks(sp.D, Tile::KC);
   const int tiles = (int)((sp.row_end - sp.row0 + Tile::TM - 1) / Tile::TM);
   const int steps = tiles * kchunks;

@@ -7,16 +7,47 @@
 // (:66-77: gather the probed blocks, D.pairwise at Precision.HIGHEST, mask),
 // so the scores are true f32 (FMA, no TF32).
 //
-// Bound: bytes. Each probed block is 1 MB of f32 rows (2,048 x 128); a batch
-// reads every distinct probed block at least once, and B * nprobe * blocks
-// per cluster keys are written. The flops (2 * D per row) are far below the
-// f32 rate.
-// Design: one block of 256 threads per (query, slot). It looks the slot's
-// block up (top_c -> cluster_blocks), stages the query in shared memory, and
-// each warp scores one row at a time: lanes stride over D, so a row is read
-// as whole 128-byte lines, and a shuffle reduction sums. The epilogue forms
-// IP, L2 or cosine from the dot product and the row's precomputed |x|^2,
-// exactly as D.pairwise does.
+// Bound (tools/roofline.py ivf_probe_bound): bytes. Each distinct probed
+// block's 2,048 row ids, the live flags of its real rows and the f32 data
+// (and |x|^2) of its live rows read once, and the B * nprobe * max_bpc *
+// 2,048 keys written; an FMA a dimension of each scored pair is far below
+// the f32 rate until hundreds of queries share a block.
+// Design: three routes. index/ivf.py _scan_route takes the rows route up to
+// SCAN_ROWS_MAX_B queries, else the shared launch, in which the card picks
+// the tile or the warp route by how many probes share each probed block
+// (ivf_pairs_kernel, from the tile route's lists; no host round trip), as
+// measured (PERF.md §6). On the rows
+// and tile routes every key is one f32 FMA chain over the dimensions in
+// order (f32_tile.cuh, no TF32), keyed by probe_key, so the two give the
+// same bits; a row's id and live flag are read before its data, a dead row's
+// data and anything past a block's last real row are never read.
+//   rows (small B)  a block of 128 threads per (query, slot, quarter of the
+//                   block: 512 rows): a slot past its cluster's blocks is
+//                   -inf at once; else f32_tile.cuh's bytes route streams
+//                   the quarter's rows up to its last real one through a
+//                   3-deep cp.async ring of 16-byte copies, a row a thread,
+//                   the query beside them: every row's loads in flight.
+//   tile (blocks    the probe inverted, as K16b's: on the card, each
+//   shared)         probe counted against its cluster, a one-block scan
+//                   giving each cluster's list offset and listing the probed
+//                   (cluster, block) pairs, each probe placed in its
+//                   cluster's list; a grid over that list (blocks past its
+//                   count exit at once) gives each pair a block of 128
+//                   threads per quarter of its rows, which reads its
+//                   cluster's probes (sorted into probe order) and, for each
+//                   tile of 32 of them, runs f32_tile.cuh's FMA route
+//                   (128-row x 32-query register tiles, 8 x 4 a thread) over
+//                   its rows up to their last real one, each read once for
+//                   the tile; keys go to each probe's slot. A slot past its
+//                   cluster's blocks is -inf by a pass of its own
+//                   (ivf_empty_kernel).
+//   warp (blocks    the port's first design: a block of 256 threads per
+//   rarely shared)  (query, slot), each warp one row at a time, lanes
+//                   striding over D and a shuffle sum; each probed block is
+//                   read once per query that probes it, and its keys may
+//                   differ from the other routes' in the last bits. In the
+//                   shared launch its blocks exit at once where the tile was
+//                   chosen, and the tile kernel's where the warp was.
 //
 // K16b, the binary form (IVF-HAMMING, IVF-JACCARD): the same scan over blocks
 // of bit-packed rows (2,048 rows x ceil(D / 32) uint32 words, with each row's
@@ -50,36 +81,130 @@
 // live flag and its words (16-byte loads where W % 4 == 0) are loaded
 // together once the id says the row is real, the popcount runs in registers
 // against the query's words in shared memory, with no shuffle.
+#include <algorithm>
+
 #include "common.cuh"
+#include "f32_tile.cuh"
 #include "mma_int.cuh"
 
 namespace {
 
 constexpr int kBlockRows = 2048;  // index/ivf.py BLOCK_SIZE
-constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-    ivf_scan_blocks_kernel(const float* __restrict__ q, const float* __restrict__ qsq,
-                           const int* __restrict__ top_c, int nprobe,
-                           const int* __restrict__ cluster_blocks, int max_bpc,
-                           const float* __restrict__ blocks, const float* __restrict__ block_sq,
-                           const int* __restrict__ block_orig, const uint8_t* __restrict__ live,
-                           int D, int metric, bool ascending, float* __restrict__ keys) {
+// ---- K16 ----
+
+using RowTile = lt::BytesTile<1>;          // the row route: a row a thread
+constexpr int kRowRouteParts = 4;          // blocks of threads a slot
+constexpr int kPartRows = kBlockRows / kRowRouteParts;
+using ProbeTile = lt::FmaTile<32, 4, 16>;  // the tile route: 32 probes x 128 rows
+constexpr int kProbeCap = 1024;            // probes a round of a block's list
+constexpr int kFillThreads = 128;
+constexpr int kWarpThreads = 256;          // the warp route's block
+// lt_ivf_scan_blocks's routes (index/ivf.py SCAN_ROUTES)
+constexpr int kRowsRoute = 0, kTileRoute = 1, kWarpRoute = 2, kSharedRoute = 3;
+
+// A row's key from its dot product with the query and the two squared norms,
+// as D.pairwise forms it; both routes form every key with it.
+__device__ __forceinline__ float probe_key(float ip, float q_sq, float x_sq, int metric,
+                                           bool ascending) {
+  float score;
+  if (metric == lt::kIP) {
+    score = ip;
+  } else if (metric == lt::kL2) {
+    score = lt::clamp_nonneg(__fmaf_rn(-2.f, ip, __fadd_rn(q_sq, x_sq)));
+  } else {
+    score = lt::cosine_distance(ip, sqrtf(q_sq * x_sq));
+  }
+  return lt::to_key(score, ascending, true);
+}
+
+// Writes -inf to n floats from out (16-byte aligned, n % 4 == 0).
+__device__ __forceinline__ void fill_neg(float* out, int n, int threads) {
+  const float4 neg = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+  for (int e = threadIdx.x; e < n / 4; e += threads) reinterpret_cast<float4*>(out)[e] = neg;
+}
+
+// The row route: part blockIdx.z (512 rows) of slot blockIdx.x of query
+// blockIdx.y. A slot past its cluster's blocks is -inf at once. Otherwise
+// the part's row ids come first, with each real row's live flag, and give
+// the part's last real row; then f32_tile.cuh's bytes route streams the
+// rows up to it through its cp.async ring (a dead row is never read), the
+// query beside them, and each thread keys its row.
+__global__ void __launch_bounds__(RowTile::kThreads)
+    ivf_rows_kernel(const float* __restrict__ q, const float* __restrict__ qsq,
+                    const int* __restrict__ top_c, int nprobe,
+                    const int* __restrict__ cluster_blocks, int max_bpc,
+                    const float* __restrict__ blocks, const float* __restrict__ block_sq,
+                    const int* __restrict__ block_orig, const uint8_t* __restrict__ live, int D,
+                    int metric, bool ascending, bool vec, float* __restrict__ keys) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ uint8_t flags[kPartRows];
+  __shared__ int last_real;
+  const int s = blockIdx.x, b = blockIdx.y, slots = gridDim.x;
+  const int p0 = blockIdx.z * kPartRows;
+  float* out = keys + ((int64_t)b * slots + s) * kBlockRows + p0;
+  const int cluster = top_c[(int64_t)b * nprobe + s / max_bpc];
+  const int blk = cluster_blocks[(int64_t)cluster * max_bpc + s % max_bpc];
+  if (blk < 0) {  // the cluster has fewer blocks than the widest one
+    fill_neg(out, kPartRows, RowTile::kThreads);
+    return;
+  }
+  const int64_t row0 = (int64_t)blk * kBlockRows + p0;
+  if (threadIdx.x == 0) last_real = -1;
+  __syncthreads();
+  int last = -1;
+  for (int r = threadIdx.x; r < kPartRows; r += RowTile::kThreads) {
+    const int orig = __ldg(block_orig + row0 + r);
+    flags[r] = orig >= 0 && __ldg(live + orig) != 0;
+    if (orig >= 0) last = r;
+  }
+  if (last >= 0) atomicMax(&last_real, last);
+  __syncthreads();
+  const int fill = last_real + 1;
+  for (int r = fill + threadIdx.x; r < kPartRows; r += RowTile::kThreads) out[r] = -INFINITY;
+  if (fill == 0) return;
+  const float q_sq = metric == lt::kIP ? 0.f : qsq[b];
+  const lt::ProbeSpan sp{{q, blocks, D, vec, b, 1, row0, row0 + fill}, flags, row0, nullptr, 0};
+  const auto epi = [&](int64_t tile_row, const float (&acc)[1]) {
+    const int r = (int)(tile_row - row0) + threadIdx.x;
+    if (r >= fill) return;
+    const float x_sq = flags[r] && metric != lt::kIP ? __ldg(block_sq + row0 + r) : 0.f;
+    out[r] = flags[r] ? probe_key(acc[0], q_sq, x_sq, metric, ascending) : -INFINITY;
+  };
+  lt::stream_span_scores<RowTile>(sp, ring, epi);
+}
+
+// The warp route (the port's first design, kept where it measured faster:
+// the shared route's batches whose probes rarely share a block): a block of
+// 256 threads per (query blockIdx.y, slot blockIdx.x), each warp one row at
+// a time, lanes striding over D and a shuffle sum, so its keys may differ
+// from the other routes' in the last bits (within K16's tolerance of the
+// plain version). ``chosen`` (the shared route's flag, null when forced):
+// every block exits at once unless it is kWarpRoute.
+__global__ void __launch_bounds__(kWarpThreads)
+    ivf_warp_kernel(const float* __restrict__ q, const float* __restrict__ qsq,
+                    const int* __restrict__ top_c, int nprobe,
+                    const int* __restrict__ cluster_blocks, int max_bpc,
+                    const float* __restrict__ blocks, const float* __restrict__ block_sq,
+                    const int* __restrict__ block_orig, const uint8_t* __restrict__ live, int D,
+                    int metric, bool ascending, const int* __restrict__ chosen,
+                    float* __restrict__ keys) {
   extern __shared__ float qs[];  // (D,)
+  if (chosen != nullptr && *chosen != kWarpRoute) return;  // the shared launch took the tile
   const int s = blockIdx.x, b = blockIdx.y, slots = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* out = keys + ((int64_t)b * slots + s) * kBlockRows;
   const int cluster = top_c[(int64_t)b * nprobe + s / max_bpc];
   const int blk = cluster_blocks[(int64_t)cluster * max_bpc + s % max_bpc];
   if (blk < 0) {  // the cluster has fewer blocks than the widest one
-    for (int e = threadIdx.x; e < kBlockRows; e += kThreads) out[e] = -INFINITY;
+    fill_neg(out, kBlockRows, kWarpThreads);
     return;
   }
-  for (int d = threadIdx.x; d < D; d += kThreads) qs[d] = q[(int64_t)b * D + d];
+  for (int d = threadIdx.x; d < D; d += kWarpThreads) qs[d] = q[(int64_t)b * D + d];
   __syncthreads();
   const float q_sq = metric == lt::kIP ? 0.f : qsq[b];
   const int64_t row0 = (int64_t)blk * kBlockRows;
-  for (int r = warp; r < kBlockRows; r += kThreads / 32) {
+  for (int r = warp; r < kBlockRows; r += kWarpThreads / 32) {
     const int orig = block_orig[row0 + r];
     float key = -INFINITY;
     if (orig >= 0 && live[orig]) {  // uniform across the warp
@@ -98,6 +223,199 @@ __global__ void __launch_bounds__(kThreads)
       key = lt::to_key(score, ascending, true);
     }
     if (lane == 0) out[r] = key;
+  }
+}
+
+// The tile route's lists, built on the card before it: each probe (b *
+// nprobe + p) counted against its cluster (the count before it is its slot
+// in the cluster's list; counts zeroed before) ...
+__global__ void ivf_count_kernel(const int* __restrict__ top_c, int64_t probes,
+                                 int* __restrict__ counts, int* __restrict__ slot) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < probes) slot[e] = atomicAdd(&counts[top_c[e]], 1);
+}
+
+// ... then one block scans the counts into each cluster's list offset and
+// lists each probed cluster's blocks in cluster order, as c * max_bpc + j
+// (j < the cluster's blocks), with their count, and picks the route: the
+// tile where the (probe, block) pairs scanned are at least min_share times
+// the listed blocks, else the warp route, whose choice empties the list
+// (*pairs_n = 0: the tile kernel's blocks exit at once) ...
+__global__ void __launch_bounds__(1024)
+    ivf_pairs_kernel(const int* __restrict__ counts, const int* __restrict__ cluster_blocks,
+                     int n_clusters, int max_bpc, float min_share, int* __restrict__ offsets,
+                     int* __restrict__ pairs, int* __restrict__ pairs_n,
+                     int* __restrict__ chosen) {
+  __shared__ int warp_sum[2][32];
+  __shared__ int base[2];  // probes, pairs
+  __shared__ unsigned long long scanned;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    base[0] = base[1] = 0;
+    scanned = 0;
+  }
+  unsigned long long mine = 0;  // this thread's clusters' (probe, block) pairs
+  for (int c0 = 0; c0 < n_clusters; c0 += 1024) {
+    const int c = c0 + threadIdx.x;
+    const int probes = c < n_clusters ? counts[c] : 0;
+    int nb = 0;
+    if (probes > 0)
+      while (nb < max_bpc && cluster_blocks[(int64_t)c * max_bpc + nb] >= 0) ++nb;
+    mine += (unsigned long long)probes * nb;
+    int x[2] = {probes, nb};  // inclusive scans over the warp, then the warps
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x[k], o);
+        if (lane >= o) x[k] += y;
+      }
+      if (lane == 31) warp_sum[k][warp] = x[k];
+    }
+    __syncthreads();
+    if (warp < 2) {
+      int w = warp_sum[warp][lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_sum[warp][lane] = w;
+    }
+    __syncthreads();
+    const int total[2] = {warp_sum[0][31], warp_sum[1][31]};
+    const int before[2] = {warp > 0 ? warp_sum[0][warp - 1] : 0,
+                           warp > 0 ? warp_sum[1][warp - 1] : 0};
+    if (c < n_clusters) offsets[c] = base[0] + before[0] + x[0] - probes;
+    const int at = base[1] + before[1] + x[1] - nb;
+    for (int i = 0; i < nb; ++i) pairs[at + i] = c * max_bpc + i;
+    __syncthreads();  // every thread has read base and warp_sum
+    if (threadIdx.x == 0) {
+      base[0] += total[0];
+      base[1] += total[1];
+    }
+  }
+  __syncthreads();
+  if (mine > 0) atomicAdd(&scanned, mine);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool tile = (double)scanned >= (double)min_share * (double)base[1];
+    *chosen = tile ? kTileRoute : kWarpRoute;
+    *pairs_n = tile ? base[1] : 0;
+  }
+}
+
+// ... and each probe placed in its cluster's list (in the atomics' order;
+// the tile kernel sorts each list).
+__global__ void ivf_place_kernel(const int* __restrict__ top_c, int64_t probes,
+                                 const int* __restrict__ offsets, const int* __restrict__ slot,
+                                 int* __restrict__ plist) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < probes) plist[offsets[top_c[e]] + slot[e]] = (int)e;
+}
+
+// Slots past their cluster's blocks: -inf (the tile route's; a block a slot).
+__global__ void __launch_bounds__(kFillThreads)
+    ivf_empty_kernel(const int* __restrict__ top_c, int nprobe,
+                     const int* __restrict__ cluster_blocks, int max_bpc,
+                     float* __restrict__ keys) {
+  const int s = blockIdx.x, b = blockIdx.y;
+  const int cluster = top_c[(int64_t)b * nprobe + s / max_bpc];
+  if (cluster_blocks[(int64_t)cluster * max_bpc + s % max_bpc] >= 0) return;
+  fill_neg(keys + ((int64_t)b * gridDim.x + s) * kBlockRows, kBlockRows, kFillThreads);
+}
+
+// Sorts list[0, n) ascending in shared memory (a bitonic network over the
+// next power of two, INT_MAX past n). Every thread of the block calls it.
+template <int kThreads>
+__device__ __forceinline__ void sort_probes(int* list, int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  for (int i = n + threadIdx.x; i < p; i += kThreads) list[i] = INT_MAX;
+  __syncthreads();
+  for (int size = 2; size <= p; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < p / 2; t += kThreads) {
+        const int i = 2 * t - (t & (stride - 1)), k = i + stride;
+        const int a = list[i], b = list[k];
+        if (((i & size) == 0) == (a > b)) {
+          list[i] = b;
+          list[k] = a;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+// The tile route: part blockIdx.x % kRowRouteParts (512 rows) of listed block
+// pairs[blockIdx.x / parts] (cluster c, its block j), for every probe of c:
+// the part's row ids first (each real row's live flag, its last real row),
+// the cluster's probes from its list in probe order (rounds of kProbeCap),
+// then for each tile of up to 32 probes f32_tile.cuh's FMA route streams the
+// part's rows up to its last real one once (a dead row is never read), each
+// query one f32 FMA chain in dimension order, and each key goes to its
+// probe's slot; the part's rows past its last real one are -inf.
+__global__ void __launch_bounds__(ProbeTile::kThreads)
+    ivf_tile_kernel(const float* __restrict__ q, const float* __restrict__ qsq, int nprobe,
+                    const int* __restrict__ cluster_blocks, int max_bpc,
+                    const int* __restrict__ pairs, const int* __restrict__ pairs_n,
+                    const int* __restrict__ counts, const int* __restrict__ offsets,
+                    const int* __restrict__ plist, const float* __restrict__ blocks,
+                    const float* __restrict__ block_sq, const int* __restrict__ block_orig,
+                    const uint8_t* __restrict__ live, int D, int metric, bool ascending,
+                    bool vec, float* __restrict__ keys) {
+  extern __shared__ __align__(16) float tile_stages[];
+  __shared__ int list[kProbeCap];
+  __shared__ uint8_t flags[kPartRows];
+  __shared__ float q_sq[ProbeTile::TN];
+  __shared__ int last_real;
+  const int pair = blockIdx.x / kRowRouteParts, p0 = (blockIdx.x % kRowRouteParts) * kPartRows;
+  if (pair >= *pairs_n) return;
+  const int cj = pairs[pair], c = cj / max_bpc, j = cj % max_bpc;
+  const int64_t row0 = (int64_t)cluster_blocks[cj] * kBlockRows + p0;
+  if (threadIdx.x == 0) last_real = -1;
+  __syncthreads();
+  int last = -1;
+  for (int r = threadIdx.x; r < kPartRows; r += ProbeTile::kThreads) {
+    const int orig = __ldg(block_orig + row0 + r);
+    flags[r] = orig >= 0 && __ldg(live + orig) != 0;
+    if (orig >= 0) last = r;
+  }
+  if (last >= 0) atomicMax(&last_real, last);
+  const int found = counts[c], first = offsets[c];
+  for (int l0 = 0; l0 < found; l0 += kProbeCap) {
+    const int nl = min(kProbeCap, found - l0);
+    __syncthreads();  // flags and last_real written; the last round's list read
+    for (int i = threadIdx.x; i < nl; i += ProbeTile::kThreads) list[i] = plist[first + l0 + i];
+    sort_probes<ProbeTile::kThreads>(list, nl);
+    const int fill = last_real + 1;
+    for (int i = 0; i < nl; ++i) {  // the part's rows past its last real one
+      float* out = keys + ((int64_t)list[i] * max_bpc + j) * kBlockRows + p0;
+      for (int r = fill + threadIdx.x; r < kPartRows; r += ProbeTile::kThreads) out[r] = -INFINITY;
+    }
+    for (int t0 = 0; t0 < nl && fill > 0; t0 += ProbeTile::TN) {
+      const int nq = min(ProbeTile::TN, nl - t0);
+      for (int i = threadIdx.x; i < nq; i += ProbeTile::kThreads)
+        q_sq[i] = metric == lt::kIP ? 0.f : qsq[list[t0 + i] / nprobe];
+      // read after fma_span_scores's first barrier
+      const lt::ProbeSpan sp{{q, blocks, D, vec, t0, nq, row0, row0 + fill}, flags, row0, list,
+                             nprobe};
+      // row rr's key for probe k of the tile from its dot product
+      const auto put = [&](int rr, int k, float ip) {
+        const bool ok = flags[rr] != 0;
+        const float x_sq = ok && metric != lt::kIP ? __ldg(block_sq + row0 + rr) : 0.f;
+        float* out = keys + ((int64_t)list[t0 + k] * max_bpc + j) * kBlockRows + p0;
+        out[rr] = ok ? probe_key(ip, q_sq[k], x_sq, metric, ascending) : -INFINITY;
+      };
+      const auto epi = [&](int64_t tile_row, const float* sc) {
+        const int r = threadIdx.x % ProbeTile::TM, rr = (int)(tile_row - row0) + r;
+        if (rr >= fill) return;
+        for (int k = threadIdx.x / ProbeTile::TM; k < nq; k += ProbeTile::kThreads / ProbeTile::TM)
+          put(rr, k, sc[k * ProbeTile::kScoreStride + r]);
+      };
+      lt::fma_span_scores<ProbeTile>(sp, tile_stages, epi);
+      __syncthreads();  // q_sq, the stages and the score tile are reused
+    }
   }
 }
 
@@ -373,23 +691,99 @@ __global__ void __launch_bounds__(lt::kIntThreads, 2)
 }  // namespace
 
 // q (B, D) f32, qsq (B,) f32 (L2 / cosine; null for IP), top_c (B, nprobe)
-// int32 probed clusters, cluster_blocks (Kc, max_bpc) int32 (-1 padded),
-// blocks (n_blocks, 2048, D) f32, block_sq (n_blocks * 2048,) f32 (L2 /
-// cosine; null for IP), block_orig (n_blocks * 2048,) int32 (-1 = padding),
-// live (rows,) uint8 -> keys (B, nprobe * max_bpc * 2048) f32.
+// int32 probed clusters, cluster_blocks (n_clusters, max_bpc) int32 (-1
+// padded), blocks (n_blocks, 2048, D) f32, block_sq (n_blocks * 2048,) f32
+// (L2 / cosine; null for IP), block_orig (n_blocks * 2048,) int32 (-1 =
+// padding), live (rows,) uint8 -> keys (B, nprobe * max_bpc * 2048) f32.
+// route (index/ivf.py SCAN_ROUTES): 0 a row a thread, 1 the probe inverted
+// (scratch: lt_ivf_scan_scratch int32 for its lists), 2 a warp a row, 3
+// shared: the tile route's lists built, then on the card the tile where the
+// (probe, block) pairs scanned are at least min_share times the distinct
+// blocks probed, else the warp route (scratch as the tile's; unused by 0
+// and 2).
 extern "C" int lt_ivf_scan_blocks(const float* q, const float* qsq, const int* top_c, int B,
-                                  int nprobe, const int* cluster_blocks, int max_bpc,
-                                  const float* blocks, const float* block_sq,
-                                  const int* block_orig, const uint8_t* live, int D, int metric,
-                                  int ascending, float* keys, cudaStream_t stream) {
+                                  int nprobe, const int* cluster_blocks, int n_clusters,
+                                  int max_bpc, const float* blocks, int n_blocks,
+                                  const float* block_sq, const int* block_orig,
+                                  const uint8_t* live, int D, int metric, int ascending,
+                                  int route, float min_share, int* scratch, float* keys,
+                                  cudaStream_t stream) {
   const long long slots = (long long)nprobe * max_bpc;
-  if (B < 1 || B > 65535 || nprobe < 1 || max_bpc < 1 || slots > INT_MAX || D < 1 ||
-      D > 12 * 1024 || (metric != lt::kIP && (qsq == nullptr || block_sq == nullptr)))
+  if (B < 1 || B > 65535 || nprobe < 1 || max_bpc < 1 || n_clusters < 1 || n_blocks < 1 ||
+      slots > INT_MAX || (long long)n_clusters * max_bpc > INT_MAX || D < 1 ||
+      (metric != lt::kIP && (qsq == nullptr || block_sq == nullptr)) || !lt::aligned16(keys) ||
+      route < kRowsRoute || route > kSharedRoute || !(min_share >= 0.f) ||
+      (route >= kWarpRoute && D > 12 * 1024))  // the warp route's query in shared memory
     return (int)cudaErrorInvalidValue;
-  ivf_scan_blocks_kernel<<<dim3((unsigned)slots, B), kThreads, (size_t)D * sizeof(float),
-                           stream>>>(q, qsq, top_c, nprobe, cluster_blocks, max_bpc, blocks,
-                                     block_sq, block_orig, live, D, metric, ascending != 0, keys);
+  const bool vec = D % 4 == 0 && lt::aligned16(q) && lt::aligned16(blocks);
+  if (route == kRowsRoute) {
+    static bool raised = false;
+    if (!raised) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          ivf_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)RowTile::kSmem);
+      if (err != cudaSuccess) return (int)err;
+      raised = true;
+    }
+    ivf_rows_kernel<<<dim3((unsigned)slots, B, kRowRouteParts), RowTile::kThreads,
+                      RowTile::kSmem, stream>>>(q, qsq, top_c, nprobe, cluster_blocks, max_bpc,
+                                                blocks, block_sq, block_orig, live, D, metric,
+                                                ascending != 0, vec, keys);
+    return (int)cudaGetLastError();
+  }
+  if (route == kWarpRoute) {
+    ivf_warp_kernel<<<dim3((unsigned)slots, B), kWarpThreads, (size_t)D * sizeof(float),
+                      stream>>>(q, qsq, top_c, nprobe, cluster_blocks, max_bpc, blocks, block_sq,
+                                block_orig, live, D, metric, ascending != 0, nullptr, keys);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  static bool raised = false;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ivf_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ProbeTile::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    raised = true;
+  }
+  const long long probes = (long long)B * nprobe;
+  if (probes > INT_MAX) return (int)cudaErrorInvalidValue;
+  int* counts = scratch;                  // n_clusters
+  int* offsets = counts + n_clusters;     // n_clusters
+  int* pairs_n = offsets + n_clusters;    // 1
+  int* chosen = pairs_n + 1;              // 1: the route the pairs kernel picked
+  int* pairs = chosen + 1;                // n_clusters * max_bpc
+  int* slot = pairs + (int64_t)n_clusters * max_bpc;  // probes
+  int* plist = slot + probes;             // probes
+  const cudaError_t err = cudaMemsetAsync(counts, 0, (size_t)n_clusters * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned probe_blocks = (unsigned)((probes + 255) / 256);
+  ivf_count_kernel<<<probe_blocks, 256, 0, stream>>>(top_c, probes, counts, slot);
+  ivf_pairs_kernel<<<1, 1024, 0, stream>>>(counts, cluster_blocks, n_clusters, max_bpc,
+                                           route == kTileRoute ? 0.f : min_share, offsets, pairs,
+                                           pairs_n, chosen);
+  ivf_place_kernel<<<probe_blocks, 256, 0, stream>>>(top_c, probes, offsets, slot, plist);
+  ivf_empty_kernel<<<dim3((unsigned)slots, B), kFillThreads, 0, stream>>>(
+      top_c, nprobe, cluster_blocks, max_bpc, keys);
+  // the grid covers every block that can be listed; the blocks past the
+  // list's count exit at once
+  const long long listed = std::min(probes * max_bpc, (long long)n_blocks);
+  if (listed * kRowRouteParts > INT_MAX) return (int)cudaErrorInvalidValue;
+  ivf_tile_kernel<<<(unsigned)(listed * kRowRouteParts), ProbeTile::kThreads, ProbeTile::kSmem,
+                    stream>>>(q, qsq, nprobe, cluster_blocks, max_bpc, pairs, pairs_n, counts,
+                              offsets, plist, blocks, block_sq, block_orig, live, D, metric,
+                              ascending != 0, vec, keys);
+  if (route == kSharedRoute)  // its blocks exit at once where the pairs kernel chose the tile
+    ivf_warp_kernel<<<dim3((unsigned)slots, B), kWarpThreads, (size_t)D * sizeof(float),
+                      stream>>>(q, qsq, top_c, nprobe, cluster_blocks, max_bpc, blocks, block_sq,
+                                block_orig, live, D, metric, ascending != 0, chosen, keys);
   return (int)cudaGetLastError();
+}
+
+// int32 entries of lt_ivf_scan_blocks's scratch: each cluster's count of
+// probes and its list's offset, the count of listed blocks, the route the
+// pairs kernel chose and up to n_clusters x max_bpc listed blocks, each
+// probe's slot and the probe lists.
+extern "C" long long lt_ivf_scan_scratch(int n_clusters, int max_bpc, long long probes) {
+  return 2LL * n_clusters + 2 + (long long)n_clusters * max_bpc + 2 * probes;
 }
 
 // K16b. q (B, W) uint32 words of the thresholded queries, qcnt (B,) their bit

@@ -4,8 +4,11 @@ Port of lynsedb_tpu/index/ivf.py (reference behaviour: src/index/ivf.rs:19,
 src/index/spann.rs:24). Rows are gathered into cluster-contiguous blocks of
 2,048 f32 rows in device memory. A query scores the centroid table (K1
 ``flat_scores_f32``), takes the top ``nprobe`` clusters (K5
-``topk_select``), scans their blocks exactly (:func:`ivf_scan_blocks`,
-csrc/ivf_scan_blocks.cu) and takes the top ``fetch`` keys (K5). Rows added
+``topk_select``), scans their blocks exactly (K16 :func:`ivf_scan_blocks`,
+csrc/ivf_scan_blocks.cu: a row a thread for small batches, else each
+probed block read once for all its probes, or a warp a row where the
+probes rarely share a block, picked on the card) and takes the top
+``fetch`` keys (K5). Rows added
 after the build sit in an exactly scanned tail (the corpus's flat search)
 until the next commit posts them to their nearest centroids.
 
@@ -42,6 +45,19 @@ BLOCK_SIZE = 2048
 # index of 1M fingerprints the tile route wins from 32 queries; at 16 it
 # depends on how many queries share a block (tools/tile_times.py --only K16b)
 BINARY_TILE_MIN_B = 32
+# K16's routes (IP / L2 / cosine; csrc/ivf_scan_blocks.cu): up to
+# SCAN_ROWS_MAX_B queries a row a thread for each (query, slot); above, the
+# shared launch, in which the card takes the probe inverted (each probed
+# block read once for all its probes) where the (probe, block) pairs scanned
+# are at least SCAN_TILE_MIN_SHARE times the distinct blocks probed, else the
+# port's first design, a warp a row for each (query, slot). On an H100 over
+# chip_smoke.py phase 6's IVF-L2 and IVF-IP (tools/tile_times.py --only K16,
+# PERF.md §6): rows ahead of both to B = 8 (L2 0.175 ms, tile 0.186); the
+# tile ahead at 3.3 probes a probed block (L2 B = 12: 0.197 against the
+# warp's 0.222) and behind at 1.9 (IP B = 32: 0.51 against 0.36)
+SCAN_ROWS_MAX_B = 8
+SCAN_TILE_MIN_SHARE = 2.5
+SCAN_ROUTES = {"rows": 0, "tile": 1, "warp": 2, "shared": 3}
 DEFAULT_N_CLUSTERS = 256
 DEFAULT_NPROBE = 32
 DEFAULT_REPLICAS = 1
@@ -81,16 +97,63 @@ def ivf_scan_blocks(q: torch.Tensor, qsq: Optional[torch.Tensor], top_c: torch.T
                     cluster_blocks: torch.Tensor, blocks: torch.Tensor,
                     block_sq: Optional[torch.Tensor], block_orig: torch.Tensor,
                     live: torch.Tensor, metric: Metric) -> torch.Tensor:
-    """Oriented, masked exact keys (B, nprobe * max_bpc * BLOCK_SIZE) of
-    queries ``q`` (B, D) against the blocks of their probed clusters
+    """K16: oriented, masked exact keys (B, nprobe * max_bpc * BLOCK_SIZE)
+    of queries ``q`` (B, D) against the blocks of their probed clusters
     ``top_c`` (B, nprobe) int32. Slot s of a query is block
     ``cluster_blocks[top_c[s // max_bpc], s % max_bpc]``; a key is -inf where
     that is -1, where ``block_orig`` (n_blocks * BLOCK_SIZE,) is -1, or where
     ``live[orig]`` is false. ``qsq`` (B,) and ``block_sq`` are the squared
-    norms (L2 / cosine; None for IP)."""
+    norms (L2 / cosine; None for IP). The kernel's route is
+    :func:`_scan_route`'s (in the shared launch the card picks the tile or
+    the warp route: :func:`shared_route`); the rows and tile routes form
+    each key as one f32 FMA chain in dimension order (the same bits), the
+    warp route sums by lanes (within K16's tolerance of them)."""
     if q.device.type == "cpu":
         return ivf_scan_blocks_plain(q, qsq, top_c, cluster_blocks, blocks, block_sq, block_orig,
                                      live, metric)
+    return scan_blocks_route(q, qsq, top_c, cluster_blocks, blocks, block_sq, block_orig, live,
+                             metric, _scan_route(q.shape[0]))
+
+
+def _scan_route(b: int) -> str:
+    """K16's launch for a batch of ``b`` queries: rows to SCAN_ROWS_MAX_B,
+    else shared (tile or warp, picked on the card)."""
+    return "rows" if b <= SCAN_ROWS_MAX_B else "shared"
+
+
+def _probe_pairs(top_c: torch.Tensor, cluster_blocks: torch.Tensor) -> tuple[int, int]:
+    """(the (probe, block) pairs a batch ``top_c`` scans, the distinct blocks
+    they reach). One read from the device."""
+    counts = torch.bincount(top_c.reshape(-1).long(), minlength=cluster_blocks.shape[0])
+    nb = (cluster_blocks >= 0).sum(1)
+    scanned, distinct = torch.stack([(counts * nb).sum(), ((counts > 0) * nb).sum()]).tolist()
+    return int(scanned), int(distinct)
+
+
+def probe_share(top_c: torch.Tensor, cluster_blocks: torch.Tensor) -> float:
+    """Probes a probed block: the (probe, block) pairs a batch ``top_c``
+    scans over the distinct blocks they reach (how many times the rows and
+    warp routes read each block the tile route reads once)."""
+    scanned, distinct = _probe_pairs(top_c, cluster_blocks)
+    return scanned / max(distinct, 1)
+
+
+def shared_route(top_c: torch.Tensor, cluster_blocks: torch.Tensor,
+                 min_share: float = SCAN_TILE_MIN_SHARE) -> str:
+    """The route the shared launch takes on the card for a batch: tile where
+    the pairs scanned are at least ``min_share`` times the distinct blocks
+    (the kernel's own comparison), else warp. For tools and tests: it reads
+    the device."""
+    scanned, distinct = _probe_pairs(top_c, cluster_blocks)
+    return "tile" if scanned >= float(min_share) * distinct else "warp"
+
+
+def scan_blocks_route(q, qsq, top_c, cluster_blocks, blocks, block_sq, block_orig, live,
+                      metric: Metric, route: str,
+                      min_share: float = SCAN_TILE_MIN_SHARE) -> torch.Tensor:
+    """:func:`ivf_scan_blocks` on the card on ``route`` (rows, tile, warp,
+    or shared: the tile where the batch's probes share each probed block
+    ``min_share`` times or more, else the warp)."""
     code = _kernel_metric("ivf_scan_blocks", metric)
     if metric is Metric.IP:
         qsq = block_sq = None
@@ -107,15 +170,25 @@ def ivf_scan_blocks(q: torch.Tensor, qsq: Optional[torch.Tensor], top_c: torch.T
             or live.dtype != torch.bool):
         raise ValueError("ivf_scan_blocks: unexpected dtypes or shapes")
     keys = torch.empty((b, nprobe * max_bpc * BLOCK_SIZE), dtype=torch.float32, device=q.device)
+    n_clusters = cluster_blocks.shape[0]
+    lists = route in ("tile", "shared")
+    scratch = torch.empty(int(_cuda.library().lt_ivf_scan_scratch(n_clusters, max_bpc,
+                                                                  b * nprobe)) if lists else 0,
+                          dtype=torch.int32, device=q.device)
     _cuda.call("lt_ivf_scan_blocks", q.data_ptr(), _cuda.ptr(qsq), top_c.data_ptr(), b, nprobe,
-               cluster_blocks.data_ptr(), max_bpc, blocks.data_ptr(), _cuda.ptr(block_sq),
-               block_orig.data_ptr(), live.data_ptr(), d, code, int(metric.ascending),
-               keys.data_ptr(), _cuda.stream_of(q))
+               cluster_blocks.data_ptr(), n_clusters, max_bpc, blocks.data_ptr(),
+               blocks.shape[0], _cuda.ptr(block_sq), block_orig.data_ptr(), live.data_ptr(), d,
+               code, int(metric.ascending), SCAN_ROUTES[route], float(min_share),
+               scratch.data_ptr() if lists else None, keys.data_ptr(), _cuda.stream_of(q))
     ivf_scan_blocks.launches += 1
+    ivf_scan_blocks.by_mode[route] += 1
     return keys
 
 
 ivf_scan_blocks.launches = 0
+# K16's launches by route: a row a thread (rows), the probe inverted (tile),
+# a warp a row (warp), or the card's pick of the two (shared)
+ivf_scan_blocks.by_mode = {route: 0 for route in SCAN_ROUTES}
 
 
 def ivf_binary_blocks(q: torch.Tensor, qcnt: torch.Tensor, top_c: torch.Tensor,

@@ -43,8 +43,10 @@ _SIGNATURES = {
     "lt_gemm_metric_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                               _P),
     "lt_binary_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "lt_elementwise_scores": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P, _P),
+    "lt_elementwise_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                              _P),
+    "lt_elementwise_topc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    "lt_elementwise_bf16_keys": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "lt_bf16_centered_topc": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
                               _P, _P),
     "lt_rescore_topk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -52,7 +54,8 @@ _SIGNATURES = {
     "lt_kmeans_assign": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     "lt_kmeans_update": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "lt_kmeans_reduce_shards": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
-    "lt_ivf_scan_blocks": (_P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "lt_ivf_scan_blocks": (_P, _P, _P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _F,
+                           _P, _P, _P),
     "lt_fwht_rotate": (_P, _P, _I, _I, _I, _P, _P),
     "lt_int8_code_scores": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                             _P, _P, _P),
@@ -139,6 +142,10 @@ def library() -> ctypes.CDLL:
             for name in ("lt_topc_spans", "lt_topc_scratch"):
                 getattr(lib, name).argtypes = [_I, _I, _I, _I]
                 getattr(lib, name).restype = ctypes.c_longlong
+            lib.lt_ivf_scan_scratch.argtypes = [_I, _I, ctypes.c_longlong]
+            lib.lt_ivf_scan_scratch.restype = ctypes.c_longlong
+            lib.lt_elem_topc_plan.argtypes = [_I] * 8
+            lib.lt_elem_topc_plan.restype = ctypes.c_longlong
             for name in ("lt_topl_spans", "lt_topl_scratch"):
                 getattr(lib, name).argtypes = [_I, _I, _I, _I, _I, _I]
                 getattr(lib, name).restype = ctypes.c_longlong

@@ -46,8 +46,9 @@ A search runs one of these plans, each a chain of hand-written kernels:
     streaming corpus scores the filter's rows exactly on the host instead.
 
 Every other filter is a mask on its plan's pass. ``search_approx`` for the L1
-family is K6c on the bf16 copy, K5, then K6c over the shortlist's f32 rows
-(K9, K10); off the resident tier the L1 family always runs that plan, its
+family is K9 (K6c's pass over the bf16 copy fused with its top C, then K5's
+merge of the spans' lists), then K6c over the shortlist's f32 rows (K10);
+off the resident tier the L1 family always runs that plan, its
 rescore over rows gathered from the host mirror. Range search is the
 top-(max_results) search with a threshold test (K10); ``rescore`` of explicit
 rows runs on the host mirror for IP/L2/cosine and through the distance
@@ -169,11 +170,26 @@ BINARY_TILE_WORDS = 4092
 _BINARY_CODE = {Metric.HAMMING: 0, Metric.JACCARD: 1, Metric.TANIMOTO: 1, Metric.DICE: 2}
 _ELEM_CODE = {Metric.L1: 5, Metric.CHEBYSHEV: 6, Metric.CANBERRA: 7, Metric.BRAY_CURTIS: 8,
               Metric.WASSERSTEIN: 9, Metric.JENSEN_SHANNON: 10, Metric.HAVERSINE: 11}
-# the metrics K6c's bf16 mode serves (the rows themselves, not a transform)
+# the metrics K9's pass over the bf16 copy serves (the rows themselves, not a
+# transform)
 _BF16_ELEM = (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS)
 # the metrics whose first pass reads the centred bf16 copy off the resident
 # tier; the other nine stream their exact f32 rows
 _BF16_PASS = TWO_PASS_METRICS + _BF16_ELEM
+# K9's spans hold at least this many times C rows: each span's list takes C
+# entries however good they are, and K5's merge reads spans x C a query
+ELEM_TOPC_SPAN_C = 8
+# K9's pilot: over at least ELEM_TOPC_PILOT x 4 x C rows, the C-th key of
+# the first ELEM_TOPC_PILOT x C rows is where every list starts (no row below
+# it can be in the top C), so a span's list takes only the rows at or above
+# it rather than its first C and their successors (on an H100, L1 at B = 16
+# over 1M rows 0.957 -> 0.566 ms with it, PERF.md §6)
+ELEM_TOPC_PILOT = 32
+# ... taken from this many queries: below it the pilot's launches cost more
+# than its start saves (L1, C = 256 over 1M rows on an H100, events ms with
+# and without it: B = 1 0.239 / 0.227, 4 0.440 / 0.320, 8 0.477 / 0.681,
+# 16 0.586 / 0.955; PERF.md §6)
+ELEM_TOPC_PILOT_MIN_B = 8
 
 
 def resolve_device(device) -> torch.device:
@@ -294,7 +310,7 @@ def metric_keys_plain(qt: dict, ct: dict, valid, metric: Metric, ids=None,
     step of rows at a time (``PLAIN_ELEMENTS`` unpacked bits or (B, rows, D)
     terms). Gather mode: (B, C) over the rows ``ids`` (B, C), -inf at NaN
     and where an id is negative. ``mean`` (D,): ``ct["x"]`` is the centred
-    bf16 copy, the mean added back in f32 (K6c's bf16 mode)."""
+    bf16 copy, the mean added back in f32 (K9's keys)."""
     if mean is not None:
         ct = {"x": ct["x"].to(torch.float32) + mean[None, :]}
     if ids is not None:
@@ -419,49 +435,180 @@ def _elem_rows(t: dict, metric: Metric) -> torch.Tensor:
 
 
 def elementwise_scores(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metric,
-                       ids: Optional[torch.Tensor] = None,
-                       mean: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6c: oriented, masked keys of the elementwise family (L1, Chebyshev,
     Canberra, Bray-Curtis, Haversine, Wasserstein over ``cdf``,
     Jensen-Shannon over ``p``). Tile mode and gather mode as
-    :func:`gemm_metric_scores`. ``mean`` (D,) given: ``ct["x"]`` is the
-    mean-centred bf16 copy and the mean is added back in f32 (L1, Chebyshev,
-    Canberra, Bray-Curtis; tile mode only)."""
+    :func:`gemm_metric_scores`. The pass over the centred bf16 copy is
+    :func:`elementwise_topc` (K9)."""
     q, x = _elem_rows(qt, metric), _elem_rows(ct, metric)
     if q.device.type == "cpu":
-        return metric_keys_plain(qt, ct, valid, metric, ids, mean)
+        return metric_keys_plain(qt, ct, valid, metric, ids)
     b, d = q.shape
     n = x.shape[0]
     _check_ids("elementwise_scores", ids, b)
-    bf16 = mean is not None
-    if bf16 and (ids is not None or metric not in _BF16_ELEM or x.dtype != torch.bfloat16
-                 or mean.shape != (d,)):
-        raise ValueError("elementwise_scores: the bf16 mode takes L1, Chebyshev, Canberra or "
-                         "Bray-Curtis over (N, D) bfloat16 rows and a (D,) mean, in tile mode")
-    if q.dtype != torch.float32 or x.shape[1] != d or (not bf16 and x.dtype != torch.float32):
+    if q.dtype != torch.float32 or x.dtype != torch.float32 or x.shape[1] != d:
         raise ValueError("elementwise_scores: rows (B, D) and (N, D) float32 expected")
     if ids is None and (valid is None or valid.shape != (n,) or valid.dtype != torch.bool):
         raise ValueError("elementwise_scores: valid (N,) bool expected")
     prob = metric in (Metric.WASSERSTEIN, Metric.JENSEN_SHANNON)
     terms = [t.get(name) if prob else None for t in (qt, ct) for name in ("mass", "ent", "invalid")]
-    _cuda.require_cuda("elementwise_scores", q, x, mean, *terms, valid if ids is None else None,
-                       ids)
+    _cuda.require_cuda("elementwise_scores", q, x, *terms, valid if ids is None else None, ids)
     c = 0 if ids is None else ids.shape[1]
     keys = torch.empty((b, n if ids is None else c), dtype=torch.float32, device=q.device)
     _cuda.call(
-        "lt_elementwise_scores", q.data_ptr(), x.data_ptr(), int(bf16), _cuda.ptr(mean),
-        *(_cuda.ptr(t) for t in terms), None if ids is not None else valid.data_ptr(),
-        _cuda.ptr(ids), b, n, d, c, _ELEM_CODE[metric], keys.data_ptr(), _cuda.stream_of(q),
+        "lt_elementwise_scores", q.data_ptr(), x.data_ptr(), *(_cuda.ptr(t) for t in terms),
+        None if ids is not None else valid.data_ptr(), _cuda.ptr(ids), b, n, d, c,
+        _ELEM_CODE[metric], keys.data_ptr(), _cuda.stream_of(q),
     )
     elementwise_scores.launches += 1
-    elementwise_scores.by_mode["f32_tile" if ids is None and not bf16 else
-                               "gather" if ids is not None else "bf16"] += 1
+    elementwise_scores.by_mode["f32_tile" if ids is None else "gather"] += 1
     return keys
 
 
 elementwise_scores.launches = 0
-# K6c's launches by mode: the f32 tile, the bf16 tile (K9) and gather (K10)
-elementwise_scores.by_mode = {"f32_tile": 0, "bf16": 0, "gather": 0}
+# K6c's launches by mode: the f32 tile, the bf16 pass fused with its top C
+# (K9) and its keys unfused (K9's route by shape for Canberra; both also
+# counted by elementwise_topc), and gather (K10)
+elementwise_scores.by_mode = {"f32_tile": 0, "bf16_topc": 0, "bf16": 0, "gather": 0}
+
+
+def elementwise_topc_plain(q, x16, mean, valid, metric: Metric, c: int, start=None):
+    """Plain version of :func:`elementwise_topc`: every key of K6c over the
+    centred copy with the mean added back (metric_keys_plain), then K5's
+    plain top C (of the keys at or above ``start``)."""
+    keys = metric_keys_plain({"x": q}, {"x": x16}, valid, metric, mean=mean)
+    if start is None:
+        return topk_select_plain(keys, c)
+    top, ids = topk_select_plain(torch.where(keys >= start[:, None], keys, float("-inf")), c)
+    return top, torch.where(top < start[:, None], -1, ids)
+
+
+def elementwise_topc(q: torch.Tensor, x16: torch.Tensor, mean: torch.Tensor,
+                     valid: torch.Tensor, metric: Metric, c: int,
+                     start: Optional[torch.Tensor] = None,
+                     pilot: Optional[bool] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9, K6c's pass over the mean-centred bf16 copy fused with its top C:
+    the keys of L1, Chebyshev, Canberra or Bray-Curtis between f32 queries
+    ``q`` (B, D) and the rows ``x16`` (N, D) bfloat16 with ``mean`` (D,)
+    added back in f32, oriented and masked by ``valid`` (N,) bool, and their
+    exact top C: (keys (B, C) f32, row ids (B, C) int32), best first, the
+    lower row first between equal keys, what ``topk_select`` of those keys
+    returns (masked rows' -inf keys in id order; 1 <= C <= N). ``start``
+    (B,) f32: only keys at or above ``start[b]`` may enter query b's list
+    (K8 passes its carried state's C-th key: nothing below it can enter the
+    merge), the slots past them hold (-inf, -1). The kernel keeps each
+    span's top C as it scores it and never writes the (B, N) keys; K5
+    merges the spans' sorted lists (:func:`topk.merge_runs`). Without a
+    start, a corpus of at least 4 x ELEM_TOPC_PILOT x C rows takes a pilot
+    launch over its first ELEM_TOPC_PILOT x C rows first, whose C-th key
+    starts the main launch's lists: from ELEM_TOPC_PILOT_MIN_B queries, or
+    as ``pilot`` (True / False) forces it (the same results). Where the kernel file's route by shape
+    does not fuse (its plan has no spans: L1, Canberra and Bray-Curtis past
+    its bytes route) the 64-row tile's keys and K5. Its launches count here
+    and on :func:`elementwise_scores` (modes ``bf16_topc``, ``bf16``)."""
+    b, d = q.shape
+    n = x16.shape[0]
+    if not 1 <= c <= n:
+        raise ValueError(f"elementwise_topc: C={c} outside [1, {n}]")
+    if metric not in _BF16_ELEM:
+        raise ValueError(f"elementwise_topc serves {[m.value for m in _BF16_ELEM]}, "
+                         f"not {metric.value}")
+    if start is not None and (start.shape != (b,) or start.dtype != torch.float32):
+        raise ValueError("elementwise_topc: start (B,) float32 expected")
+    if q.device.type == "cpu":
+        return elementwise_topc_plain(q, x16, mean, valid, metric, c, start)
+    _cuda.require_cuda("elementwise_topc", q, x16, mean, valid, start)
+    if (q.dtype != torch.float32 or x16.dtype != torch.bfloat16 or x16.shape[1] != d
+            or mean.shape != (d,) or mean.dtype != torch.float32 or valid.shape != (n,)
+            or valid.dtype != torch.bool):
+        raise ValueError("elementwise_topc: q (B, D) float32, x16 (N, D) bfloat16, mean (D,) "
+                         "float32 and valid (N,) bool expected")
+    vec = _topc_vec(q, x16, mean)
+    plan = _elem_topc_plan(b, n, d, c, _ELEM_CODE[metric], vec, ELEM_TOPC_SPAN_C)
+    if plan[0] == 0:
+        keys = _elem_bf16_keys(q, x16, mean, valid, metric)
+        if start is not None:
+            keys = torch.where(keys >= start[:, None], keys, float("-inf"))
+        top, ids = topk_select(keys, c)
+        return top, ids if start is None else torch.where(top < start[:, None], -1, ids)
+    if pilot is None:
+        pilot = b >= ELEM_TOPC_PILOT_MIN_B
+    if pilot and start is None and n >= 4 * ELEM_TOPC_PILOT * c:
+        m = ELEM_TOPC_PILOT * c  # the pilot's spans: C rows or more each
+        pilot = _elem_topc_plan(b, m, d, c, _ELEM_CODE[metric], vec, 1)
+        keys, _ = _elem_topc_launch(q, x16[:m], mean, valid[:m], metric, c, None, 1, vec, pilot)
+        keys, ids = _elem_topc_launch(q, x16, mean, valid, metric, c,
+                                      keys[:, c - 1].contiguous(), ELEM_TOPC_SPAN_C, vec, plan)
+        return keys, ids  # the pilot's C rows are at or above its start: C real entries
+    keys, ids = _elem_topc_launch(q, x16, mean, valid, metric, c,
+                                  None if start is None else start.contiguous(), ELEM_TOPC_SPAN_C,
+                                  vec, plan)
+    if start is not None:
+        ids = torch.where(keys < start[:, None], -1, ids)
+    return keys, ids
+
+
+def _topc_vec(q, x16, mean) -> bool:
+    """K9's 16-byte copies: D a multiple of 8 and 16-byte aligned bases."""
+    return q.shape[1] % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, x16, mean))
+
+
+def _elem_bf16_keys(q, x16, mean, valid, metric: Metric) -> torch.Tensor:
+    """K9's route by shape past its fused routes: the (B, N) keys of the
+    64-row tile over the centred copy (K6c's bf16 keys), for K5 to select
+    from."""
+    b, d = q.shape
+    n = x16.shape[0]
+    keys = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    _cuda.call("lt_elementwise_bf16_keys", q.data_ptr(), x16.data_ptr(), mean.data_ptr(),
+               valid.data_ptr(), b, n, d, _ELEM_CODE[metric], keys.data_ptr(),
+               _cuda.stream_of(q))
+    elementwise_topc.launches += 1
+    elementwise_scores.launches += 1
+    elementwise_scores.by_mode["bf16"] += 1
+    return keys
+
+
+@functools.lru_cache(maxsize=256)
+def _elem_topc_plan(b: int, n: int, d: int, c: int, code: int, vec: bool,
+                    span_c: int) -> tuple[int, int]:
+    """K9's plan for these shapes (lt_elem_topc_plan, asked once a shape):
+    (spans, device list entries); (0, 0) where the kernel file routes the
+    shapes to the 64-row tile's keys and K5."""
+    lib = _cuda.library()
+    plan = tuple(int(lib.lt_elem_topc_plan(b, n, d, c, code, int(vec), span_c, what))
+                 for what in (0, 1))
+    if plan[0] < 0 or plan[1] < 0 or (plan[0] > 0) != (plan[1] > 0):
+        raise RuntimeError(f"elementwise_topc: no plan for B={b}, N={n}, D={d}, C={c}")
+    return plan
+
+
+def _elem_topc_launch(q, x16, mean, valid, metric: Metric, c: int, start, span_c: int,
+                      vec: bool, plan: tuple[int, int]):
+    """One launch of K9's kernel on its ``plan`` (then K5's merge of its
+    spans' lists)."""
+    b, d = q.shape
+    n = x16.shape[0]
+    spans, entries = plan
+    if spans < 1:
+        raise RuntimeError(f"elementwise_topc: B={b}, N={n}, D={d}, C={c} is not fused")
+    lists = torch.empty(entries, dtype=torch.int64, device=q.device)
+    keys = torch.empty((b, spans * c), dtype=torch.float32, device=q.device)
+    ids = torch.empty((b, spans * c), dtype=torch.int32, device=q.device)
+    _cuda.call("lt_elementwise_topc", q.data_ptr(), x16.data_ptr(), mean.data_ptr(),
+               valid.data_ptr(), _cuda.ptr(start), b, n, d, c, _ELEM_CODE[metric], int(vec),
+               span_c, spans, lists.data_ptr(), keys.data_ptr(), ids.data_ptr(),
+               _cuda.stream_of(q))
+    elementwise_topc.launches += 1
+    elementwise_scores.launches += 1
+    elementwise_scores.by_mode["bf16_topc"] += 1
+    if spans == 1:
+        return keys, ids
+    return merge_runs(keys, ids, c)
+
+
+elementwise_topc.launches = 0
 
 
 def metric_keys(qt: dict, ct: dict, valid: Optional[torch.Tensor], metric: Metric,
@@ -855,24 +1002,23 @@ class StreamBlock(NamedTuple):
 
 
 def _block_top(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock, metric: Metric, c: int,
-               plain: bool):
+               plain: bool, start: Optional[torch.Tensor] = None):
     """One block's top C with global row ids, -inf / -1 in empty slots: K2's
-    fused pass over a bf16 block (IP, L2, cosine), else the block's keys —
-    K6c's bf16 mode (the L1 family), or the metric's exact kernel over the
-    transform of an f32 block (``qt`` its query transform) — and K5.
+    fused pass over a bf16 block (IP, L2, cosine), K9's (the L1 family;
+    ``start``, the carried state's C-th key, keeps out what cannot enter the
+    merge), or the metric's exact kernel over the transform of an f32 block
+    (``qt`` its query transform) and K5.
     ``plain``: the kernels' plain versions, on any device."""
     c = min(c, blk.x.shape[0])
     if blk.kind == "bf16" and metric in TWO_PASS_METRICS:
         fn = bf16_centered_topc_plain if plain else bf16_centered_topc
         top, loc = fn(q, blk.x, {"mean": blk.mean, **blk.aux}, blk.valid, metric, c)
+    elif blk.kind == "bf16":
+        fn = elementwise_topc_plain if plain else elementwise_topc
+        top, loc = fn(q, blk.x, blk.mean, blk.valid, metric, c, start)
     else:
-        if blk.kind == "f32":
-            ct = D.corpus_transform(blk.x, metric)
-            keys = (metric_keys_plain if plain else metric_keys)(qt, ct, blk.valid, metric)
-        elif plain:
-            keys = metric_keys_plain({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
-        else:
-            keys = elementwise_scores({"x": q}, {"x": blk.x}, blk.valid, metric, mean=blk.mean)
+        ct = D.corpus_transform(blk.x, metric)
+        keys = (metric_keys_plain if plain else metric_keys)(qt, ct, blk.valid, metric)
         top, loc = (topk_select_plain if plain else topk_select)(keys, c)
     return top, torch.where(top > float("-inf"), loc + blk.base, -1).to(torch.int32)
 
@@ -884,7 +1030,7 @@ def stream_block(q: torch.Tensor, qt: Optional[dict], blk: StreamBlock, keys: to
     across one block: the block's top C with global ids (:func:`_block_top`)
     and K5 merging the two sorted runs, state and block (best key first, the
     lower id between equal keys). Returns the new (keys, ids)."""
-    top, gid = _block_top(q, qt, blk, metric, c, plain=False)
+    top, gid = _block_top(q, qt, blk, metric, c, plain=False, start=keys[:, -1].contiguous())
     if top.shape[1] < c:  # a block shorter than C: pad its list to a run of C
         top = torch.nn.functional.pad(top, (0, c - top.shape[1]), value=float("-inf"))
         gid = torch.nn.functional.pad(gid, (0, c - gid.shape[1]), value=-1)
@@ -1800,17 +1946,15 @@ class DeviceCorpus:
 
     def _approx_part(self, v: _View, qs: torch.Tensor, k: int, metric: Metric, handle, *,
                      c: int):
-        """The L1 family's approximate plan on a view (K9): K6c scores the
-        centred bf16 rows with the mean added back, K5 takes a shortlist of
-        k x oversample, K6c's gather mode rescores its f32 rows (K10) and K5
+        """The L1 family's approximate plan on a view: K9 scores the centred
+        bf16 rows with the mean added back and keeps a shortlist of k x
+        oversample, K6c's gather mode rescores its f32 rows (K10) and K5
         orders them on (score, id)."""
         c = min(c, v.rows)
         self.last_scanned += v.n + c
         qt = {"x": qs}
-        keys = elementwise_scores(qt, {"x": self.view_x16(v)}, self.view_valid(v, handle), metric,
-                                  mean=self.view_aux(v)["mean"])
-        top, cand = topk_select(keys, c)
-        del keys
+        top, cand = elementwise_topc(qs, self.view_x16(v), self.view_aux(v)["mean"],
+                                     self.view_valid(v, handle), metric, c)
         cand = torch.where(top > float("-inf"), cand, -1)
         exact = elementwise_scores(qt, {"x": self.view_x32(v)}, None, metric, ids=cand)
         best, ids = topk_select(exact, min(k, c), ids=cand)
@@ -1818,18 +1962,16 @@ class DeviceCorpus:
 
     def _bf16_elem_submit(self, q: np.ndarray, qd: torch.Tensor, k: int, metric: Metric, handle,
                           oversample: int, approx: bool):
-        """The L1 family in the host-rescore tier: K6c's bf16 mode over the
-        device's centred copy, K5's shortlist, the exact rescore of its rows
-        gathered from the host mirror (K6c's gather mode)."""
+        """The L1 family in the host-rescore tier: K9's shortlist over the
+        device's centred copy, the exact rescore of its rows gathered from
+        the host mirror (K6c's gather mode)."""
         if approx:
             c = min(max(k * oversample, k), self.capacity)
         else:
             c = self._shortlist_size(k, self.n, oversample)
         self.last_scanned = self.n + c
-        keys = elementwise_scores({"x": qd}, {"x": self._dev16}, self.valid_mask(handle), metric,
-                                  mean=self.bf16_aux()["mean"])
-        top, cand = topk_select(keys, c)
-        del keys
+        top, cand = elementwise_topc(qd, self._dev16, self.bf16_aux()["mean"],
+                                     self.valid_mask(handle), metric, c)
         return lambda: self._rescore_fetched(q, top, cand, metric, k)
 
     def _stream_submit(self, q: np.ndarray, qd: torch.Tensor, k: int, metric: Metric, handle,

@@ -6,6 +6,7 @@ mode.
                                                     [--index FLAT-IP FLAT-IP-SQ8 ...]
                                                     [--nprobe N] [--n-clusters N] [--insert N]
                                                     [--where FILTER] [--mesh-shards S]
+                                                    [--tier resident host_rescore] [--approx]
                                                     [--package-root DIR]
 
 Drives what chip_smoke.py's flat phase drives, unfiltered: a collection of
@@ -31,7 +32,11 @@ posts them in place), reports the commit's seconds and times the mode again.
 ``"bucket = 3"``: 100,000 rows, the gather route K11 -> K5 -> K3), after one
 untimed search has resolved it. ``--mesh-shards S`` serves the collection
 from a corpus sharded over S virtual shards of the card (``make_mesh(S,
-devices=["cuda:0"] * S)`` as the default mesh).
+devices=["cuda:0"] * S)`` as the default mesh). ``--tier host_rescore``
+restages the corpus under the device budget of its host-rescore tier (the
+centred bf16 copy on the card, the f32 rows on the host; the port's own
+byte count) after each mode's build, and ``--approx`` runs every timed
+search with ``approx=True`` (the L1 family's K9 -> K5 -> K10 -> K5 plan).
 
 ``--package-root DIR`` imports lynsedb_tpu_torch from DIR (for example an
 older commit unpacked with ``git archive``), so one script times two trees on
@@ -124,16 +129,17 @@ def device_ms_per_call(torch, search, queries) -> tuple[float | None, dict]:
 
 
 def timed(torch, coll, singles, b16, b256, extra, extra256, nprobe: int, where,
-          clock: GcClock) -> dict:
+          clock: GcClock, approx: bool = False) -> dict:
     """p50 / p99 of the single searches, q/s of the batches, the garbage
     collector's seconds, the device time of one search and of one B=256
     batch (torch.profiler)."""
-    coll.search(singles[0] + 2.0, k=K, nprobe=nprobe, where=where)  # resolves the filter
+    kw = {"k": K, "nprobe": nprobe, "where": where, **({"approx": True} if approx else {})}
+    coll.search(singles[0] + 2.0, **kw)  # resolves the filter
     clock.read()
     lat = []
     for qv in singles:
         t0 = time.perf_counter()
-        coll.search(qv, k=K, nprobe=nprobe, where=where)
+        coll.search(qv, **kw)
         lat.append(time.perf_counter() - t0)
     out = {"p50_ms": float(np.percentile(lat, 50) * 1e3),
            "p99_ms": float(np.percentile(lat, 99) * 1e3), "single_gc_s": clock.read()}
@@ -141,15 +147,15 @@ def timed(torch, coll, singles, b16, b256, extra, extra256, nprobe: int, where,
         secs = []
         for blk in blocks:
             t0 = time.perf_counter()
-            coll.batch_search(blk, k=K, nprobe=nprobe, where=where)
+            coll.batch_search(blk, **kw)
             secs.append(time.perf_counter() - t0)
         out[f"qps_b{b}"] = b * len(blocks) / sum(secs)
         out[f"call_s_b{b}"] = secs
         out[f"gc_s_b{b}"] = clock.read()
     out["device_ms_single"], out["device_ms_by_kernel"] = device_ms_per_call(
-        torch, lambda qv: coll.search(qv, k=K, nprobe=nprobe, where=where), extra)
+        torch, lambda qv: coll.search(qv, **kw), extra)
     out["device_ms_b256"], out["device_ms_b256_by_kernel"] = device_ms_per_call(
-        torch, lambda blk: coll.batch_search(blk, k=K, nprobe=nprobe, where=where), extra256)
+        torch, lambda blk: coll.batch_search(blk, **kw), extra256)
     return out
 
 
@@ -167,7 +173,7 @@ def built_sha256(index) -> dict:
 
 
 def run(lynse, torch, kind: str, modes: list, nprobe: int, n_clusters, insert: int, where,
-        root: str, clock: GcClock):
+        root: str, clock: GcClock, tier: str = "resident", approx: bool = False):
     """Yields one result per index mode on one corpus (two with ``insert``)."""
     rng = np.random.default_rng(SEED)
     x = make_corpus(kind, rng)
@@ -183,7 +189,7 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, n_clusters, insert: i
     coll.commit()
     coll.prewarm()
     for mode in modes:
-        out = {"corpus": kind, "index": mode, "nprobe": nprobe, "where": where}
+        out = {"corpus": kind, "index": mode, "nprobe": nprobe, "where": where, "approx": approx}
         if mode != "FLAT-IP":
             kw = {"n_clusters": n_clusters} if n_clusters and mode.startswith(("IVF", "SPANN")) \
                 else {}
@@ -194,8 +200,16 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, n_clusters, insert: i
             out["build_phases_s"] = getattr(index, "last_build_phases", None)
             out.update(built_sha256(index))
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the index
+        if tier == "host_rescore":
+            from lynsedb_tpu_torch.ops import scan
+
+            corpus = coll._engine.corpus()
+            scan.DEVICE_BYTES = corpus.host_rescore_bytes(corpus._cap_for(corpus.n))
+            corpus.restage()
+            coll._engine._search_cache.clear()
+        out["tier"] = coll._engine.corpus().tier
         yield {**out, **timed(torch, coll, singles, b16, b256, extra, extra256, nprobe, where,
-                              clock)}
+                              clock, approx)}
         if insert:
             rows = make_corpus(kind, np.random.default_rng(SEED + 1))[:insert]
             t0 = time.perf_counter()
@@ -205,7 +219,7 @@ def run(lynse, torch, kind: str, modes: list, nprobe: int, n_clusters, insert: i
             out.update({"inserted": insert, "insert_s": time.perf_counter() - t0})
             coll.search(singles[0] + 1.0, k=K, nprobe=nprobe)  # stages the grown index
             yield {**out, **timed(torch, coll, singles, b16, b256, extra, extra256, nprobe, where,
-                              clock)}
+                              clock, approx)}
     client.close()
 
 
@@ -225,6 +239,9 @@ def main() -> int:
                     help='a filter every timed search runs under, e.g. "bucket = 3"')
     ap.add_argument("--mesh-shards", type=int, default=0,
                     help="serve from this many virtual shards of the card (0: no mesh)")
+    ap.add_argument("--tier", choices=("resident", "host_rescore"), default="resident",
+                    help="the corpus's device tier (host_rescore: the bf16 copy on the card)")
+    ap.add_argument("--approx", action="store_true", help="every timed search with approx=True")
     ap.add_argument("--package-root", type=Path, default=Path(__file__).resolve().parents[2])
     args = ap.parse_args()
     sys.path.insert(0, str(args.package_root.resolve()))
@@ -243,7 +260,7 @@ def main() -> int:
     for kind in args.corpus:
         with tempfile.TemporaryDirectory(prefix="lynse_flat_") as root:
             for out in run(lynse, torch, kind, args.index, args.nprobe, args.n_clusters,
-                           args.insert, args.where, root, clock):
+                           args.insert, args.where, root, clock, args.tier, args.approx):
                 out["package"] = str(Path(lynse.__file__).resolve().parent)
                 out["mesh_shards"] = args.mesh_shards
                 print(json.dumps(out), flush=True)

@@ -193,6 +193,30 @@ def binary_probe_bound(blocks: int, real: int, n_live: int, w: int, keys: int, s
                    scored * w / SFU_OPS)
 
 
+def ivf_probe_bound(blocks: int, real: int, n_live: int, d: int, keys: int, scored: int,
+                    sq: bool):
+    """K16 over the distinct probed ``blocks``: each block's 2,048 row ids
+    read once, the live flag of its ``real`` rows, the d f32 (and with
+    ``sq``, under L2 and cosine, the |x|^2) of its ``n_live`` live rows, the
+    ``keys`` f32 keys written; an FMA (two flops) a dimension of every
+    ``scored`` (query, row) pair at the f32 peak."""
+    return bound(blocks * 2048 * 4 + real + n_live * (d * 4 + (4 if sq else 0)) + keys * 4,
+                 2 * scored * d)
+
+
+def elem_topc_bound(metric: str, b: int, d: int, n_live: int, rows: int, c: int):
+    """K9, K6c's bf16 pass fused with its top C, under ``metric`` (a
+    Metric's value) over the mean-centred bf16 copy: each live row's d bf16
+    read once, every row's valid byte, the mean and the f32 queries read,
+    the (B, C) lists of key and id written (no (B, N) keys); the pairs'
+    work as elem_tile_bound's: d (pair, dimension)s at ELEM_DIM_OPS over
+    F32_OPS and SFU_OPS, the slower of the two (the mean's add, once a row
+    value, is left out)."""
+    moved = n_live * d * 2 + rows + d * 4 + b * d * 4 + b * c * 8
+    f, s = ELEM_DIM_OPS[metric]
+    return bound_t(moved, max(b * n_live * d * f / F32_OPS, b * n_live * d * s / SFU_OPS))
+
+
 def gather_topc_bound(b: int, d: int, s: int, c: int, n_live: int, aux_words: int = 1):
     """K11's fused second stage (a quantized search after K5's top S): each
     live slot's bf16 row and its ``aux_words`` per-row terms read once (IP

@@ -2,12 +2,34 @@
 """Device times of the exact f32 tile (K1, K6a), K6c's f32 tile, K11's
 shared-list tile, the integer tensor-core tiles (K6b, K12), the k-means
 assignment and update (K15a, K15b), the graph walk (K17), the exact top-L
-scan (K19), the robust prune (K20), K5's large-k selection and the binary
-IVF block scan (K16b) on one CUDA card, at chip_smoke.py's shapes.
+scan (K19), the robust prune (K20), K5's large-k selection, the binary
+IVF block scan (K16b), K9's fused bf16 pass and the f32 IVF block scan (K16)
+on one CUDA card, at chip_smoke.py's shapes.
 
     python3 lynsedb_tpu_torch/tools/tile_times.py [--package-root DIR] [--reps N]
-                            [--only K1 K6a K6c K11 K6b K12 K15a K15b K17 K19 K20 K5 K16b]
+                            [--only K1 K6a K6c K11 K6b K12 K15a K15b K17 K19 K20 K5 K16b
+                                    K11q K3 K9 K16]
                             [--dump PREFIX] [--compare PREFIX]
+
+K9 over the centred bf16 copy of a 1M x 128 mixture (every tenth row
+masked) under L1, Chebyshev, Canberra and Bray-Curtis at B = 1, 16 and 256
+and C = 256 and 80: the fused pass where the tree has it, else the
+parent's chain, K6c's bf16 tile and K5's select, each also timed alone
+(``tile_ms``, ``select_ms``); ``kernel_parts_ms`` splits each call by
+kernel; (keys, ids) held to the plain chain and to the other tree's bit for
+bit; L1 at C = 256 and B = 1, 2, 4, 8 and 16 with the pilot forced on and
+off (``pilot=``). K16 on chip_smoke.py phase 6's IVF-L2 and IVF-IP (its
+corpus, built through the client, 1,000 clusters, the postings cached
+in build/; nprobe 32, the half filter) at B = 1, 4, 8, 12, 16, 32 and 256:
+the scan on the route the batch takes and, where the tree has
+``ivf.scan_blocks_route``, on the rows, tile and warp routes apart (the
+rows and tile routes' keys bit for bit against each other, the warp
+route's within K16's tolerance of them, the batch's own launch bit for bit
+against the route it took), K5's select of fetch timed alone, the probe's shape
+(max_bpc, slots, the share of empty slots, live rows scored, distinct
+blocks, probes a probed block), the keys against the plain version and the
+other tree's within K16's tolerance, and the ids after K5 that differ from
+the other tree's (each a near-tie).
 
 K5 (``topk.topk_select``) past k = 1,024 over 1,000,000 f32 keys a row
 (normal, distinct) at k = 1,280 (the k = 1,000 search's shortlist) for B = 1
@@ -115,9 +137,9 @@ import numpy as np
 # roofline.py sits beside this script (sys.path[0]), so this tree's formulas
 # hold whichever --package-root is timed
 from roofline import (assign_bound, binary_probe_bound, binary_tile_bound, code_scan_bound,
-                      elem_tile_bound, f32_tile_bound, gather_topc_bound, kmeans_update_bound,
-                      prune_bound, rescore_bound, select_bound, shared_list_bound, topl_bound,
-                      walk_bound, walk_bytes_bound)
+                      elem_tile_bound, elem_topc_bound, f32_tile_bound, gather_topc_bound,
+                      ivf_probe_bound, kmeans_update_bound, prune_bound, rescore_bound,
+                      select_bound, shared_list_bound, topl_bound, walk_bound, walk_bytes_bound)
 
 N, DIM, SHARED_EVERY = 1_000_000, 128, 10
 BITS_DIM, BITS_DENSITY = 1024, 0.1
@@ -127,7 +149,7 @@ TOPL_CHUNK, TOPL_L, TOPL_METRIC_CHUNK, TOPL_METRIC_N = 4096, 64, 1024, 1_010_000
 HAVERSINE_OPS = (12, 6)
 PRUNE_NODES, PRUNE_EXTRA, PRUNE_R, KEYS_NODES = 4096, 8, 32, 1024
 KERNELS = ("K1", "K6a", "K6c", "K11", "K6b", "K12", "K15a", "K15b", "K17", "K19", "K20", "K5",
-           "K16b", "K11q", "K3")
+           "K16b", "K11q", "K3", "K9", "K16")
 # the kernels' names, this tree's and earlier ones' (torch.profiler keys)
 K1_NAMES, K11_NAMES = ("f32_tile_kernel", "tile_scores_kernel"), ("shared_list_kernel",
                                                                   "bf16_gather_kernel")
@@ -157,6 +179,17 @@ WALK_CACHE = Path(__file__).resolve().parents[2] / "build" / "tile_times_walk_gr
 # K11q: a quantized search's second stage at 1M codes and k = 10 (S = 4,000,
 # C = 64), at the query slices; K3 at the two-pass plan's shortlists
 SHORTLIST_S, SHORTLIST_C, SHORTLIST_B = 4000, 64, (1, 16, 64)
+# K9: the centred bf16 copy of a 1M x 128 mixture, every tenth row masked,
+# at the callers' C: 256 (the host-rescore tier's and K8's shortlist at 1M
+# rows) and 80 (the approximate plan's k x oversample)
+ELEM_TOPC_C, ELEM_TOPC_B = (256, 80), (1, 16, 256)
+ELEM_TOPC_PILOT_B = (1, 2, 4, 8, 16)  # K9's pilot on and off, L1 at C = 256
+# K16: chip_smoke.py phase 6's IVF-L2 and IVF-IP (its corpus, 1,000
+# clusters, nprobe 32, the half filter, k = 10), the port's k-means cached
+# in build/ so every tree of a call scans the same index
+IVF_CLUSTERS, IVF_NPROBE, IVF_K = 1000, 32, 10
+IVF_B = (1, 4, 8, 12, 16, 32, 256)
+IVF_CACHE = Path(__file__).resolve().parents[2] / "build" / "tile_times_ivf_{}.npz"
 RESCORE_CASES = [(c, b, k, m) for c, k in ((64, 10), (256, 10), (1280, 1000))
                  for b, m in ((1, "ip"), (16, "ip"), (256, "ip"), (16, "l2"), (16, "cosine"))]
 
@@ -253,6 +286,10 @@ def main() -> int:
         shortlist_rows(row, dev, args.dump, args.compare)
     if "K3" in args.only:
         rescore_rows(row, dev, args.dump, args.compare)
+    if "K9" in args.only:
+        elem_topc_rows(row, ms, dev, args.dump, args.compare)
+    if "K16" in args.only:
+        ivf_rows(row, ms, dev, args.dump, args.compare)
     return 0
 
 
@@ -1100,6 +1137,257 @@ def rescore_rows(row, dev, dump, compare) -> None:
                 err, None, plain=(lambda: scan.rescore_topk_plain(*args))
                 if route == "auto" else None, plain_reps=3, **extra)
         del got_d, got_i, want_d, want_i
+
+
+
+def elem_topc_rows(row, ms, dev, dump, compare) -> None:
+    """K9 over the centred bf16 copy of a 1M x 128 mixture (every tenth row
+    masked) under L1, Chebyshev, Canberra and Bray-Curtis at B = 1, 16 and
+    256 and C = 256 and 80: the fused pass (``scan.elementwise_topc``)
+    where the tree has it, else the parent's chain (K6c's bf16 tile, then
+    K5's select), with the chain's parts timed apart; (keys, ids) held to
+    the plain chain and to the other tree's bit for bit. L1 at C = 256 and
+    B = 1 to 16 with K9's pilot forced on and off, where the tree's wrapper
+    takes ``pilot`` (the two results bit for bit)."""
+    import torch
+
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import scan, topk
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(mixture(rng, N)).to(dev)
+    mean = x.mean(0)
+    x16 = (x - mean[None, :]).to(torch.bfloat16).contiguous()
+    del x
+    valid = torch.arange(N, device=dev) % 10 != 3
+    n_live = int(valid.sum())
+    qall = torch.from_numpy(mixture(np.random.default_rng(1), 256)).to(dev)
+    fused = hasattr(scan, "elementwise_topc")
+    for metric in (Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS):
+        for b in ELEM_TOPC_B:
+            q = qall[:b].contiguous()
+            qt = {"x": q}
+
+            def tile(q=q, qt=qt, metric=metric):
+                return scan.elementwise_scores(qt, {"x": x16}, valid, metric, mean=mean)
+
+            plain = scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean)
+            for c in ELEM_TOPC_C:
+                if fused:
+                    fn = (lambda q=q, metric=metric, c=c:
+                          scan.elementwise_topc(q, x16, mean, valid, metric, c))
+                    extra = {}
+                else:
+                    fn = lambda tile=tile, c=c: topk.topk_select(tile(), c)  # noqa: E731
+                    keys = tile()
+                    extra = {"tile_ms": ms(tile),
+                             "select_ms": ms(lambda keys=keys, c=c: topk.topk_select(keys, c))}
+                    del keys
+                got_k, got_i = fn()
+                want_k, want_i = topk.topk_select_plain(plain, c)
+                same = torch.equal(got_i, want_i) and torch.equal(got_k.view(torch.int32),
+                                                                  want_k.view(torch.int32))
+                err = float((got_k - want_k).abs().nan_to_num(0.0).max()) if not same else 0.0
+                outs = {"keys": got_k.cpu().numpy(), "ids": got_i.cpu().numpy()}
+                row("K9 elementwise_topc" if fused else "K9 elementwise bf16 -> K5",
+                    f"{metric.value} bf16 1M x {DIM} B={b} C={c}", fn, None,
+                    elem_topc_bound(metric.value, b, DIM, n_live, N, c), err, None,
+                    plain_equal=same, **extra,
+                    **held(dump, compare, f"K9_{metric.value}_{b}_{c}", outs))
+            del plain
+    if fused and "pilot" in inspect.signature(scan.elementwise_topc).parameters:
+        for b in ELEM_TOPC_PILOT_B:
+            q = qall[:b].contiguous()
+            by_pilot = {}
+            for pilot in (True, False):
+                def fn(q=q, pilot=pilot):
+                    return scan.elementwise_topc(q, x16, mean, valid, Metric.L1, 256, pilot=pilot)
+
+                by_pilot[pilot] = fn()
+                extra = {"pilot_by_rule": b >= scan.ELEM_TOPC_PILOT_MIN_B}
+                if not pilot:
+                    (ka, ia), (kb, ib) = by_pilot[True], by_pilot[False]
+                    extra["bits_equal_to_pilot"] = bool(
+                        torch.equal(ia, ib) and torch.equal(ka.view(torch.int32),
+                                                            kb.view(torch.int32)))
+                row("K9 elementwise_topc", f"l1 bf16 1M x {DIM} B={b} C=256 pilot={pilot}", fn,
+                    None, elem_topc_bound("l1", b, DIM, n_live, N, 256), None, None, **extra)
+            del by_pilot
+
+
+def ivf_layout(dev, mode: str):
+    """chip_smoke.py phase 6's IVF index ``mode`` (IVF-L2 or IVF-IP): its
+    1M-row corpus (make_corpus with seed 0: a mixture of 2,000 gaussian
+    clusters, spread 0.6, 1,000 rows duplicated), built through the client
+    with 1,000 clusters (the postings cached in build/), laid out in blocks of
+    2,048 rows as index/ivf.py does. Returns (corpus rows on ``dev``,
+    centers, centroids' transform, cluster_blocks, blocks, block_sq,
+    block_orig)."""
+    import tempfile
+
+    import torch
+
+    import lynsedb_tpu_torch as lynse
+    from lynsedb_tpu_torch.index import ivf
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import distance as D
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(2000, DIM)).astype(np.float32)
+    x = centers[rng.integers(0, 2000, N)]
+    x += 0.6 * rng.normal(size=(N, DIM)).astype(np.float32)
+    x[N // 2 : N // 2 + 1000] = x[:1000]
+    cache = Path(str(IVF_CACHE).format(mode))
+    if not cache.exists():
+        cache.parent.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=cache.parent) as root:
+            client = lynse.VectorDBClient(root, device=dev)
+            coll = client.create_database("t", drop_if_exists=True).require_collection(
+                "v", dim=DIM)
+            coll.add(vectors=x, batch_size=100_000)
+            coll.commit()
+            coll.build_index(mode, n_clusters=IVF_CLUSTERS)
+            idx = coll._engine._index
+            np.savez(cache, centroids=idx.centroids_np, postings=idx.postings)
+            client.close()
+    cached = np.load(cache)
+    centroids, postings = cached["centroids"], cached["postings"]
+    counts = np.bincount(postings[:, 0], minlength=IVF_CLUSTERS)
+    bpc = (counts + ivf.BLOCK_SIZE - 1) // ivf.BLOCK_SIZE
+    cluster_blocks = np.full((IVF_CLUSTERS, max(int(bpc.max()), 1)), -1, np.int32)
+    block_orig = np.full((int(bpc.sum()), ivf.BLOCK_SIZE), -1, np.int32)
+    offsets, nb = np.concatenate([[0], np.cumsum(counts)]), 0
+    for c in range(IVF_CLUSTERS):
+        rows_c = postings[offsets[c] : offsets[c + 1], 1]
+        for i in range(int(bpc[c])):
+            seg = rows_c[i * ivf.BLOCK_SIZE : (i + 1) * ivf.BLOCK_SIZE]
+            block_orig[nb, : len(seg)] = seg
+            cluster_blocks[c, i] = nb
+            nb += 1
+    metric = Metric.L2 if mode == "IVF-L2" else Metric.IP
+    xd = torch.from_numpy(x).to(dev)
+    flat = torch.from_numpy(block_orig.reshape(-1)).to(dev)
+    blocks = xd[flat.clamp_min(0).long()] * (flat >= 0)[:, None]
+    block_sq = None if metric is Metric.IP else D.corpus_transform(blocks, metric)["sq"]
+    cent = D.corpus_transform(torch.from_numpy(centroids).to(dev), metric)
+    return (centers, cent, torch.from_numpy(cluster_blocks).to(dev),
+            blocks.view(-1, ivf.BLOCK_SIZE, DIM).contiguous(), block_sq, flat)
+
+
+def ivf_rows(row, ms, dev, dump, compare) -> None:
+    """K16 on phase 6's IVF-L2 and IVF-IP at IVF_B under the half filter:
+    the scan alone (each route of the change apart, where the tree has
+    ``ivf.scan_blocks_route``), then K5's select of ``fetch``; the probe's
+    shape (max_bpc, slots a query, the share of slots holding no block, the
+    live rows scored a query, probes a probed block); the keys held to the
+    plain version within K16's tolerance with an equal -inf pattern, the
+    rows and tile routes' to each other bit for bit, and to the other
+    tree's (keys within the tolerance, ids after K5 equal or near-ties
+    under it)."""
+    import torch
+
+    from lynsedb_tpu_torch.index import ivf
+    from lynsedb_tpu_torch.metrics import Metric
+    from lynsedb_tpu_torch.ops import topk
+
+    def within(got, want):
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(got)):
+            return float("inf")
+        err = (got[fin] - want[fin]).abs()
+        ok = bool((err <= 1e-4 + 1e-5 * want[fin].abs()).all())
+        return float(err.max()) if ok and err.numel() else (0.0 if ok else float("inf"))
+
+    for mode in ("IVF-L2", "IVF-IP"):
+        centers, cent, cluster_blocks, blocks, block_sq, block_orig = ivf_layout(dev, mode)
+        metric = Metric.L2 if mode == "IVF-L2" else Metric.IP
+        fetch = IVF_K if metric is Metric.L2 else 2 * IVF_K  # IVF-IP posts two replicas
+        n_rows = int((block_orig >= 0).sum())
+        live = torch.arange(N, device=dev) % 10 < 5  # chip_smoke.py's half filter
+        qrng = np.random.default_rng(11)
+        for b in IVF_B:
+            q = (centers[qrng.integers(0, 2000, b)]
+                 + 0.6 * qrng.normal(size=(b, DIM)).astype(np.float32)).astype(np.float32)
+            qd = torch.from_numpy(q).to(dev)
+            qsq = (qd * qd).sum(-1)
+            top_c = ivf._top_clusters(qd, cent, metric, IVF_NPROBE)
+            args = (qd, qsq, top_c, cluster_blocks, blocks, block_sq, block_orig, live, metric)
+            want = ivf.ivf_scan_blocks_plain(*args)
+            slot_blk = cluster_blocks[top_c.long()].reshape(b, -1)
+            distinct = torch.unique(slot_blk[slot_blk >= 0]).long()
+            orig = block_orig.view(-1, ivf.BLOCK_SIZE)[distinct]
+            real = orig >= 0
+            n_live = int((real & live[orig.clamp_min(0).long()]).sum())
+            scored = int(torch.isfinite(want).sum())
+            shape = {"max_bpc": int(cluster_blocks.shape[1]),
+                     "slots_a_query": int(slot_blk.shape[1]),
+                     "empty_slot_share": float((slot_blk < 0).float().mean()),
+                     "live_rows_scored_a_query": scored / b, "distinct_blocks": len(distinct),
+                     "probes_a_probed_block": int((slot_blk >= 0).sum()) / max(len(distinct), 1),
+                     "corpus_rows": n_rows}
+            bnd = ivf_probe_bound(len(distinct), int(real.sum()), n_live, DIM, want.numel(),
+                                  scored, metric is not Metric.IP)
+            routed = hasattr(ivf, "scan_blocks_route")
+            auto_route = None
+            if routed:  # the route the batch's launch takes (in the shared one, the card's)
+                auto_route = ivf._scan_route(b)
+                if auto_route == "shared":
+                    auto_route = ivf.shared_route(top_c, cluster_blocks)
+            by_route = {}
+            for route in ("auto", "rows", "tile", "warp") if routed else ("auto",):
+                if route == "auto":
+                    def fn(args=args):
+                        return ivf.ivf_scan_blocks(*args)
+                else:
+                    def fn(args=args, route=route):
+                        return ivf.scan_blocks_route(*args, route)
+                got = fn()
+                extra = {}
+                if route == "auto":
+                    top, col = topk.topk_select(got, fetch)
+                    outs = {"keys": got.cpu().numpy(), "top": top.cpu().numpy(),
+                            "col": col.cpu().numpy()}
+                    extra = {**shape, "select_ms": ms(lambda: topk.topk_select(got, fetch)),
+                             **held(dump, None, f"K16_{mode}_{b}", outs)}
+                    if routed:
+                        extra["route"] = auto_route
+                    if compare:
+                        extra.update(ivf_against(compare, f"K16_{mode}_{b}", outs))
+                    del outs, top, col
+                elif route == "warp":
+                    extra["within_tol_of_rows"] = within(got, by_route["rows"]) < float("inf")
+                elif route == "tile":
+                    extra["bits_equal_to_rows"] = torch.equal(got.view(torch.int32),
+                                                              by_route["rows"].view(torch.int32))
+                if route == auto_route:  # the batch's own route: the auto call's bits
+                    extra["bits_equal_to_auto"] = torch.equal(got.view(torch.int32),
+                                                              by_route["auto"].view(torch.int32))
+                by_route[route] = got
+                row("K16 ivf_scan_blocks", f"{mode} B={b} nprobe={IVF_NPROBE} route={route}",
+                    fn, None, bnd, within(got, want), None,
+                    plain=(lambda: ivf.ivf_scan_blocks_plain(*args))
+                    if route == "auto" else None, plain_reps=1 if b > 16 else 3, **extra)
+            del want, by_route
+
+
+def ivf_against(prefix: str, tag: str, outs: dict) -> dict:
+    """K16's keys held to another tree's within K16's tolerance (the -inf
+    pattern equal), and the top-fetch columns after K5: equal, or different
+    only where the two trees' keys at that position are within it (a
+    near-tie); the count of such columns."""
+    other = np.load(f"{prefix}_{tag}.npz")
+    a, b = outs["keys"], other["keys"]
+    fin = np.isfinite(b)
+    same_inf = bool(np.array_equal(fin, np.isfinite(a)))
+    err = np.abs(a[fin].astype(np.float64) - b[fin])
+    keys_ok = same_inf and bool((err <= 1e-4 + 1e-5 * np.abs(b[fin])).all())
+    diff = outs["col"] != other["col"]
+    ta, tb = outs["top"][diff].astype(np.float64), other["top"][diff]
+    near = bool((np.abs(ta - tb) <= 1e-4 + 1e-5 * np.abs(tb)).all())
+    return {"keys_within_tol_of_other_tree": keys_ok,
+            "max_abs_err_to_other_tree": float(err.max()) if err.size else 0.0,
+            "ids_differing_from_other_tree": int(diff.sum()),
+            "ids_differ_only_at_near_ties": near}
 
 
 if __name__ == "__main__":

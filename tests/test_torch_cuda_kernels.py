@@ -7,7 +7,10 @@ skip without a card; ``python3 chip_smoke.py`` repeats the comparisons at the
 main path's full shapes.
 
 Tolerances: K5 (selection, and its merge of sorted runs) exact, at any k; K1, K3 and ivf_scan_blocks
-distances rtol=1e-5, atol=1e-4 (f32 sums in another order); K2 (the fused
+distances rtol=1e-5, atol=1e-4 (f32 sums in another order; ivf_scan_blocks's rows
+and tile routes equal to the bit, both summing in dimension order); K9's fused keys
+K6c's tolerance of the plain keys of their rows, its ids the plain top C's
+but at near-ties of the C-th key (Chebyshev equal); K2 (the fused
 first pass) keys |d| <= 1e-5 * |qc| * |xc| + 1e-5 at the same row id (a
 bf16 product is exact in f32, only the tensor cores' summation order
 differs); its ids the plain version's set, except for rows whose plain key
@@ -1254,20 +1257,123 @@ def test_binary_tile_unaligned_terms(dev, offset):
         assert torch.equal(got, want), b
 
 
+def _assert_elem_topc(metric, got, full, c):
+    """K9's fused (keys, ids) against the plain keys ``full`` (B, N) of the
+    same inputs: best first with distinct ids, each key within the family's
+    tolerance of the plain key of its row (-inf where that is -inf), and the
+    ids the plain top C's but for rows whose plain key lies within that
+    tolerance of the plain C-th key (Chebyshev exactly the plain chain's)."""
+    keys, ids = got
+    want_k, want_i = topk.topk_select_plain(full, c)
+    if metric in EXACT_KEYS:
+        assert torch.equal(ids, want_i) and torch.equal(keys, want_k)
+        return
+    assert bool((keys[:, 1:] <= keys[:, :-1]).all())
+    for r in range(len(ids)):
+        assert len(set(ids[r].tolist())) == c
+    _assert_keys_close(metric, keys, full.gather(1, ids.long()))
+    fin = torch.isfinite(want_k)
+    scale = float(want_k[fin].abs().max()) if bool(fin.any()) else 0.0
+    kth = want_k[:, -1:].double()
+    for r in range(len(ids)):
+        differ = set(ids[r].tolist()) ^ set(want_i[r].tolist())
+        for i in differ:
+            k = full[r, i].double()
+            assert bool(torch.isinf(k) & torch.isinf(kth[r, 0])) or \
+                float((k - kth[r, 0]).abs()) <= 2e-5 * scale + 1e-5 * abs(float(k)), (r, i)
+
+
 @pytest.mark.parametrize("metric", [Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA,
                                     Metric.BRAY_CURTIS])
 @pytest.mark.parametrize("b", [1, 16, 70])
 def test_elementwise_bf16_mode_matches_plain(dev, metric, b):
-    """K6c over the centred bf16 copy with the mean added back (K9)."""
+    """K9, K6c's pass over the centred bf16 copy with the mean added back,
+    fused with its top C, against its plain chain."""
     rng = np.random.default_rng(b)
     corpus = _aux(rng.normal(size=(5000, 40)).astype(np.float32) + 0.3, dev)
     mean, x16 = corpus.bf16_aux()["mean"], corpus._dev16
-    qt = {"x": torch.from_numpy(rng.normal(size=(b, 40)).astype(np.float32)).to(dev)}
+    q = torch.from_numpy(rng.normal(size=(b, 40)).astype(np.float32)).to(dev)
     valid = corpus.valid_mask()
-    got = scan.elementwise_scores(qt, {"x": x16}, valid, metric, mean=mean)
-    want = scan.metric_keys_plain(qt, {"x": x16}, valid, metric, mean=mean)
-    torch.cuda.synchronize()
-    _assert_keys_close(metric, got, want)
+    full = scan.metric_keys_plain({"x": q}, {"x": x16}, valid, metric, mean=mean)
+    for c in (1, 80, 300):
+        got = scan.elementwise_topc(q, x16, mean, valid, metric, c)
+        torch.cuda.synchronize()
+        _assert_elem_topc(metric, got, full, c)
+
+
+@pytest.mark.parametrize("metric", [Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA,
+                                    Metric.BRAY_CURTIS])
+@pytest.mark.parametrize("b", [2, 5, 8, 9, 17, 33, 64, 65, 256])
+@pytest.mark.parametrize("d", [8, 37, 128])
+def test_elementwise_topc_routes_match_plain(dev, metric, b, d):
+    """K9 on each route by B (the bytes route to 16, Canberra's to 8,
+    Chebyshev's FMA route on 64 / 128-query tiles past it, the 64-row tile's
+    keys and K5 for the others past it), D = 37 (the scalar loads, or the
+    tile's keys), an unaligned query block, 40% of the rows masked, a run of
+    masked rows at the start, C = 1 (with the pilot), C past a span's rows
+    and C = N."""
+    rng = np.random.default_rng(b * d)
+    n = 3001
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    corpus = _aux(x, dev)
+    mean, x16 = corpus.bf16_aux()["mean"], corpus._dev16
+    qbuf = torch.from_numpy(rng.normal(size=(b * d + 1,)).astype(np.float32)).to(dev)
+    q = qbuf[1:].view(b, d) if d == 37 else qbuf[: b * d].view(b, d)
+    valid = corpus.valid_mask() & torch.from_numpy(rng.random(len(x16)) < 0.6).to(dev)
+    valid[:300] = False
+    full = scan.metric_keys_plain({"x": q}, {"x": x16}, valid, metric, mean=mean)
+    for c in (1, 500, len(x16)):
+        got = scan.elementwise_topc(q, x16, mean, valid, metric, c)
+        torch.cuda.synchronize()
+        _assert_elem_topc(metric, got, full, c)
+
+
+@pytest.mark.parametrize("metric", [Metric.L1, Metric.CHEBYSHEV, Metric.BRAY_CURTIS])
+@pytest.mark.parametrize("b", [3, 40])
+def test_elementwise_topc_pilot_and_start(dev, metric, b):
+    """K9's pilot launch (40,000 rows, C of 16 and 64: the first 32 C rows'
+    C-th key starts the main launch's lists) against the plain chain, the
+    pilot forced on and off bit for bit against the default, and a caller's
+    start: the real entries are the unstarted result's at or above
+    it, the rest (-inf, -1)."""
+    rng = np.random.default_rng(b + 7)
+    corpus = _aux(rng.normal(size=(40_000, 32)).astype(np.float32), dev)
+    mean, x16 = corpus.bf16_aux()["mean"], corpus._dev16
+    q = torch.from_numpy(rng.normal(size=(b, 32)).astype(np.float32)).to(dev)
+    valid = corpus.valid_mask() & torch.from_numpy(rng.random(len(x16)) < 0.9).to(dev)
+    full = scan.metric_keys_plain({"x": q}, {"x": x16}, valid, metric, mean=mean)
+    for c in (16, 64):
+        got = scan.elementwise_topc(q, x16, mean, valid, metric, c)
+        torch.cuda.synchronize()
+        _assert_elem_topc(metric, got, full, c)
+        for pilot in (True, False):  # forced either way: the same bits
+            keys, ids = scan.elementwise_topc(q, x16, mean, valid, metric, c, pilot=pilot)
+            assert torch.equal(ids, got[1]) and torch.equal(keys.view(torch.int32),
+                                                            got[0].view(torch.int32))
+        start = got[0][:, c // 2].contiguous()
+        keys, ids = scan.elementwise_topc(q, x16, mean, valid, metric, c, start=start)
+        torch.cuda.synchronize()
+        real = keys >= start[:, None]
+        assert torch.equal(real, got[0] >= start[:, None])
+        assert torch.equal(torch.where(real, keys, 0.0), torch.where(real, got[0], 0.0))
+        assert torch.equal(torch.where(real, ids, -1), ids)
+        assert torch.equal(ids[real], got[1][real])
+        assert bool(torch.isneginf(keys[~real]).all())
+
+
+def test_elementwise_topc_all_masked(dev):
+    """Every row masked: the -inf keys of the lowest row ids, as K5 over
+    the keys returns them, on a bytes-route and an FMA-route batch."""
+    rng = np.random.default_rng(3)
+    corpus = _aux(rng.normal(size=(4000, 64)).astype(np.float32), dev)
+    mean, x16 = corpus.bf16_aux()["mean"], corpus._dev16
+    valid = torch.zeros(len(x16), dtype=torch.bool, device=dev)
+    for b in (3, 40):
+        q = torch.from_numpy(rng.normal(size=(b, 64)).astype(np.float32)).to(dev)
+        keys, ids = scan.elementwise_topc(q, x16, mean, valid, Metric.L1, 100)
+        torch.cuda.synchronize()
+        assert bool(torch.isneginf(keys).all())
+        assert torch.equal(ids.cpu(), torch.arange(100, dtype=torch.int32).expand(b, 100))
 
 
 ELEM_TILE = [Metric.L1, Metric.CHEBYSHEV, Metric.CANBERRA, Metric.BRAY_CURTIS, Metric.WASSERSTEIN,
@@ -1734,6 +1840,62 @@ def test_binary_ivf_blocks_routes_match_plain(dev, metric, b, bits):
             assert torch.equal(got, want)
     finally:
         ivf.BINARY_TILE_MIN_B = saved
+
+
+def f32_probe_state(rng, d: int, sizes, n_rows: int):
+    """An f32 IVF index's device arrays by hand, laid out as
+    binary_probe_state lays out its own (a cluster of three blocks, empty
+    clusters, padding, a last block whose rows are all deleted): returns
+    (cluster_blocks, blocks, block_sq, block_orig, live) as CPU tensors."""
+    bs = ivf.BLOCK_SIZE
+    cluster_blocks, _, _, block_orig, live = binary_probe_state(rng, 32, sizes, n_rows)
+    x = torch.from_numpy(rng.normal(size=(n_rows, d)).astype(np.float32))
+    pad = block_orig >= 0
+    blocks = x[block_orig.clamp_min(0).long()] * pad[:, None]
+    block_sq = D.corpus_transform(blocks, Metric.L2)["sq"]
+    return cluster_blocks, blocks.view(-1, bs, d).contiguous(), block_sq, block_orig, live
+
+
+@pytest.mark.parametrize("d", [7, 32, 128])
+@pytest.mark.parametrize("b", [1, 8, 9, 15, 16, 17, 256])
+@pytest.mark.parametrize("metric", METRICS)
+def test_ivf_scan_routes_match_plain(dev, metric, b, d):
+    """K16 on every route (a row a thread, the inverted probe over the
+    listed blocks, a warp a row) at B around the crossovers and past them,
+    D = 7 on the scalar loads: keys within K16's tolerance of the plain
+    version's, the -inf pattern equal, the rows and tile routes equal to
+    the bit; a cluster of three blocks, empty clusters, a block with no
+    live row, half the batch probing the widest cluster; the shared launch
+    pushed to either side (min_share 0 and inf) equal to that route to the
+    bit, and the batch's own launch to the route it takes."""
+    rng = np.random.default_rng(b * d + 1)
+    sizes = [5000, 0, 2048, 1, 700, 3000] + [int(v) for v in rng.integers(1, 900, 20)]
+    n_rows = sum(sizes)
+    cluster_blocks, blocks, block_sq, block_orig, live = [
+        t.to(dev) for t in f32_probe_state(rng, d, sizes, n_rows)]
+    nprobe = 6
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).to(dev)
+    top_c = torch.from_numpy(np.stack([rng.permutation(len(sizes))[:nprobe] for _ in range(b)])
+                             .astype(np.int32)).to(dev)
+    top_c[: b // 2, 0] = 0
+    args = (q, (q * q).sum(-1), top_c, cluster_blocks, blocks, block_sq, block_orig, live, metric)
+    want = ivf.ivf_scan_blocks_plain(*args)
+    fin = torch.isfinite(want)
+    got = {}
+    for route in ("rows", "tile", "warp"):
+        got[route] = ivf.scan_blocks_route(*args, route)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isfinite(got[route]), fin), route
+        err = (got[route][fin] - want[fin]).abs()
+        assert bool((err <= 1e-4 + 1e-5 * want[fin].abs()).all()), route
+    assert torch.equal(got["tile"].view(torch.int32), got["rows"].view(torch.int32))
+    for min_share, side in ((0.0, "tile"), (float("inf"), "warp")):
+        shared = ivf.scan_blocks_route(*args, "shared", min_share)
+        assert torch.equal(shared.view(torch.int32), got[side].view(torch.int32)), side
+    route = ivf._scan_route(b)
+    taken = ivf.shared_route(top_c, cluster_blocks) if route == "shared" else route
+    auto = ivf.ivf_scan_blocks(*args).view(torch.int32)
+    assert torch.equal(auto, got[taken].view(torch.int32))
 
 
 @pytest.mark.parametrize("mode", ["HNSW-L1", "HNSW-JENSEN-SHANNON", "HNSW-HAVERSINE"])
